@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~1.5 min on an H100
-    python3 chip_smoke.py --genomes 64 --reads 512   # quick start check
+    python3 chip_smoke.py                 # full size, ~5 min on an H100
+    python3 chip_smoke.py --genomes 64 --reads 512 --hier-genomes 200 \
+        --hier-reads 512                  # quick start check
 
 Phases (any failure exits non-zero):
   1. card and build: prints nvidia-smi's name and power limit, builds
@@ -11,16 +12,29 @@ Phases (any failure exits non-zero):
      length bucket 256..32768 on random, homopolymer, tandem-repeat and
      N-containing reads, plus a gap-1 scheme whose sort buffer spills to
      global memory;
-  3. K2 (probe/count) against its plain twin, bit-exact, at the flat
-     geometries of the reference's five probe kernels, with invalid
-     slots whose fingerprint is 0 and per-bin counts above 256;
-  4. the main path: a flat k=22/s=12 syncmer index of synthetic 30 kb
-     genomes built with ``taxor_tpu_torch.cli build``, ONT-like reads
-     (log-normal lengths clipped to 500-30,000 bases, 4% substitutions)
-     plus reads over L_CAP, searched with ``taxor_tpu_torch.cli search
-     --engine device``; both kernels must have launched, and the TSV
-     must equal ``--engine host`` byte for byte on a subset;
-  5. K1 and K2 timed against their twins at the main path's shapes.
+  3. the probe (K2, or K2n for tables of at most 512 bins) against its
+     plain twin, bit-exact, at the flat geometries of the reference's
+     five probe kernels, with invalid slots whose fingerprint is 0 and
+     per-bin counts above 256;
+  4. the flat main path: a flat k=22/s=12 syncmer index of synthetic
+     30 kb genomes built with ``taxor_tpu_torch.cli build``, ONT-like
+     reads (log-normal lengths clipped to 500-30,000 bases, 4%
+     substitutions) plus reads over L_CAP, searched with
+     ``taxor_tpu_torch.cli search --engine device``; K1 and K2 must have
+     launched, and the TSV must equal ``--engine host`` byte for byte on
+     a subset;
+  5. K1 and K2 timed against their twins at the flat path's shapes;
+  6. K2n and K2 over stacked tables (G = 1 and 8) with a mixed activity
+     mask against their twin, bit-exact, at 16..512 bins (K2n) and 4,096
+     bins (K2), with fingerprint-0 slots, counts above 256 and a read
+     inactive everywhere;
+  7. the hierarchical main path: the same recipe on an index built with
+     ``--layout auto --tmax 64`` (a 64-bin root); K1, the grouped probe
+     and the per-IXF traversal of the reads over L_CAP must have
+     launched, the TSV must equal ``--engine host`` on a subset, and 99%
+     of the classified reads must name their source genome;
+  8. K2n and K2 timed against their twin on the root group and on one
+     stacked level at the hierarchical path's L=8192 bucket.
 
 The second-to-last line of stdout is nvidia-smi's name and power limit;
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.  The
@@ -44,6 +58,7 @@ ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 K, S = 22, 12  # the reference's published syncmer scheme
 GENOME_LEN = 30000
 LONG_READS = 16  # of 40 kb: over L_CAP, the host-hash route
+TMAX = 64  # technical bins per IXF of the hierarchical index
 CHECK_READS = 1024  # first reads held byte-equal to --engine host
 SEED = 20261016
 
@@ -149,16 +164,66 @@ def check_k2(torch, probe, rng) -> None:
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in (hi, lo, valid)]
         tbl = torch.from_numpy(table).to(dev)
+        n2, n2n = probe.k2_counts.LAUNCHES, probe.k2n_counts.LAUNCHES
         got = probe.probe_counts(*args, tbl, seed, bl)
         want = probe.probe_counts_plain(*args, tbl, seed, bl)
         torch.cuda.synchronize()
+        kernel = "K2n" if probe.k2n_counts.LAUNCHES > n2n else "K2"
+        assert probe.k2_counts.LAUNCHES + probe.k2n_counts.LAUNCHES \
+            == n2 + n2n + 1
         if not torch.equal(got, want):
             raise AssertionError(f"K2 {label}: counts differ from the twin")
         if int(got.max()) <= 256 or int(got[1].abs().sum()) != 0:
             raise AssertionError(f"K2 {label}: case did not exercise "
                                  "counts > 256 / all-invalid reads")
-        log(f"K2 {label} (S={S_}, Bpad={Bp}; TPU {ref}): bit-exact vs twin, "
-            f"max count {int(got.max())}")
+        log(f"{kernel} {label} (S={S_}, Bpad={Bp}; TPU {ref}): bit-exact vs "
+            f"twin, max count {int(got.max())}")
+
+
+def check_grouped(torch, probe, rng) -> None:
+    """K2n and K2 over G stacked tables with a mixed activity mask."""
+    from taxor_tpu.utils.u64np import fingerprint8, mix_split
+
+    dev = torch.device("cuda")
+    seed = int(rng.integers(0, 2**63))
+    bl, R, H = 3000, 16, 2048
+    pool = rng.integers(0, 2**64, 1 << 20, dtype=np.uint64)
+    zero_fp = pool[fingerprint8(mix_split(pool, seed)) == 0]
+    keys = rng.integers(0, 2**64, (R, H), dtype=np.uint64)
+    keys[0] = zero_fp[:H]  # read 0 counts > 256 in the zero columns
+    valid = rng.random((R, H)) < 0.7
+    valid[1] = False  # no valid slot
+    hi = (keys >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (hi, lo, valid)]
+    for Bp in (16, 64, 128, 512, 4096):
+        kernel = (probe.k2n_counts if Bp <= probe.NARROW_MAX_BINS
+                  else probe.k2_counts)
+        for G in (1, 8):
+            tables = rng.integers(0, 256, (G, 3 * bl, Bp), dtype=np.uint8)
+            tables[:, :, ::7] = 0
+            active = rng.random((G, R)) < 0.5
+            active[:, 0] = True
+            active[:, R - 1] = False  # a read inactive everywhere
+            tb = torch.from_numpy(tables).to(dev)
+            act = torch.from_numpy(active).to(dev)
+            n = kernel.LAUNCHES
+            got = probe.probe_counts_grouped(*args, tb, act, seed, bl)
+            want = probe.probe_counts_grouped_plain(*args, tb, act, seed, bl)
+            torch.cuda.synchronize()
+            if kernel.LAUNCHES != n + 1 or not torch.equal(got, want):
+                raise AssertionError(f"grouped probe Bpad={Bp} G={G}: "
+                                     "kernel differs from the twin")
+            if (int(got[:, 0].max()) <= 256
+                    or int(got[:, R - 1].abs().sum()) != 0):
+                raise AssertionError(f"grouped probe Bpad={Bp} G={G}: case "
+                                     "did not exercise counts > 256 / "
+                                     "inactive reads")
+            name = "K2n" if kernel is probe.k2n_counts else "K2"
+            log(f"{name} grouped Bpad={Bp} G={G} (S={3 * bl}, R={R}, H={H}, "
+                f"{int(active.sum())}/{G * R} active): bit-exact vs twin, "
+                f"max count {int(got.max())}")
 
 
 # ------------------------------------------------------- main path data --
@@ -226,19 +291,42 @@ def tsv_rows(path: str, ids: set | None = None) -> list[str]:
     return [x for x in lines if x.split("\t", 1)[0] in ids]
 
 
-def main_path(torch, args, work: str, rng) -> dict:
+def reset_counts(extract, probe, pipeline) -> None:
+    from taxor_tpu_torch.device.hixf_search import ACTIVITY
+
+    ACTIVITY.reset()
+    extract.syncmer_hashes.LAUNCHES = 0
+    for k in (probe.k2_counts, probe.k2n_counts):
+        k.LAUNCHES = 0
+        k.ROUTES = {}
+    pipeline.ROUTES.reset()
+
+
+def read_counts(extract, probe) -> dict:
+    return {"K1": extract.syncmer_hashes.LAUNCHES,
+            "K2": probe.k2_counts.LAUNCHES, "K2n": probe.k2n_counts.LAUNCHES,
+            "K2 routes": dict(probe.k2_counts.ROUTES),
+            "K2n routes": dict(probe.k2n_counts.ROUTES)}
+
+
+def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
+              layout: str) -> dict:
+    """Build an index of n_genomes with --layout ``layout``, search
+    n_reads + LONG_READS through the device engine with the launch
+    counts set to 0 just before, check the TSV against --engine host on
+    a subset and the classifications against the source genomes."""
     from taxor_tpu_torch import cli
     from taxor_tpu_torch.device import extract, probe
     from taxor_tpu_torch.search import pipeline
 
     threads = str(os.cpu_count() or 1)
     t0 = time.perf_counter()
-    tsv, gdir, genomes = make_genomes(rng, work, args.genomes, GENOME_LEN)
-    recs = make_reads(rng, genomes, args.reads, LONG_READS)
+    tsv, gdir, genomes = make_genomes(rng, work, n_genomes, GENOME_LEN)
+    recs = make_reads(rng, genomes, n_reads, LONG_READS)
     reads = os.path.join(work, "reads.fasta")
     write_fasta(reads, recs)
-    log(f"data: {args.genomes} genomes x {GENOME_LEN} b, {args.reads} reads "
-        f"({sum(len(s) for _, s in recs[:args.reads]) / 1e6:.1f} Mb) + "
+    log(f"[{layout}] data: {n_genomes} genomes x {GENOME_LEN} b, {n_reads} "
+        f"reads ({sum(len(s) for _, s in recs[:n_reads]) / 1e6:.1f} Mb) + "
         f"{LONG_READS} x 40 kb, made in {time.perf_counter() - t0:.1f} s")
 
     idx = os.path.join(work, "idx.taxor.npz")
@@ -249,7 +337,8 @@ def main_path(torch, args, work: str, rng) -> dict:
         rc = cli.main(["build", "--input-file", tsv, "--input-sequence-dir",
                        gdir, "--output-filename", idx, "--kmer-size",
                        str(K), "--syncmer-size", str(S), "--use-syncmer",
-                       "--layout", "flat", "--threads", threads])
+                       "--layout", layout, "--threads", threads]
+                      + (["--tmax", str(TMAX)] if layout == "auto" else []))
     finally:
         os.chdir(cwd)
     if rc != 0:
@@ -257,42 +346,40 @@ def main_path(torch, args, work: str, rng) -> dict:
     from taxor_tpu.hixf.index import load_index
 
     index = load_index(idx)
-    ixf = index.hixf.ixfs[0]
-    log(f"build: {time.perf_counter() - t0:.1f} s, flat IXF S="
-        f"{ixf.fingerprints.shape[0]} x B={ixf.fingerprints.shape[1]} "
-        f"(block_length {ixf.block_length}, "
-        f"{ixf.fingerprints.nbytes / 1e6:.1f} MB)")
+    ixfs = index.hixf.ixfs
+    log(f"[{layout}] build: {time.perf_counter() - t0:.1f} s, {len(ixfs)} "
+        f"IXF(s), root S={ixfs[0].fingerprints.shape[0]} x "
+        f"B={ixfs[0].fingerprints.shape[1]} (block_length "
+        f"{ixfs[0].block_length}), fingerprints "
+        f"{sum(x.fingerprints.nbytes for x in ixfs) / 1e6:.1f} MB")
 
     # ---- the main path, counted
     out_dev = os.path.join(work, "device.tsv")
-    extract.syncmer_hashes.LAUNCHES = 0
-    probe.probe_counts.LAUNCHES = 0
-    pipeline.ROUTES.reset()
+    reset_counts(extract, probe, pipeline)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
                    "--output-file", out_dev, "--engine", "device",
                    "--device", "cuda", "--write-time", "--threads", threads])
     wall = time.perf_counter() - t0
-    launches = {"K1": extract.syncmer_hashes.LAUNCHES,
-                "K2": probe.probe_counts.LAUNCHES}
+    launches = read_counts(extract, probe)
     routes = dict(pipeline.ROUTES.counts)
     if rc != 0:
         raise RuntimeError(f"device search failed ({rc})")
-    if min(launches.values()) <= 0:
+    if launches["K1"] <= 0 or launches["K2"] + launches["K2n"] <= 0:
         raise AssertionError(f"main path skipped a kernel: {launches}")
     with open(out_dev + ".time") as fh:
         phases = fh.read().strip().replace("\n", " | ")
     n_total = len(recs)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"main path: {n_total} reads in {wall:.2f} s wall = "
+    log(f"[{layout}] main path: {n_total} reads in {wall:.2f} s wall = "
         f"{n_total / wall:.1f} reads/s; .time [{phases}]; launches "
         f"{launches}; routes {routes} (host-oracle fallback "
         f"{routes['host_fallback'] / n_total:.4f}); peak device memory "
         f"{peak:.1f} MiB")
 
     # ---- byte parity with the host engine on a subset
-    sub = recs[:min(CHECK_READS, args.reads)] + recs[args.reads:]
+    sub = recs[:min(CHECK_READS, n_reads)] + recs[n_reads:]
     sub_fa = os.path.join(work, "subset.fasta")
     write_fasta(sub_fa, sub)
     out_host = os.path.join(work, "host.tsv")
@@ -309,9 +396,9 @@ def main_path(torch, args, work: str, rng) -> dict:
                    if a != b) if len(dev_rows) == len(host_rows) else -1
         raise AssertionError(f"device TSV differs from host TSV (row {bad}, "
                              f"{len(dev_rows)} vs {len(host_rows)} rows)")
-    log(f"parity: device TSV == host TSV byte for byte on {len(sub)} reads "
-        f"({len(host_rows)} rows; host engine {time.perf_counter() - t0:.1f}"
-        " s)")
+    log(f"[{layout}] parity: device TSV == host TSV byte for byte on "
+        f"{len(sub)} reads ({len(host_rows)} rows; host engine "
+        f"{time.perf_counter() - t0:.1f} s)")
 
     # ---- the result is right: a classified read names its source genome
     first = {}
@@ -323,23 +410,76 @@ def main_path(torch, args, work: str, rng) -> dict:
     if right < 0.99 * len(hits):
         raise AssertionError(f"only {right} of {len(hits)} classified reads "
                              "name their source genome")
-    log(f"accuracy: {len(hits)}/{n_total} reads classified, {right} of "
-        "them to their source genome")
-    return {"index": index, "recs": recs, "launches": launches}
+    log(f"[{layout}] accuracy: {len(hits)}/{n_total} reads classified, "
+        f"{right} of them to their source genome")
+    return {"index": index, "recs": recs, "launches": launches,
+            "routes": routes, "peak_mib": peak}
+
+
+def hier_report(torch, state) -> None:
+    """The hierarchical path's shape and descent activity; asserts a
+    hierarchy with a stacked group, the grouped probe and the per-IXF
+    traversal."""
+    from taxor_tpu_torch.device import hixf_search
+
+    dh = hixf_search.DeviceHIXF.from_hixf(state["index"].hixf, "cuda")
+    Gs = [g["tables"].shape[0] for g in dh.groups]
+    depth = max(dh._depths().values())
+    launches = state["launches"]
+    counts_route = (launches["K2 routes"].get("host_hashes", 0)
+                    + launches["K2n routes"].get("host_hashes", 0))
+    log(f"[auto] tree: {len(dh.ixfs)} IXFs, depth {depth}; {sum(Gs)} probe "
+        f"subgroups in {len(Gs)} launches per batch, stacked groups G="
+        f"{[G for G in Gs if G > 1]}, tables "
+        f"{[tuple(g['tables'].shape) for g in dh.groups]}; active "
+        f"(subgroup, read) pairs {hixf_search.ACTIVITY.share():.4f}; "
+        f"probe launches on the per-IXF traversal {counts_route}")
+    if len(dh.ixfs) <= 1 or max(Gs) < 2:
+        raise AssertionError("the hierarchical cell has no hierarchy or no "
+                             "stacked group")
+    fused = (launches["K2 routes"].get("fused", 0)
+             + launches["K2n routes"].get("fused", 0))
+    if fused <= 0 or counts_route <= 0 or state["routes"]["host_hashes"] <= 0:
+        raise AssertionError(f"a route skipped the probe: {launches}")
+    state["dh"] = dh
+
+
+def time_pair(torch, fn, plain, reps: int):
+    """(kernel ms, plain ms, max abs err), each the best of two means,
+    timed plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, 1)
+    m1 = cuda_ms(fn, reps)
+    m2 = cuda_ms(fn, reps)
+    p2 = cuda_ms(plain, 1)
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+              for a, b in zip(got, want))
+    if err != 0.0:
+        raise AssertionError("a kernel differs from its twin")
+    return min(m1, m2), min(p1, p2), err, (m1, m2, p1, p2)
+
+
+def bucket_reads(recs, L: int) -> list[bytes]:
+    """POS_BUDGET / L reads of the L bucket, as the pipeline batches them."""
+    from taxor_tpu_torch.search.pipeline import POS_BUDGET
+
+    seqs = [s for _, s in recs if L // 2 < len(s) <= L]
+    n = POS_BUDGET // L
+    return (seqs * (n // max(1, len(seqs)) + 1))[:n]
 
 
 def time_kernels(torch, state) -> list[dict]:
-    """K1 and K2 against their twins at the main path's L=8192 bucket."""
+    """K1 and K2 against their twins at the flat path's L=8192 bucket."""
     from taxor_tpu_torch.device import extract, probe
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
     from taxor_tpu_torch.hash import device_syncmer as dsync
-    from taxor_tpu_torch.search.pipeline import POS_BUDGET
 
     dev = torch.device("cuda")
     L = 8192
-    seqs = [s for _, s in state["recs"] if L // 2 < len(s) <= L]
-    seqs = (seqs * (POS_BUDGET // L // max(1, len(seqs)) + 1))[:POS_BUDGET
-                                                                 // L]
+    seqs = bucket_reads(state["recs"], L)
     packed, lengths = dsync.pack_reads(seqs, L)
     pk = torch.from_numpy(packed).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
@@ -361,28 +501,61 @@ def time_kernels(torch, state) -> list[dict]:
              "taxor_tpu/device/pallas_extract.py:160", k1, k1p, 5),
             ("probe_count", "taxor_tpu_torch/csrc/probe.cu",
              "taxor_tpu/device/pallas_probe.py:257", k2, k2p, 20)):
-        # plain, kernel, kernel, plain
-        p1 = cuda_ms(plain, 1)
-        m1 = cuda_ms(fn, reps)
-        m2 = cuda_ms(fn, reps)
-        p2 = cuda_ms(plain, 1)
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        err = max(float((a.to(torch.float64) - b.to(torch.float64))
-                        .abs().max()) for a, b in zip(
-                            got if isinstance(got, tuple) else (got,),
-                            want if isinstance(want, tuple) else (want,)))
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel differs from its twin")
+        ms, plain_ms, err, each = time_pair(torch, fn, plain, reps)
         log(f"time {name} at R={len(seqs)}, L={L}, H={hcap}, table "
-            f"{tuple(dh.table.shape)}: kernel {m1:.3f}/{m2:.3f} ms, plain "
-            f"{p1:.3f}/{p2:.3f} ms")
-        launches = state["launches"]["K1" if name == "syncmer_extract"
-                                     else "K2"]
+            f"{tuple(dh.table.shape)}: kernel {each[0]:.4f}/{each[1]:.4f} "
+            f"ms, plain {each[2]:.3f}/{each[3]:.3f} ms")
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches,
-                     "max_abs_err": err, "ms": min(m1, m2),
-                     "plain_ms": min(p1, p2)})
+                     "replaces": rep, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms})
+    return rows
+
+
+def time_hier(torch, state) -> list[dict]:
+    """K2n and K2 against their twin on the root group and on the first
+    stacked level, at the hierarchical path's L=8192 bucket, with the
+    descent's own activity masks."""
+    from taxor_tpu.search.thresholds import Thresholder
+    from taxor_tpu_torch.device import extract, probe
+    from taxor_tpu_torch.device.e2e import descend
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+
+    dev = torch.device("cuda")
+    dh = state["dh"]
+    L = 8192
+    seqs = bucket_reads(state["recs"], L)
+    packed, lengths = dsync.pack_reads(seqs, L)
+    hcap = dsync.hash_cap(L)
+    hi, lo, valid, n_unique, _ = extract.syncmer_hashes(
+        torch.from_numpy(packed).to(dev), torch.from_numpy(lengths).to(dev),
+        K, S, (K - S + 1) // 2, hcap)
+    th = Thresholder.make(K, K, 0.04, -1.0, True)
+    thr = torch.from_numpy(dh._thr_table(th, hcap)).to(dev)[
+        n_unique.clamp(0, hcap).long()]
+    stacked = next(i for i, g in enumerate(dh.groups)
+                   if g["tables"].shape[0] > 1)
+    rows = []
+    for label, gi in (("root", 0), ("stacked level", stacked)):
+        g = dh.groups[gi]
+        act = descend(dh.groups, len(dh.bfs_order), hi, lo, valid, thr,
+                      upto=gi)
+        a = (hi, lo, valid, g["tables"], act, g["seed"], g["bl"])
+        plain = lambda: probe.probe_counts_grouped_plain(*a)  # noqa: E731
+        for name, kern in (("probe_count_narrow", probe.k2n_counts),
+                           ("probe_count", probe.k2_counts)):
+            ms, plain_ms, err, each = time_pair(
+                torch, lambda: kern(*a), plain, 20)  # noqa: B023
+            log(f"time {name} on the {label} group at R={len(seqs)}, "
+                f"L={L}, H={hcap}, tables {tuple(g['tables'].shape)}, "
+                f"{int(act.sum())}/{act.numel()} (subgroup, read) pairs "
+                f"active: kernel {each[0]:.4f}/{each[1]:.4f} ms, plain "
+                f"{each[2]:.3f}/{each[3]:.3f} ms")
+            if label == "root" and name == "probe_count_narrow":
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "source": "taxor_tpu_torch/csrc/probe_narrow.cu",
+                    "replaces": "taxor_tpu/device/pallas_probe.py:578",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     return rows
 
 
@@ -390,8 +563,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genomes", type=int, default=4096,
                     help="reference genomes of 30 kb in the flat index")
-    ap.add_argument("--reads", type=int, default=16384,
-                    help="ONT-like reads (plus 16 of 40 kb)")
+    ap.add_argument("--reads", type=int, default=8192,
+                    help="ONT-like reads of the flat path (plus 16 of 40 kb)")
+    ap.add_argument("--hier-genomes", type=int, default=8192,
+                    help="reference genomes of 30 kb in the hierarchical "
+                         "index")
+    ap.add_argument("--hier-reads", type=int, default=16384,
+                    help="ONT-like reads of the hierarchical path (plus 16 "
+                         "of 40 kb)")
     args = ap.parse_args()
 
     import torch
@@ -417,10 +596,24 @@ def main() -> int:
     os.makedirs(root, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
     try:
-        state = main_path(torch, args, work, rng)
-        kernels = time_kernels(torch, state)
+        flat = main_path(torch, os.path.join(work, "flat"), rng, args.genomes,
+                         args.reads, "flat")
+        kernels = time_kernels(torch, flat)
+        shutil.rmtree(os.path.join(work, "flat"), ignore_errors=True)
+        check_grouped(torch, probe, rng)
+        hier = main_path(torch, os.path.join(work, "hier"), rng,
+                         args.hier_genomes, args.hier_reads, "auto")
+        hier_report(torch, hier)
+        kernels += time_hier(torch, hier)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for row in kernels:  # launches of both main paths
+        key = {"syncmer_extract": "K1", "probe_count": "K2",
+               "probe_count_narrow": "K2n"}[row["name"]]
+        row["launches"] = flat["launches"][key] + hier["launches"][key]
+    if any(r["launches"] <= 0 for r in kernels):
+        raise AssertionError(f"a kernel never launched on a main path: "
+                             f"{kernels}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

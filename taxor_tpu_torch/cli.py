@@ -39,8 +39,8 @@ def _add_build(sub):
     p.add_argument("--threads", type=int, default=1)
     p.add_argument("--use-syncmer", action="store_true")
     p.add_argument("--layout", default="auto", choices=["auto", "flat"],
-                   help="layout algorithm (auto = hierarchical DP; the "
-                        "device engine searches flat indexes)")
+                   help="layout algorithm (auto = hierarchical DP, flat = "
+                        "one IXF)")
     p.add_argument("--tmax", type=int, default=4096)
     p.add_argument("--output-verbose-statistics", action="store_true",
                    help="Enable verbose statistics to be printed")

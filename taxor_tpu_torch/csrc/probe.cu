@@ -1,7 +1,7 @@
-// K2: interleaved XOR filter probe/count.
+// K2: interleaved XOR filter probe/count over a stack of G tables.
 //
-// counts[r, b] = #{ valid h in read r :
-//                   T[p0(h), b] ^ T[p1(h), b] ^ T[p2(h), b] == fprint(h) }
+// counts[g, r, b] = active[g, r] * #{ valid h in read r :
+//                   T_g[p0(h), b] ^ T_g[p1(h), b] ^ T_g[p2(h), b] == fprint(h) }
 //
 // Replaces the five live TPU probe kernels of
 // taxor_tpu/device/pallas_probe.py, which compute this one function and
@@ -9,20 +9,24 @@
 // (_probe_call_p10x2 via _probe_call_chunked_p10), _kernel_p16
 // (_probe_call_p16), _kernel_wide_p16 (_probe_call_wide_p16), _kernel
 // (_probe_call) and _kernel_wide (_probe_call_wide).  One kernel serves
-// every flat geometry: any S addressable with int32 positions, any B.
+// every geometry: any S addressable with int32 positions, any B.  The
+// group axis replaces the lax.scan over the stacked subgroups of one
+// descent level (taxor_tpu/device/e2e.py make_hixf_e2e_grouped_fn), and
+// the activity mask the zero trip counts of inactive reads
+// (pallas_probe._body_counts): a read inactive in table g writes zeros
+// and stages no hash.  Tables of at most 512 bins take K2n instead
+// (probe_narrow.cu).
 //
-// The kernel computes each hash's probe slots and fingerprint itself, as
-// ixf/xor_filter.compute_probes does: m = murmur64(h + seed),
-// p_i = reduce32(uint32(rotl64(m, 21 i)), bl) + i bl, fprint = uint8(m ^
-// m >> 32).  Invalid slots are dropped when a tile is staged, so there is
-// no sentinel row, no poison fingerprint and no packed positions.
+// The kernel computes each hash's probe slots and fingerprint itself
+// (probe_stage.cuh).  Invalid slots are dropped when a tile is staged, so
+// there is no sentinel row, no poison fingerprint and no packed positions.
 //
-// Grid: x = read, y = 512-bin column block.  Each thread owns 4 adjacent
-// bins (one 32-bit word of every table row) and is the only writer of
-// their 4 counts: no atomics, deterministic output.  Per tile of up to
-// kTile hashes the block computes the probes of the valid slots into
-// shared memory, compacted in slot order with warp ballots; then every
-// thread XORs 3 table words per hash and counts zero bytes.
+// Grid: x = read, y = 512-bin column block, z = table g.  Each thread owns
+// 4 adjacent bins (one 32-bit word of every table row) and is the only
+// writer of their 4 counts: no atomics, deterministic output.  Per tile of
+// up to kTile hashes the block stages the probes of the valid slots into
+// shared memory; then every thread XORs 3 table words per hash and counts
+// zero bytes.
 //
 // What bounds it on the H100: fingerprint-row bytes, 3 rows x Bpad bytes
 // per valid hash, from L2 (a flat table of a few tens of MB stays in the
@@ -34,7 +38,7 @@
 
 #include <cstdint>
 
-#include "u64.cuh"
+#include "probe_stage.cuh"
 
 namespace {
 
@@ -43,45 +47,28 @@ constexpr int kTile = 1024;    // hashes staged per round
 
 __global__ void __launch_bounds__(kThreads) probe_count_kernel(
     const int32_t* __restrict__ hi, const int32_t* __restrict__ lo,
-    const uint8_t* __restrict__ valid, int H,
-    const uint32_t* __restrict__ table, int B4, uint64_t seed, uint32_t bl,
+    const uint8_t* __restrict__ valid, int R, int H,
+    const uint32_t* __restrict__ table, size_t table_words, int B4,
+    const uint8_t* __restrict__ active, uint64_t seed, uint32_t bl,
     int32_t* __restrict__ out) {
   __shared__ int p0[kTile], p1[kTile], p2[kTile];
   __shared__ uint32_t f4[kTile];
   __shared__ int warp_n[kThreads / 32];
   const int r = blockIdx.x;
+  const size_t gr = (size_t)blockIdx.z * R + r;
   const int col = blockIdx.y * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int4* dst = reinterpret_cast<int4*>(out + gr * B4 * 4);
+  if (active != nullptr && !active[gr]) {  // uniform over the block
+    if (col < B4) dst[col] = make_int4(0, 0, 0, 0);
+    return;
+  }
+  table += blockIdx.z * table_words;
   const size_t row0 = (size_t)r * H;
   int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
   int h = 0;  // next slot of the read to stage
   while (h < H) {
-    // stage up to kTile valid hashes, in slot order
-    int n = 0;
-    while (h < H && n + kThreads <= kTile) {
-      const int j = h + threadIdx.x;
-      const bool v = j < H && valid[row0 + j];
-      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, v);
-      if (lane == 0) warp_n[warp] = __popc(ballot);
-      __syncthreads();
-      int off = n;
-      for (int q = 0; q < warp; ++q) off += warp_n[q];
-      int total = 0;
-      for (int q = 0; q < kThreads / 32; ++q) total += warp_n[q];
-      if (v) {
-        const int e = off + __popc(ballot & ((1u << lane) - 1));
-        const uint64_t key = ((uint64_t)(uint32_t)hi[row0 + j] << 32) |
-                             (uint32_t)lo[row0 + j];
-        const uint64_t m = taxor::murmur64(key + seed);
-        p0[e] = (int)taxor::reduce32(m, bl);
-        p1[e] = (int)(taxor::reduce32(taxor::rotl64(m, 21), bl) + bl);
-        p2[e] = (int)(taxor::reduce32(taxor::rotl64(m, 42), bl) + 2 * bl);
-        f4[e] = (uint32_t)((m ^ (m >> 32)) & 0xFFu) * 0x01010101u;
-      }
-      n += total;
-      h += kThreads;
-      __syncthreads();  // warp_n is rewritten next round
-    }
+    const int n = taxor::stage_probes<kThreads, kTile>(
+        hi, lo, valid, row0, H, h, seed, bl, p0, p1, p2, f4, warp_n);
     if (col < B4) {
 #pragma unroll 4
       for (int e = 0; e < n; ++e) {
@@ -96,27 +83,27 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(
     }
     __syncthreads();  // the tile is restaged next round
   }
-  if (col < B4) {
-    reinterpret_cast<int4*>(out + (size_t)r * B4 * 4)[col] =
-        make_int4(c0, c1, c2, c3);
-  }
+  if (col < B4) dst[col] = make_int4(c0, c1, c2, c3);
 }
 
 }  // namespace
 
+// tables: G contiguous uint8 [S, Bpad] tables; active: uint8 [G, R] or
+// null (every read active); out: int32 [G, R, Bpad].
 extern "C" int launch_probe_count(const void* hi, const void* lo,
                                   const void* valid, int R, int H,
-                                  const void* table, int S, int Bpad,
-                                  uint64_t seed, uint32_t block_length,
-                                  void* out, void* stream) {
-  (void)S;  // the wrapper checks 3 * block_length <= S
-  if (R == 0) return 0;
+                                  const void* table, int G, int S, int Bpad,
+                                  const void* active, uint64_t seed,
+                                  uint32_t block_length, void* out,
+                                  void* stream) {
+  if (R == 0 || G == 0) return 0;
   const int B4 = Bpad / 4;
-  const dim3 grid(R, (B4 + kThreads - 1) / kThreads);
+  const dim3 grid(R, (B4 + kThreads - 1) / kThreads, G);
   probe_count_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const int32_t*>(hi), static_cast<const int32_t*>(lo),
-      static_cast<const uint8_t*>(valid), H,
-      static_cast<const uint32_t*>(table), B4, seed, block_length,
+      static_cast<const uint8_t*>(valid), R, H,
+      static_cast<const uint32_t*>(table), (size_t)S * B4, B4,
+      static_cast<const uint8_t*>(active), seed, block_length,
       static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }

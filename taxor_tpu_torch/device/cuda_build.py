@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` compiles in one ``nvcc`` call for ``sm_90a`` into a
+Every ``csrc/*.cu`` compiles for ``sm_90a`` in its own ``nvcc`` process,
+all started together, and one more ``nvcc`` call links the objects into a
 shared library with a plain C interface, loaded with ctypes.  The build
 runs at first use (never at import) into ``taxor_tpu_torch/_build/``,
 which .gitignore lists; the library's name carries a hash of the
@@ -33,10 +34,12 @@ _SIGNATURES = {
     #  out_hi, out_lo, out_valid, n_unique, n_emit, stream)
     "launch_syncmer_extract": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                                _P, _P, _P, _P, _P, _P],
-    # (hi, lo, valid, R, H, table, S, Bpad, seed, block_length, out,
-    #  stream)
-    "launch_probe_count": [_P, _P, _P, _I, _I, _P, _I, _I,
+    # (hi, lo, valid, R, H, tables, G, S, Bpad, active, seed,
+    #  block_length, out, stream)
+    "launch_probe_count": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                            ctypes.c_uint64, ctypes.c_uint32, _P, _P],
+    "launch_probe_count_narrow": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
+                                  ctypes.c_uint64, ctypes.c_uint32, _P, _P],
 }
 
 
@@ -68,12 +71,28 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp,
-           *[p for p in srcs if p.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objs, procs = [], []
+    for src in (p for p in srcs if p.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_nvcc(), *flags, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    errs = [f"{p.args[-1]}:\n{p.communicate()[1]}" for p in procs]
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                e for e, p in zip(errs, procs) if p.returncode))
+        res = subprocess.run([_nvcc(), *flags, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)  # atomic: a concurrent build never loads a part
     return out
 
@@ -106,8 +125,10 @@ def stream_of(t) -> int:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """wrapper.LAUNCHES += 1 under a lock: pipeline workers launch from
-    several threads."""
+def count_launch(wrapper, route: str | None = None) -> None:
+    """wrapper.LAUNCHES += 1, and wrapper.ROUTES[route] += 1 for a named
+    route, under a lock: pipeline workers launch from several threads."""
     with _COUNT_LOCK:
         wrapper.LAUNCHES += 1
+        if route is not None:
+            wrapper.ROUTES[route] = wrapper.ROUTES.get(route, 0) + 1

@@ -1,19 +1,44 @@
-"""Device-resident flat index for the search pipeline.
+"""Device-resident index for the search pipeline.
 
-Counterpart of the flat (single-IXF) part of
-``taxor_tpu/device/hixf_search.DeviceHIXF``.  ``from_hixf`` turns the
-host ``HIXF`` of a loaded ``TaxorIndex`` into device tensors: the uint8
-fingerprint table [S, Bpad] with bins contiguous per slot, the run
-offsets and run users, and the seed and block length as Python ints.
+Counterpart of ``taxor_tpu/device/hixf_search.DeviceHIXF``.  ``from_hixf``
+turns the host ``HIXF`` of a loaded ``TaxorIndex`` into device tensors.
 The dispatch methods return the same collector tuples as the JAX class,
 so ``search/pipeline.py`` decodes both the same way.
 
-A hierarchical index (more than one IXF) raises: its level-grouped
-descent is not ported yet (ROADMAP A.6), and there is no silent host
-fallback.
+A flat index (one IXF) keeps the uint8 fingerprint table [S, Bpad] with
+bins contiguous per slot, the run offsets and run users, and the seed and
+block length as Python ints (``fused_e2e_step``, ``topk_async_packed``).
+
+A hierarchical index runs the level-grouped descent
+(``e2e.make_hixf_e2e_grouped_fn``).  IXFs are grouped by (depth, seed,
+block_length) in BFS order, each group split at member boundaries into
+subgroups of at most 128 four-bin words (``_build_probe_groups``), and
+consecutive subgroups of one geometry stack into one uint8 [G, S, Bpad]
+table that one kernel launch probes (``_stack_host_groups``).  Members
+pack column-wise at 4-bin boundaries, as the JAX package packs 4-bin
+words; each run of a member is a column range [run_s, run_e) of its
+subgroup's table run_g, int64 offsets in place of the JAX one-hot
+matrices.  Reads over L_CAP take ``counts``: one
+activity-masked probe launch per IXF in BFS order, the descent decided on
+the host.
+
+Left out against the JAX class, because only the TPU needed them:
+  - the engine split at ``_FP_VMEM_TILE`` and the XLA-gather groups: one
+    CUDA kernel reads tables of any size from HBM;
+  - the p10 layouts (``p10_ok``);
+  - the zero sentinel row: the kernels drop invalid slots;
+  - the ``poskey`` position cache: the kernels compute the positions from
+    (hash, seed, block_length);
+  - the padding of group columns to 128 or 1024 words: a group pads to 16
+    bins, and a stack pads its subgroups to the widest of them.
+Not ported yet: the mesh (ROADMAP A.8) and the descend-all chain-min mode
+of length-dependent thresholds (A.7).
 """
 
 from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -22,37 +47,99 @@ from taxor_tpu.hash.schemes import scaling_threshold_u64
 from taxor_tpu.hixf.container import HIXF
 
 from ..hash.device_syncmer import hash_cap
-from .e2e import fused_e2e_step, run_sums, topk_desc
-from .probe import pad_fingerprints, probe_counts
+from .e2e import (ActivityStats, fused_e2e_step, make_hixf_e2e_grouped_fn,
+                  run_sums, segment_sums, topk_desc)
+from .probe import (pad_bins, pad_fingerprints, probe_counts,
+                    probe_counts_grouped)
+
+# threshold models that depend on the hash count only, which the
+# count-indexed descent table covers (the JAX COUNT_ONLY_KINDS)
+COUNT_ONLY_KINDS = ("percentage", "syncmer_model", "kmer_model")
+
+# active (subgroup, read) pairs of the grouped descent, over the process
+ACTIVITY = ActivityStats()
+
+
+@dataclass
+class _IXFInfo:
+    """Host metadata of one IXF: its geometry and its runs."""
+
+    seed: int
+    block_length: int
+    bins: int
+    run_starts: np.ndarray  # int64 [n_runs]
+    run_ends: np.ndarray  # int64 [n_runs], exclusive
+    run_users: np.ndarray  # int64 [n_runs], -1 for merged runs
+    run_children: np.ndarray  # int64 [n_runs], child IXF of merged runs
 
 
 class DeviceHIXF:
-    """A flat HIXF on one torch device."""
+    """An HIXF on one torch device, with BFS traversal metadata."""
 
     def __init__(self, hixf: HIXF, device):
-        if len(hixf.ixfs) != 1:
-            raise NotImplementedError(
-                f"taxor_tpu_torch: the index has {len(hixf.ixfs)} IXFs; the "
-                "device engine runs flat (single-IXF) indexes only — "
-                "hierarchical grouped descent is ROADMAP item A.6 (build "
-                "with --layout flat, or search with --engine host)")
         self.device = torch.device(device)
-        ixf = hixf.ixfs[0]
-        starts, ends, users = hixf.runs_of_ixf(0)
-        self.seed = int(ixf.seed)
-        self.block_length = int(ixf.block_length)
+        self.hixf = hixf
+        self.num_user_bins = hixf.num_user_bins
+        self.ixfs: list[_IXFInfo] = []
+        for i, ixf in enumerate(hixf.ixfs):
+            starts, ends, users = hixf.runs_of_ixf(i)
+            children = np.array(
+                [int(hixf.next_ixf_id[i][int(s)]) if u < 0 else -1
+                 for s, u in zip(starts, users)], dtype=np.int64)
+            self.ixfs.append(_IXFInfo(int(ixf.seed), int(ixf.block_length),
+                                      ixf.bin_count, starts, ends, users,
+                                      children))
+        # BFS order from the root (IXF 0), children via the merged runs
+        order, seen, q = [0], {0}, deque([0])
+        while q:
+            for c in self.ixfs[q.popleft()].run_children:
+                c = int(c)
+                if c >= 0 and c not in seen:
+                    seen.add(c)
+                    order.append(c)
+                    q.append(c)
+        self.bfs_order = order
+        # parent link: (parent IXF, run index in the parent) per IXF
+        self.parent: dict[int, tuple[int, int]] = {}
+        for i in order:
+            for r, c in enumerate(self.ixfs[i].run_children):
+                if int(c) >= 0:
+                    self.parent[int(c)] = (i, r)
+        self._thr_tables: dict = {}
+        self._e2e_fns: dict = {}
+        # per IXF of a hierarchy: (its subgroup's table as a stack of one
+        # [1, S, Bpad] and its runs: table 0, column starts, ends) for
+        # ``counts``
+        self._ixf_probe: dict[int, tuple] = {}
+        dev = self.device
+        if len(self.ixfs) == 1:
+            self._init_flat()
+            return
+        host_groups, leaf_users = self._build_probe_groups(max_group_b4=128)
+        self.groups = self.upload_groups(
+            self._stack_host_groups(host_groups))
+        self.leaf_users = torch.from_numpy(
+            leaf_users.astype(np.int32)).to(dev)
+
+    def _init_flat(self) -> None:
+        ixf = self.hixf.ixfs[0]
+        info = self.ixfs[0]
+        dev = self.device
+        self.seed = info.seed
+        self.block_length = info.block_length
         self.table = torch.from_numpy(
-            pad_fingerprints(ixf.fingerprints)).to(self.device)
-        offsets = np.append(starts, ends[-1])
+            pad_fingerprints(ixf.fingerprints)).to(dev)
+        offsets = np.append(info.run_starts, info.run_ends[-1])
         self.run_offsets = torch.from_numpy(
-            offsets.astype(np.int64)).to(self.device)
+            offsets.astype(np.int64)).to(dev)
         self.run_users = torch.from_numpy(
-            users.astype(np.int32)).to(self.device)
-        n_runs = starts.shape[0]
+            info.run_users.astype(np.int32)).to(dev)
+        n_runs = info.run_starts.shape[0]
         # every run one bin at its own index: run sums are a column slice
         self.prefix_runs = (
-            n_runs if (np.array_equal(starts, np.arange(n_runs))
-                       and np.array_equal(ends, starts + 1)) else 0)
+            n_runs if (np.array_equal(info.run_starts, np.arange(n_runs))
+                       and np.array_equal(info.run_ends,
+                                          info.run_starts + 1)) else 0)
 
     @classmethod
     def from_hixf(cls, hixf: HIXF, device) -> "DeviceHIXF":
@@ -60,27 +147,216 @@ class DeviceHIXF:
 
     @property
     def flat_fast_path(self) -> bool:
-        """The compact top-k dispatch applies (always, for a flat index)."""
-        return True
+        """The compact top-k dispatch applies: one IXF."""
+        return len(self.ixfs) == 1
 
     def e2e_capable(self, thresholder=None) -> bool:
         """Whether the fused reads -> top-k dispatch covers this index:
-        flat always qualifies (thresholds are applied on the host)."""
-        return True
+        flat always qualifies (thresholds are applied on the host); a
+        hierarchy needs a thresholder for its device-side descent."""
+        return len(self.ixfs) == 1 or thresholder is not None
 
+    # ------------------------------------------------------------ groups --
+    def _depths(self) -> dict[int, int]:
+        """ixf id -> tree depth (root = 0) via the parent links."""
+        depths = {0: 0}
+        for i in self.bfs_order[1:]:
+            depths[i] = depths[self.parent[i][0]] + 1
+        return depths
+
+    def _thr_table(self, thresholder, hcap: int) -> np.ndarray:
+        """Exact per-hash-count descent thresholds, computed on the host
+        with the reference's float64 semantics, clamped to int32."""
+        tbl = np.empty(hcap + 1, dtype=np.int64)
+        for c in range(hcap + 1):
+            # clamp before the int64 store: size_t-wrapped "impossible"
+            # thresholds are >= 2^63 and overflow np.int64
+            tbl[c] = min(thresholder.get(c, 0.0), 2**31 - 1)
+        return np.clip(tbl, 0, 2**31 - 1).astype(np.int32)
+
+    def _build_probe_groups(self, max_group_b4: int | None = None):
+        """Assemble the level-grouped probe structure on the host.
+
+        IXFs group by (depth, seed, block_length), ancestors' groups
+        first; members pack at 4-bin boundaries and the group pads its
+        columns to 16 bins.  max_group_b4: split a group at member
+        boundaries into subgroups of at most this many 4-bin words, so a
+        read descending one subtree probes one narrow subgroup, not the
+        whole level.
+
+        Returns (groups, leaf_users): groups are dicts with the numpy
+        table uint8 [S, Bpad], run_starts/run_ends int64 (columns of the
+        table), seed, bl, depth and members [(bfs_pos, run_off, n_runs,
+        children [(local_run, child_bfs_pos)], leaf_sel int64)];
+        leaf_users is the user bin of each leaf run in group, member, run
+        order."""
+        bfs_pos = {ixf_id: p for p, ixf_id in enumerate(self.bfs_order)}
+        depths = self._depths()
+        group_key_order: list[tuple] = []
+        group_members: dict[tuple, list[int]] = {}
+        for i in self.bfs_order:
+            info = self.ixfs[i]
+            gk = (depths[i], info.seed, info.block_length)
+            if gk not in group_members:
+                group_members[gk] = []
+                group_key_order.append(gk)
+            group_members[gk].append(i)
+        group_key_order.sort(key=lambda gk: gk[0])
+
+        if max_group_b4 is not None:
+            # split member lists greedily by cumulative packed width
+            split_order: list[tuple] = []
+            split_members: dict[tuple, list[int]] = {}
+            for gk in group_key_order:
+                part: list[int] = []
+                width = 0
+                sub = 0
+                for i in group_members[gk]:
+                    b4_i = -(-self.ixfs[i].bins // 4)
+                    if part and width + b4_i > max_group_b4:
+                        split_order.append(gk + (sub,))
+                        split_members[gk + (sub,)] = part
+                        part, width, sub = [], 0, sub + 1
+                    part.append(i)
+                    width += b4_i
+                split_order.append(gk + (sub,))
+                split_members[gk + (sub,)] = part
+            group_key_order = split_order
+            group_members = split_members
+
+        groups = []
+        leaf_users_parts = []
+        for gk in group_key_order:
+            members = group_members[gk]
+            fps = [self.hixf.ixfs[i].fingerprints for i in members]
+            widths = [4 * -(-self.ixfs[i].bins // 4) for i in members]
+            # members of one level share their slot count (uniform level
+            # geometry); the max is defensive
+            table = np.zeros((max(f.shape[0] for f in fps),
+                              pad_bins(sum(widths))), dtype=np.uint8)
+            members_meta = []
+            starts, ends = [], []
+            run_off = 0
+            col = 0
+            for i, fp, w in zip(members, fps, widths):
+                info = self.ixfs[i]
+                table[:fp.shape[0], col:col + fp.shape[1]] = fp
+                starts.append(col + info.run_starts)
+                ends.append(col + info.run_ends)
+                kids, leaves = [], []
+                for r, c in enumerate(info.run_children):
+                    if int(c) >= 0:
+                        kids.append((r, bfs_pos[int(c)]))
+                    else:
+                        leaves.append(run_off + r)
+                users = info.run_users
+                leaf_users_parts.append(users[users >= 0] if leaves else
+                                        np.zeros(0, dtype=np.int64))
+                n_runs = info.run_starts.shape[0]
+                members_meta.append((bfs_pos[i], run_off, n_runs, kids,
+                                     np.array(leaves, dtype=np.int64)))
+                run_off += n_runs
+                col += w
+            groups.append(dict(
+                table=table, run_starts=np.concatenate(starts),
+                run_ends=np.concatenate(ends), seed=gk[1], bl=gk[2],
+                depth=gk[0], members=members_meta))
+        return groups, np.concatenate(leaf_users_parts)
+
+    @staticmethod
+    def _stack_host_groups(host_groups):
+        """Stack runs of consecutive groups that share (depth, seed,
+        block_length, slots) into one group with tables uint8
+        [G, S, Bpad] (Bpad the widest), each run tagged with its subgroup
+        (run_g) and the members' run offsets re-based to the concatenated
+        runs.  One launch over G then probes the whole run of groups, each
+        subgroup with its own members' activity (sub_members), so the
+        result equals the unstacked groups'.  A group that stacks with
+        none becomes a stack of one."""
+        def key(h):
+            return h["depth"], h["seed"], h["bl"], h["table"].shape[0]
+
+        out = []
+        i = 0
+        while i < len(host_groups):
+            g = host_groups[i]
+            j = i + 1
+            while j < len(host_groups) and key(host_groups[j]) == key(g):
+                j += 1
+            sub = host_groups[i:j]
+            Bp = max(s["table"].shape[1] for s in sub)
+            tables = np.zeros((len(sub), g["table"].shape[0], Bp),
+                              dtype=np.uint8)
+            members, run_g, sub_members = [], [], []
+            run_adj = 0
+            for gi, s in enumerate(sub):
+                tables[gi, :, :s["table"].shape[1]] = s["table"]
+                run_g.append(np.full(s["run_starts"].shape[0], gi))
+                for bfs, run_off, n_runs, kids, leaf_sel in s["members"]:
+                    members.append((bfs, run_off + run_adj, n_runs, kids,
+                                    leaf_sel + run_adj))
+                sub_members.append([m[0] for m in s["members"]])
+                run_adj += s["run_starts"].shape[0]
+            out.append(dict(
+                tables=tables, run_g=np.concatenate(run_g),
+                run_s=np.concatenate([s["run_starts"] for s in sub]),
+                run_e=np.concatenate([s["run_ends"] for s in sub]),
+                seed=g["seed"], bl=g["bl"], members=members,
+                sub_members=sub_members))
+            i = j
+        return out
+
+    def upload_groups(self, stacked) -> list[dict]:
+        """The stacked host groups as device tensors, with the index
+        tensors of the vectorised descent (e2e.descend); also records each
+        member's table and runs for the counts traversal."""
+        dev = self.device
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, dtype=np.int64)).to(dev)
+
+        groups = []
+        for g in stacked:
+            tables = torch.from_numpy(g["tables"]).to(dev)
+            run_g, run_s, run_e = t(g["run_g"]), t(g["run_s"]), t(g["run_e"])
+            sub_of = {b: gi for gi, sub in enumerate(g["sub_members"])
+                      for b in sub}
+            members = g["members"]
+            kids = [(b, ro + r, c) for b, ro, _, ks, _ in members
+                    for r, c in ks]
+            leaves = [(b, int(x)) for b, _, _, _, ls in members for x in ls]
+            groups.append(dict(
+                tables=tables, seed=g["seed"], bl=g["bl"], run_g=run_g,
+                run_s=run_s, run_e=run_e,
+                member_bfs=t([m[0] for m in members]),
+                member_sub=t([sub_of[m[0]] for m in members]),
+                child_bfs=t([c for _, _, c in kids]),
+                child_parent=t([b for b, _, _ in kids]),
+                child_run=t([r for _, r, _ in kids]),
+                leaf_bfs=t([b for b, _ in leaves]),
+                leaf_run=t([r for _, r in leaves]), members=members))
+            for b, ro, n, _, _ in members:
+                gi = sub_of[b]
+                self._ixf_probe[self.bfs_order[b]] = (
+                    tables[gi:gi + 1], torch.zeros_like(run_s[ro:ro + n]),
+                    run_s[ro:ro + n], run_e[ro:ro + n])
+        return groups
+
+    # --------------------------------------------------------- dispatch --
     def topk_async_packed(self, hi: np.ndarray, lo: np.ndarray,
                           valid: np.ndarray, n_reads: int, thresholds,
                           k: int = 16):
-        """Probe host-extracted hashes (pack_hash_lists) and compact each
-        read to its top-k bins at or above its threshold (finalize_topk).
-        Returns a collector yielding (vals, users) int32 [n_reads, k]."""
+        """Probe host-extracted hashes (pack_hash_lists) against a flat
+        index and compact each read to its top-k bins at or above its
+        threshold (finalize_topk).  Returns a collector yielding (vals,
+        users) int32 [n_reads, k]."""
         dev = self.device
         thr = np.minimum(np.asarray(thresholds, dtype=np.int64),
                          np.iinfo(np.int32).max).astype(np.int32)
         counts = probe_counts(
             torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev),
             torch.from_numpy(valid).to(dev), self.table, self.seed,
-            self.block_length)
+            self.block_length, route="host_hashes")
         sums = run_sums(counts, self.run_offsets, self.prefix_runs)
         packed = finalize_topk(sums, torch.from_numpy(thr).to(dev),
                                self.run_users, k)
@@ -91,6 +367,20 @@ class DeviceHIXF:
 
         return collect
 
+    def _hixf_e2e_fn(self, scheme, k: int):
+        """The cached grouped step for (scheme, top-k)."""
+        key = (scheme.kmer_size, scheme.syncmer_size, scheme.t_syncmer, k)
+        fn = self._e2e_fns.get(key)
+        if fn is None:
+            fn = self._e2e_fns[key] = make_hixf_e2e_grouped_fn(
+                self.groups, self.leaf_users, k=scheme.kmer_size,
+                s=scheme.syncmer_size, t=scheme.t_syncmer, topk=k,
+                scheme_kind="syncmer" if scheme.use_syncmer else "minimizer",
+                scale_thresh=(scaling_threshold_u64(scheme.scaling)
+                              if scheme.scaling > 1 else 0),
+                stats=ACTIVITY)
+        return fn
+
     def e2e_async(self, raw_reads: np.ndarray, lengths: np.ndarray, scheme,
                   thresholder=None, k: int = 16):
         """Whole-search dispatch from 2-bit packed reads (pack_reads):
@@ -99,17 +389,33 @@ class DeviceHIXF:
         dev = self.device
         L = raw_reads.shape[1] * 4  # bases: 4 per packed byte
         hcap = hash_cap(L)
-        packed = fused_e2e_step(
-            self.table,
-            torch.from_numpy(raw_reads).to(dev),
-            torch.from_numpy(lengths.astype(np.int32)).to(dev),
-            self.run_offsets, self.run_users, self.seed, self.block_length,
-            k=scheme.kmer_size, s=scheme.syncmer_size, t=scheme.t_syncmer,
-            hcap=hcap, topk=k,
-            scheme_kind="syncmer" if scheme.use_syncmer else "minimizer",
-            scale_thresh=(scaling_threshold_u64(scheme.scaling)
-                          if scheme.scaling > 1 else 0),
-            prefix_runs=self.prefix_runs)
+        reads = torch.from_numpy(raw_reads).to(dev)
+        lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+        if len(self.ixfs) > 1:
+            if thresholder is None:
+                raise ValueError("a hierarchical index descends with a "
+                                 "thresholder")
+            if thresholder.kind not in COUNT_ONLY_KINDS:
+                raise NotImplementedError(
+                    f"{thresholder.kind} thresholds descend in the "
+                    "descend-all chain-min mode, not ported yet (ROADMAP "
+                    "A.7)")
+            tkey = (repr(thresholder), hcap)
+            tbl = self._thr_tables.get(tkey)
+            if tbl is None:
+                tbl = self._thr_tables[tkey] = torch.from_numpy(
+                    self._thr_table(thresholder, hcap)).to(dev)
+            packed = self._hixf_e2e_fn(scheme, k)(reads, lens, tbl, hcap)
+        else:
+            packed = fused_e2e_step(
+                self.table, reads, lens, self.run_offsets, self.run_users,
+                self.seed, self.block_length, k=scheme.kmer_size,
+                s=scheme.syncmer_size, t=scheme.t_syncmer, hcap=hcap,
+                topk=k,
+                scheme_kind="syncmer" if scheme.use_syncmer else "minimizer",
+                scale_thresh=(scaling_threshold_u64(scheme.scaling)
+                              if scheme.scaling > 1 else 0),
+                prefix_runs=self.prefix_runs)
 
         def collect():
             out = packed.cpu().numpy()
@@ -117,6 +423,61 @@ class DeviceHIXF:
                     out[:, 2 * k + 1], hcap)
 
         return collect
+
+    def counts_async(self, hi: np.ndarray, lo: np.ndarray,
+                     valid: np.ndarray, thresholds):
+        """The synchronous traversal ``counts`` behind a collector (the
+        descent decisions need the parent sums on the host)."""
+        result = self.counts(hi, lo, valid, thresholds)
+        return lambda: result
+
+    def counts(self, hi: np.ndarray, lo: np.ndarray, valid: np.ndarray,
+               thresholds):
+        """Per-read, per-user-bin (counts int64, emitted bool) numpy
+        arrays [R, num_user_bins] of host-extracted hashes
+        (pack_hash_lists) and int64 thresholds [R].
+
+        One activity-masked probe launch per IXF in BFS order, each on
+        its subgroup's table; an IXF no read descends into is skipped.
+        ``emitted[r, u]`` replicates the reference's emission rule: the
+        user bin's split-run sum reached the threshold AND every merged
+        bin on the path down was descended."""
+        dev = self.device
+        R = hi.shape[0]
+        hi_t, lo_t, valid_t = (torch.from_numpy(x).to(dev)
+                               for x in (hi, lo, valid))
+        thresholds = np.asarray(thresholds, dtype=np.int64)
+        run_sums_h: dict[int, np.ndarray] = {}
+        active: dict[int, np.ndarray] = {0: np.ones(R, dtype=bool)}
+        for i in self.bfs_order:
+            info = self.ixfs[i]
+            act = active.get(i)
+            if act is None or not act.any():
+                continue
+            tables, run_g, run_s, run_e = self._ixf_probe[i]
+            c = probe_counts_grouped(
+                hi_t, lo_t, valid_t, tables,
+                torch.from_numpy(act[None]).to(dev), info.seed,
+                info.block_length, route="host_hashes")
+            sums = segment_sums(c, run_g, run_s, run_e).T.cpu().numpy()
+            run_sums_h[i] = sums.astype(np.int64)
+            for r, child in enumerate(info.run_children):
+                if child >= 0:
+                    active[int(child)] = act & (sums[:, r] >= thresholds)
+
+        counts = np.zeros((R, self.num_user_bins), dtype=np.int64)
+        emitted = np.zeros((R, self.num_user_bins), dtype=bool)
+        for i, sums in run_sums_h.items():
+            users = self.ixfs[i].run_users
+            leaf = users >= 0
+            if not leaf.any():
+                continue
+            s = sums[:, leaf]
+            u = users[leaf]
+            emit = active[i][:, None] & (s >= thresholds[:, None])
+            counts[:, u] = np.where(emit, s, counts[:, u])
+            emitted[:, u] |= emit
+        return counts, emitted
 
 
 def finalize_topk(sums: torch.Tensor, thresholds: torch.Tensor,

@@ -1,4 +1,4 @@
-"""IXF probe/count: CUDA kernel K2 and its plain twin.
+"""IXF probe/count: CUDA kernels K2 and K2n and their plain twin.
 
 Counterpart of ``taxor_tpu/device/probe.py`` (the XLA gather
 ``count_xla`` and ``pad_fingerprints``) and of the Pallas probe family
@@ -8,16 +8,21 @@ of ``taxor_tpu/device/pallas_probe.py``.  All of them compute
                    [T[p0, b] ^ T[p1, b] ^ T[p2, b] == fprint(h)]
 
 for the uint8 fingerprint table T [S, Bpad] (bins contiguous per slot).
-``probe_counts`` takes the wyhashed keys as (hi, lo) int32 bit patterns
-with a validity mask, as K1 returns them, and the IXF's seed and block
-length; the probe slots and fingerprints come from ``mix_split`` as in
-``ixf/xor_filter.compute_probes``.  On a CUDA tensor it launches K2
-(``csrc/probe.cu``); on a CPU tensor it takes the gather twin.
+The wrappers take the wyhashed keys as (hi, lo) int32 bit patterns with a
+validity mask, as K1 returns them, and the IXF's seed and block length;
+the probe slots and fingerprints come from ``mix_split`` as in
+``ixf/xor_filter.compute_probes``.
 
-Still to port: ``pallas_probe._kernel_repl`` (``_probe_call_repl``), the
-replicated-row variant for B/4 <= 128, disabled in the reference
-(``USE_REPL_PROBE = False``).  K2 computes the same function at those
-widths, and tests/test_torch_probe.py holds it to the reference there.
+``probe_counts_grouped`` probes a stack of G tables of one geometry (the
+subgroups of a descent level, device/hixf_search.py) with a per-(g, r)
+activity mask; an inactive read gets zero counts and costs no probe.  It
+replaces the TPU's ``lax.scan`` over stacked subgroups and its zero trip
+counts (``pallas_probe._body_counts``).  ``probe_counts`` is its G = 1,
+all-active case.  On a CUDA tensor a table of at most ``NARROW_MAX_BINS``
+bins goes to K2n (``csrc/probe_narrow.cu``, the port of
+``pallas_probe._kernel_repl``) and a wider one to K2
+(``csrc/probe.cu``, the port of the other five probe kernels); on a CPU
+tensor both take the gather twin.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from . import cuda_build
 # bins pad to a multiple of 16: 16-byte aligned rows, 4-byte words per
 # kernel thread (the TPU's 512-bin lane tiles are not reproduced)
 LANE = 16
+# K2n's domain: B4 <= 128 words, the bound of pallas_probe._repl_eligible
+NARROW_MAX_BINS = 512
 
 
 def pad_bins(n_bins: int, lane: int = LANE) -> int:
@@ -71,52 +78,127 @@ def count_plain(table: torch.Tensor, positions: torch.Tensor,
     return acc
 
 
-def probe_counts_plain(hi, lo, valid, table, seed: int, block_length: int):
-    """Plain PyTorch twin of K2 (same contract as probe_counts)."""
+def probe_counts_grouped_plain(hi, lo, valid, tables, active, seed: int,
+                               block_length: int) -> torch.Tensor:
+    """Plain PyTorch twin of K2 and K2n (same contract as
+    probe_counts_grouped): per table, count_plain over the active reads
+    only."""
+    G, _, Bp = tables.shape
+    R = hi.shape[0]
     pos, f4 = probe_positions_and_fprint4(join32(hi, lo), seed, block_length)
-    return count_plain(table, pos, (f4 & 0xFF).to(torch.uint8), valid)
-
-
-def probe_counts(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
-                 table: torch.Tensor, seed: int,
-                 block_length: int) -> torch.Tensor:
-    """int32 [R, Bpad] per-bin counts: K2 on a CUDA tensor, the plain
-    twin on a CPU tensor."""
-    if table.device.type == "cpu":
-        return probe_counts_plain(hi, lo, valid, table, seed, block_length)
-    if table.device.type != "cuda":
-        raise ValueError(f"probe_counts: unsupported device {table.device}")
-    if table.dtype != torch.uint8 or table.dim() != 2:
-        raise ValueError("probe_counts: table must be uint8 [S, Bpad]")
-    S, Bp = table.shape
-    if hi.dim() != 2:
-        raise ValueError("probe_counts: hashes must be [R, H]")
-    R, H = hi.shape
-    for name, x, dt in (("hi", hi, torch.int32), ("lo", lo, torch.int32),
-                        ("valid", valid, torch.bool)):
-        if x.dtype != dt or x.shape != (R, H) or x.device != table.device:
-            raise ValueError(f"probe_counts: {name} must be {dt} [R, H] on "
-                             "the table's device")
-    if not all(x.is_contiguous() for x in (hi, lo, valid, table)):
-        raise ValueError("probe_counts: inputs must be contiguous")
-    if Bp % 4 or table.data_ptr() % 4:
-        raise ValueError("probe_counts: Bpad must be a multiple of 4 on "
-                         "4-byte aligned rows")
-    if not (0 < block_length and 3 * block_length <= S < 2**31):
-        raise ValueError(f"probe_counts: block_length {block_length} does "
-                         f"not fit {S} slots")
-    out = torch.empty((R, Bp), dtype=torch.int32, device=table.device)
-    err = cuda_build.lib().launch_probe_count(
-        hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, H,
-        table.data_ptr(), S, Bp, int(seed) & (2**64 - 1), int(block_length),
-        out.data_ptr(), cuda_build.stream_of(table))
-    cuda_build.check(err, "launch_probe_count")
-    if R:
-        cuda_build.count_launch(probe_counts)
+    fpr = (f4 & 0xFF).to(torch.uint8)
+    out = torch.zeros((G, R, Bp), dtype=torch.int32, device=tables.device)
+    for g in range(G):
+        rows = (torch.arange(R, device=hi.device) if active is None
+                else torch.nonzero(active[g]).flatten())
+        if rows.numel():
+            out[g, rows] = count_plain(tables[g], pos[rows], fpr[rows],
+                                       valid[rows])
     return out
 
 
-probe_counts.LAUNCHES = 0
+def probe_counts_plain(hi, lo, valid, table, seed: int, block_length: int):
+    """Plain PyTorch twin of probe_counts."""
+    return probe_counts_grouped_plain(hi, lo, valid, table[None], None,
+                                      seed, block_length)[0]
+
+
+def _launch(name: str, hi, lo, valid, tables, active, seed: int,
+            block_length: int) -> torch.Tensor:
+    """Check the inputs of kernel ``name`` (launch_probe_count or
+    launch_probe_count_narrow) and launch it; int32 [G, R, Bpad]."""
+    if tables.dtype != torch.uint8 or tables.dim() != 3:
+        raise ValueError(f"{name}: tables must be uint8 [G, S, Bpad]")
+    G, S, Bp = tables.shape
+    if hi.dim() != 2:
+        raise ValueError(f"{name}: hashes must be [R, H]")
+    R, H = hi.shape
+    for arg, x, dt, shape in (("hi", hi, torch.int32, (R, H)),
+                              ("lo", lo, torch.int32, (R, H)),
+                              ("valid", valid, torch.bool, (R, H)),
+                              ("active", active, torch.bool, (G, R))):
+        if x is not None and (x.dtype != dt or x.shape != shape
+                              or x.device != tables.device):
+            raise ValueError(f"{name}: {arg} must be {dt} {list(shape)} on "
+                             "the tables' device")
+    if not all(x.is_contiguous() for x in (hi, lo, valid, tables, active)
+               if x is not None):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if Bp % 4 or tables.data_ptr() % 4:
+        raise ValueError(f"{name}: Bpad must be a multiple of 4 on 4-byte "
+                         "aligned rows")
+    if not (0 < block_length and 3 * block_length <= S < 2**31):
+        raise ValueError(f"{name}: block_length {block_length} does not "
+                         f"fit {S} slots")
+    out = torch.empty((G, R, Bp), dtype=torch.int32, device=tables.device)
+    err = getattr(cuda_build.lib(), name)(
+        hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, H,
+        tables.data_ptr(), G, S, Bp,
+        None if active is None else active.data_ptr(),
+        int(seed) & (2**64 - 1), int(block_length), out.data_ptr(),
+        cuda_build.stream_of(tables))
+    cuda_build.check(err, name)
+    return out
+
+
+def k2_counts(hi, lo, valid, tables, active, seed: int, block_length: int,
+              route: str | None = None) -> torch.Tensor:
+    """K2 (csrc/probe.cu) on CUDA tensors: int32 [G, R, Bpad] counts of a
+    stack of tables uint8 [G, S, Bpad] of any width; active bool [G, R]
+    or None (every read active).  route: the caller's route, counted in
+    k2_counts.ROUTES beside k2_counts.LAUNCHES."""
+    out = _launch("launch_probe_count", hi, lo, valid, tables, active, seed,
+                  block_length)
+    if out.numel():
+        cuda_build.count_launch(k2_counts, route)
+    return out
+
+
+def k2n_counts(hi, lo, valid, tables, active, seed: int, block_length: int,
+               route: str | None = None) -> torch.Tensor:
+    """K2n (csrc/probe_narrow.cu): the contract of k2_counts for tables
+    of at most NARROW_MAX_BINS bins."""
+    if tables.dim() == 3 and tables.shape[2] > NARROW_MAX_BINS:
+        raise ValueError(f"k2n_counts: Bpad {tables.shape[2]} exceeds "
+                         f"{NARROW_MAX_BINS} bins")
+    out = _launch("launch_probe_count_narrow", hi, lo, valid, tables,
+                  active, seed, block_length)
+    if out.numel():
+        cuda_build.count_launch(k2n_counts, route)
+    return out
+
+
+k2_counts.LAUNCHES = k2n_counts.LAUNCHES = 0
+k2_counts.ROUTES, k2n_counts.ROUTES = {}, {}
+
+
+def probe_counts_grouped(hi: torch.Tensor, lo: torch.Tensor,
+                         valid: torch.Tensor, tables: torch.Tensor,
+                         active: torch.Tensor | None, seed: int,
+                         block_length: int,
+                         route: str | None = None) -> torch.Tensor:
+    """int32 [G, R, Bpad] per-bin counts of reads [R, H] against tables
+    uint8 [G, S, Bpad] (zero where active[g, r] is False): K2n or K2 on a
+    CUDA tensor, the plain twin on a CPU tensor."""
+    if tables.device.type == "cpu":
+        return probe_counts_grouped_plain(hi, lo, valid, tables, active,
+                                          seed, block_length)
+    if tables.device.type != "cuda":
+        raise ValueError(f"probe_counts: unsupported device {tables.device}")
+    narrow = tables.dim() == 3 and tables.shape[2] <= NARROW_MAX_BINS
+    return (k2n_counts if narrow else k2_counts)(
+        hi, lo, valid, tables, active, seed, block_length, route)
+
+
+def probe_counts(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
+                 table: torch.Tensor, seed: int, block_length: int,
+                 route: str | None = None) -> torch.Tensor:
+    """int32 [R, Bpad] per-bin counts against one table uint8 [S, Bpad],
+    every read active."""
+    if table.dim() != 2:
+        raise ValueError("probe_counts: table must be uint8 [S, Bpad]")
+    return probe_counts_grouped(hi, lo, valid, table[None], None, seed,
+                                block_length, route)[0]
 
 
 def pack_hash_lists(hash_lists, Hpad: int):

@@ -10,11 +10,13 @@ layer, not copied.
 
 Engines:
   - 'device': per batch, reads up to L_CAP go through the fused step
-    (device/e2e.py, kernels K1 + K2) in power-of-two length buckets;
-    longer reads are hashed on the host and probed by K2
-    (DeviceHIXF.topk_async_packed).  Reads the device result cannot
-    decide exactly (hash capacity overflow, top-k truncation) take the
-    host oracle, as in the reference package.
+    (device/e2e.py: K1, then K2 or K2n, flat or in the level-grouped
+    descent of a hierarchical index) in power-of-two length buckets;
+    longer reads are hashed on the host and probed on the device: top-k
+    on a flat index (DeviceHIXF.topk_async_packed), the per-IXF
+    traversal on a hierarchical one (DeviceHIXF.counts_async).  Reads the
+    device result cannot decide exactly (hash capacity overflow, top-k
+    truncation) take the host oracle, as in the reference package.
   - 'host': the numpy oracle recursion; it runs without JAX and without
     a GPU.
 """
@@ -34,8 +36,8 @@ from taxor_tpu.hash.schemes import search_hashes
 from taxor_tpu.hixf.index import TaxorIndex, load_index
 from taxor_tpu.io.fastx import iter_fastx_chunks
 from taxor_tpu.search.pipeline import (HEADER, SearchConfig, _format_rows,
-                                       _pairs_from_e2e, _pairs_from_topk,
-                                       _scaling_ratio)
+                                       _pairs_from_counts, _pairs_from_e2e,
+                                       _pairs_from_topk, _scaling_ratio)
 from taxor_tpu.search.thresholds import Thresholder
 
 from ..device.hixf_search import DeviceHIXF
@@ -186,15 +188,21 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
             hash_lists = search_hashes(hseqs, scheme)
             hcs = [h.shape[0] for h in hash_lists]
             thresholds = _hash_thresholds(hcs, hseqs)
-            vals, users = _device_dispatch(device_hixf, hash_lists,
-                                           thresholds)()
-            kk = vals.shape[1]
-            trunc = ((vals >= 0).sum(axis=1) == kk) & (
-                vals[:, kk - 1].astype(np.float64)
-                >= vals[:, 0].astype(np.float64) * 0.8)
+            kind, collect = _device_dispatch(device_hixf, hash_lists,
+                                             thresholds)
+            if kind == "topk":
+                vals, users = collect()
+                kk = vals.shape[1]
+                trunc = ((vals >= 0).sum(axis=1) == kk) & (
+                    vals[:, kk - 1].astype(np.float64)
+                    >= vals[:, 0].astype(np.float64) * 0.8)
+                prs = _pairs_from_topk(vals, users, thresholds, hash_lists,
+                                       index, dfs_rank)
+            else:  # exact per-user-bin emissions: no fallback
+                counts, emitted = collect()
+                trunc = np.zeros(len(hash_idx), dtype=bool)
+                prs = _pairs_from_counts(counts, emitted, dfs_rank)
             ROUTES.add(host_hashes=len(hash_idx), host_fallback=trunc.sum())
-            prs = _pairs_from_topk(vals, users, thresholds, hash_lists,
-                                   index, dfs_rank)
             for j, i in enumerate(hash_idx):
                 all_pairs[i] = prs[j]
                 hash_counts[i] = hcs[j]
@@ -221,15 +229,16 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
 
 def _device_dispatch(device_hixf, hash_lists, thresholds):
     """Pad host-extracted hashes to a power-of-two width and dispatch
-    them to the device probe; returns the (vals, users) collector."""
-    if not device_hixf.flat_fast_path:
-        raise NotImplementedError("dense (hierarchical) dispatch: ROADMAP "
-                                  "item A.6")
+    them to the device probe; returns (kind, collector): 'topk' yields
+    (vals, users) on a flat index, 'dense' (counts, emitted) on a
+    hierarchical one."""
     H = max(1, max((h.shape[0] for h in hash_lists), default=1))
     Hpad = 1 << (H - 1).bit_length()
     hi, lo, valid = pack_hash_lists(hash_lists, Hpad)
-    return device_hixf.topk_async_packed(hi, lo, valid, len(hash_lists),
-                                         thresholds)
+    if device_hixf.flat_fast_path:
+        return "topk", device_hixf.topk_async_packed(
+            hi, lo, valid, len(hash_lists), thresholds)
+    return "dense", device_hixf.counts_async(hi, lo, valid, thresholds)
 
 
 def run_search(config: SearchConfig, device="cuda") -> dict:

@@ -19,12 +19,14 @@ from taxor_tpu.device.pallas_probe import (choose_bin_tile4,
 from taxor_tpu.hixf.index import save_index
 from taxor_tpu.io.fastx import read_all
 from taxor_tpu.search import pipeline as jax_pipeline
+from taxor_tpu.search.thresholds import Thresholder
 from taxor_tpu_torch.device import hixf_search
 from taxor_tpu_torch.device.e2e import fused_e2e_step
 from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 from taxor_tpu_torch.hash import device_syncmer as dsync
 from taxor_tpu_torch.search import pipeline
 
+from .test_torch_hixf import build_hier_index
 from .util import make_reads, make_ref_set, write_fasta
 
 SPLITS = [3, 1, 2, 1, 2, 1]  # technical bins per user bin
@@ -168,11 +170,13 @@ def test_search_topk_truncation_falls_back(split_setup, host_tsv):
     assert pipeline.ROUTES.counts["host_fallback"] >= 1
 
 
-def test_hierarchical_index_is_refused(split_setup):
-    hixf = split_setup[0].hixf
-    two = dataclasses.replace(hixf, ixfs=hixf.ixfs * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A.6"):
-        DeviceHIXF.from_hixf(two, "cpu")
+def test_hierarchical_index_is_refused(tmp_path):
+    """A genuine hierarchical index is accepted (no longer refused): it
+    takes the grouped descent, not the flat fast path."""
+    index = build_hier_index(str(tmp_path))[0]
+    dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
+    assert len(dh.ixfs) > 1 and not dh.flat_fast_path
+    assert dh.e2e_capable(Thresholder.make(22, 22, 0.04, -1.0, True))
 
 
 def test_cuda_without_a_card_is_refused(split_setup, monkeypatch):

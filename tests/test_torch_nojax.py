@@ -25,15 +25,18 @@ SCRIPT = textwrap.dedent("""
     from taxor_tpu_torch import cli
 
     rng = np.random.default_rng(3)
-    tsv, gdir, genomes = make_ref_set(WORK, rng, n_species=4,
-                                      genome_len=5000)
+    tsv, gdir, genomes = make_ref_set(WORK, rng, n_species=N_SPECIES,
+                                      genome_len=GENOME_LEN)
     reads = make_reads(WORK, rng, genomes, n_reads_per_genome=3,
                        read_len=700, error_rate=0.02)
     idx = os.path.join(WORK, "idx.taxor.npz")
     assert cli.main(["build", "--input-file", tsv, "--input-sequence-dir",
                      gdir, "--output-filename", idx, "--kmer-size", "22",
                      "--syncmer-size", "12", "--use-syncmer", "--layout",
-                     "flat"]) == 0
+                     LAYOUT, "--tmax", "64"]) == 0
+    from taxor_tpu.hixf.index import load_index
+    n_ixfs = len(load_index(idx).hixf.ixfs)
+    assert (n_ixfs > 1) == (LAYOUT == "auto"), n_ixfs
     out = {}
     for engine in ("device", "host"):
         out[engine] = os.path.join(WORK, engine + ".tsv")
@@ -41,7 +44,7 @@ SCRIPT = textwrap.dedent("""
                          reads, "--output-file", out[engine], "--engine",
                          engine, "--device", "cpu"]) == 0
     dev, host = (open(out[e], "rb").read() for e in ("device", "host"))
-    assert dev == host and dev.count(b"GCF_") >= 12, dev
+    assert dev == host and dev.count(b"GCF_") >= 3 * N_SPECIES, dev
     assert sys.modules["jax"] is None
     loaded = [m for m in sys.modules if m.startswith(JAX_MODULES)]
     assert not loaded, loaded
@@ -49,17 +52,30 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_runs_with_jax_blocked(tmp_path):
+def run_blocked(tmp_path, layout: str, n_species: int,
+                genome_len: int) -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("JAX_PLATFORMS", None)
     code = (f"REPO = {REPO!r}\nWORK = {str(tmp_path)!r}\n"
-            f"JAX_MODULES = {JAX_MODULES!r}\n" + SCRIPT)
+            f"JAX_MODULES = {JAX_MODULES!r}\nLAYOUT = {layout!r}\n"
+            f"N_SPECIES = {n_species}\nGENOME_LEN = {genome_len}\n"
+            + SCRIPT)
     res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "NOJAX_OK" in res.stdout
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    run_blocked(tmp_path, "flat", 4, 5000)
+
+
+def test_port_runs_hierarchical_with_jax_blocked(tmp_path):
+    """More user bins than the 64 technical bins of an IXF: the layout is
+    hierarchical and the device engine takes the grouped descent."""
+    run_blocked(tmp_path, "auto", 100, 3000)
 
 
 def _sources():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~5 min on an H100
+    python3 chip_smoke.py                 # full size, ~5-6 min on an H100
     python3 chip_smoke.py --genomes 64 --reads 512 --hier-genomes 200 \
         --hier-reads 512                  # quick start check
 
@@ -11,7 +11,9 @@ Phases (any failure exits non-zero):
   2. K1 (syncmer extraction) against its plain twin, bit-exact, at every
      length bucket 256..32768 on random, homopolymer, tandem-repeat and
      N-containing reads, plus a gap-1 scheme whose sort buffer spills to
-     global memory;
+     global memory; on the same reads the split engine's kernels
+     (phase 9): syncmer_track against ``syncmer_kmers`` and K3 (dedup)
+     against its twin with hcap above and below the emission count;
   3. the probe (K2, or K2n for tables of at most 512 bins) against its
      plain twin, bit-exact, at the flat geometries of the reference's
      five probe kernels, with invalid slots whose fingerprint is 0 and
@@ -22,7 +24,9 @@ Phases (any failure exits non-zero):
      substitutions) plus reads over L_CAP, searched with
      ``taxor_tpu_torch.cli search --engine device``; K1 and K2 must have
      launched, and the TSV must equal ``--engine host`` byte for byte on
-     a subset;
+     a subset; then the same search with the split engine
+     (``device.e2e.USE_FUSED_EXTRACT = False``), whose TSV must equal the
+     K1 TSV on every read, with syncmer_track and K3 launched and K1 not;
   5. K1 and K2 timed against their twins at the flat path's shapes;
   6. K2n and K2 over stacked tables (G = 1 and 8) with a mixed activity
      mask against their twin, bit-exact, at 16..512 bins (K2n) and 4,096
@@ -32,9 +36,26 @@ Phases (any failure exits non-zero):
      ``--layout auto --tmax 64`` (a 64-bin root); K1, the grouped probe
      and the per-IXF traversal of the reads over L_CAP must have
      launched, the TSV must equal ``--engine host`` on a subset, and 99%
-     of the classified reads must name their source genome;
+     of the classified reads must name their source genome; then the
+     split engine on the same reads, as in phase 4;
   8. K2n and K2 timed against their twin on the root group and on one
-     stacked level at the hierarchical path's L=8192 bucket.
+     stacked level at the hierarchical path's L=8192 bucket;
+  9. K4 (pair sort) against its twin, bit-exact, at W = 100, 128, 8192
+     and 32768 (global scratch) with duplicated keys and keys equal to
+     the sentinel; K3 on a row that breaks min_gap (n_emit = 2**30); and,
+     after phase 4, K3 against ``sort.dedup_pairs`` (K4) on the flat
+     path's L=8192 reads.  No search path reaches K4 (in the JAX package
+     only ``sort_impl="pallas"`` does): its record counts 0 main-path
+     launches and, apart, the launches of that one check;
+ 10. syncmer_track, K3 and K4 timed against their twins, K4 against
+     ``torch.sort`` of the combined key, and the split engine's
+     extraction against K1, at the flat path's L=8192 bucket.
+
+Every kernel's record holds its least time on the card (``bound_ms``):
+the larger of its bytes (each input read once, each output written
+once) over the H100's 3.35 TB/s and its operations over the peak rate
+for their type (the H100's dense peak rates; 64-bit key compares and
+tracker steps, which have no entry, at the 67 TFLOP/s scalar fp32 rate).
 
 The second-to-last line of stdout is nvidia-smi's name and power limit;
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.  The
@@ -61,6 +82,9 @@ LONG_READS = 16  # of 40 kb: over L_CAP, the host-hash route
 TMAX = 64  # technical bins per IXF of the hierarchical index
 CHECK_READS = 1024  # first reads held byte-equal to --engine host
 SEED = 20261016
+HBM_BPS = 3.35e12  # H100 SXM device memory rate
+PEAK_SCALAR = 67e12  # fp32 outside the tensor cores: integer/compare work
+PEAK_INT8 = 1979e12  # int8 (fingerprint bytes)
 
 
 def log(msg: str) -> None:
@@ -112,7 +136,16 @@ def k1_reads(rng, L: int) -> list[bytes]:
     return seqs
 
 
-def check_k1(torch, dsync, extract, rng) -> None:
+def assert_equal(torch, label: str, names, got, want) -> None:
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {name} differs from the twin")
+
+
+def check_k1(torch, dsync, extract, sort, rng) -> None:
+    """K1, and the split engine's syncmer_track and K3, against their
+    twins on the same reads."""
     dev = torch.device("cuda")
     cases = [(L, K, S, (K - S + 1) // 2) for L in
              (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)]
@@ -125,19 +158,32 @@ def check_k1(torch, dsync, extract, rng) -> None:
         hcap = dsync.hash_cap(L)
         got = extract.syncmer_hashes(pk, ln, k, s, t, hcap)
         want = extract.syncmer_hashes_plain(pk, ln, k, s, t, hcap)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("hi", "lo", "valid", "n_unique", "n_emit"),
-                              got, want):
-            if not torch.equal(a, b):
-                raise AssertionError(f"K1 L={L} k={k} s={s}: {name} differs")
+        assert_equal(torch, f"K1 L={L} k={k} s={s}", ("hi", "lo", "valid",
+                     "n_unique", "n_emit"), got, want)
         log(f"K1 L={L} k={k} s={s} t={t}: bit-exact vs twin on {len(seqs)} "
             f"reads (n_emit max {int(got[4].max())}, hcap {hcap}, sort width "
             f"{extract.sort_width(L, k, s, t)})")
+        kmer, emit = extract.syncmer_track(pk, ln, k, s, t)
+        assert_equal(torch, f"syncmer_track L={L} k={k} s={s}",
+                     ("kmer", "emit"), (kmer, emit),
+                     dsync.syncmer_kmers(pk, ln, k, s, t))
+        gap = dsync.emission_min_gap(k, s, t)
+        for hc in (hcap, hcap // 8):
+            assert_equal(torch, f"K3 L={L} k={k} s={s} hcap={hc}",
+                         ("kmer", "valid", "n_unique", "n_emit"),
+                         sort.dedup_fused(kmer, emit, hc, gap),
+                         sort.dedup_fused_plain(kmer, emit, hc, gap))
+        Wb = sort.dedup_width(L, gap)
+        where = ("global scratch" if 64 + 8 * Wb > extract.SMEM_LIMIT
+                 else "shared memory")
+        log(f"syncmer_track + K3 L={L} k={k} s={s} t={t}: bit-exact vs "
+            f"twins ({int(emit.sum())} emissions; K3 at hcap {hcap} and "
+            f"{hcap // 8}, buffer {Wb} in {where})")
 
 
 # ------------------------------------------------------------------ K2 --
 def check_k2(torch, probe, rng) -> None:
-    from taxor_tpu.utils.u64np import fingerprint8, mix_split
+    from taxor_tpu_torch.utils.u64np import fingerprint8, mix_split
 
     dev = torch.device("cuda")
     seed = int(rng.integers(0, 2**63))
@@ -182,7 +228,7 @@ def check_k2(torch, probe, rng) -> None:
 
 def check_grouped(torch, probe, rng) -> None:
     """K2n and K2 over G stacked tables with a mixed activity mask."""
-    from taxor_tpu.utils.u64np import fingerprint8, mix_split
+    from taxor_tpu_torch.utils.u64np import fingerprint8, mix_split
 
     dev = torch.device("cuda")
     seed = int(rng.integers(0, 2**63))
@@ -224,6 +270,39 @@ def check_grouped(torch, probe, rng) -> None:
             log(f"{name} grouped Bpad={Bp} G={G} (S={3 * bl}, R={R}, H={H}, "
                 f"{int(active.sum())}/{G * R} active): bit-exact vs twin, "
                 f"max count {int(got.max())}")
+
+
+# ------------------------------------------------------------- K3, K4 --
+def check_sorts(torch, sort, rng) -> None:
+    """K4 at four widths, and K3 on a row that breaks min_gap."""
+    dev = torch.device("cuda")
+    R = 64
+    for W in (100, 128, 8192, 32768):
+        hi = rng.integers(-4, 4, (R, W), dtype=np.int32)
+        lo = rng.integers(-2**31, 2**31, (R, W), dtype=np.int32)
+        hi[:, 1::2] = hi[:, ::2][:, :W // 2]  # every key twice
+        lo[:, 1::2] = lo[:, ::2][:, :W // 2]
+        hi[:, ::7] = -1  # keys equal to the all-ones sentinel
+        lo[:, ::7] = -1
+        args = [torch.from_numpy(x).to(dev) for x in (hi, lo)]
+        assert_equal(torch, f"K4 W={W}", ("hi", "lo"),
+                     sort.sort_pairs(*args), sort.sort_pairs_plain(*args))
+        log(f"K4 [{R}, {W}]: bit-exact vs twin (duplicated and sentinel "
+            f"keys, {'global scratch' if W > 16384 else 'shared memory'})")
+    L, gap = 8192, 5
+    kmer = torch.from_numpy(rng.integers(0, 2**62, (4, L))).to(dev)
+    emit = torch.zeros((4, L), dtype=torch.bool, device=dev)
+    emit[:, ::gap] = True
+    emit[1, 1::gap] = True  # twice the emissions min_gap allows
+    got = sort.dedup_fused(kmer, emit, 2048, gap)
+    assert_equal(torch, "K3 min_gap overflow", ("kmer", "valid",
+                 "n_unique", "n_emit"), got,
+                 sort.dedup_fused_plain(kmer, emit, 2048, gap))
+    n = (L - 1) // gap + 1
+    if got[3].tolist() != [n, sort.OVERFLOW, n, n]:
+        raise AssertionError(f"K3 min_gap overflow: n_emit {got[3]}")
+    log(f"K3 min_gap overflow: n_emit {got[3].tolist()} (2**30 on the row "
+        "that breaks the gap)")
 
 
 # ------------------------------------------------------- main path data --
@@ -291,20 +370,24 @@ def tsv_rows(path: str, ids: set | None = None) -> list[str]:
     return [x for x in lines if x.split("\t", 1)[0] in ids]
 
 
-def reset_counts(extract, probe, pipeline) -> None:
+def reset_counts(extract, probe, sort, pipeline) -> None:
     from taxor_tpu_torch.device.hixf_search import ACTIVITY
 
     ACTIVITY.reset()
-    extract.syncmer_hashes.LAUNCHES = 0
+    for k in (extract.syncmer_hashes, extract.syncmer_track,
+              sort.dedup_fused, sort.sort_pairs):
+        k.LAUNCHES = 0
     for k in (probe.k2_counts, probe.k2n_counts):
         k.LAUNCHES = 0
         k.ROUTES = {}
     pipeline.ROUTES.reset()
 
 
-def read_counts(extract, probe) -> dict:
+def read_counts(extract, probe, sort) -> dict:
     return {"K1": extract.syncmer_hashes.LAUNCHES,
             "K2": probe.k2_counts.LAUNCHES, "K2n": probe.k2n_counts.LAUNCHES,
+            "track": extract.syncmer_track.LAUNCHES,
+            "K3": sort.dedup_fused.LAUNCHES, "K4": sort.sort_pairs.LAUNCHES,
             "K2 routes": dict(probe.k2_counts.ROUTES),
             "K2n routes": dict(probe.k2n_counts.ROUTES)}
 
@@ -316,7 +399,7 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     counts set to 0 just before, check the TSV against --engine host on
     a subset and the classifications against the source genomes."""
     from taxor_tpu_torch import cli
-    from taxor_tpu_torch.device import extract, probe
+    from taxor_tpu_torch.device import e2e, extract, probe, sort
     from taxor_tpu_torch.search import pipeline
 
     threads = str(os.cpu_count() or 1)
@@ -343,7 +426,7 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
         os.chdir(cwd)
     if rc != 0:
         raise RuntimeError(f"build failed ({rc})")
-    from taxor_tpu.hixf.index import load_index
+    from taxor_tpu_torch.hixf.index import load_index
 
     index = load_index(idx)
     ixfs = index.hixf.ixfs
@@ -355,14 +438,14 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
 
     # ---- the main path, counted
     out_dev = os.path.join(work, "device.tsv")
-    reset_counts(extract, probe, pipeline)
+    reset_counts(extract, probe, sort, pipeline)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
                    "--output-file", out_dev, "--engine", "device",
                    "--device", "cuda", "--write-time", "--threads", threads])
     wall = time.perf_counter() - t0
-    launches = read_counts(extract, probe)
+    launches = read_counts(extract, probe, sort)
     routes = dict(pipeline.ROUTES.counts)
     if rc != 0:
         raise RuntimeError(f"device search failed ({rc})")
@@ -400,6 +483,36 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
         f"{len(sub)} reads ({len(host_rows)} rows; host engine "
         f"{time.perf_counter() - t0:.1f} s)")
 
+    # ---- the split engine on the same reads, counted
+    out_split = os.path.join(work, "split.tsv")
+    reset_counts(extract, probe, sort, pipeline)
+    torch.cuda.reset_peak_memory_stats()
+    e2e.USE_FUSED_EXTRACT = False
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
+                       "--output-file", out_split, "--engine", "device",
+                       "--device", "cuda", "--threads", threads])
+    finally:
+        e2e.USE_FUSED_EXTRACT = True
+    wall_split = time.perf_counter() - t0
+    split = read_counts(extract, probe, sort)
+    split_routes = dict(pipeline.ROUTES.counts)
+    if rc != 0:
+        raise RuntimeError(f"split-engine search failed ({rc})")
+    if split["K1"] != 0 or split["track"] <= 0 or split["K3"] <= 0:
+        raise AssertionError(f"split engine: wrong kernels launched {split}")
+    with open(out_dev, "rb") as fa, open(out_split, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("split-engine TSV differs from the K1 TSV")
+    if tsv_rows(out_split, ids) != host_rows:
+        raise AssertionError("split-engine TSV differs from the host TSV")
+    log(f"[{layout}] split engine: {n_total} reads in {wall_split:.2f} s "
+        f"wall = {n_total / wall_split:.1f} reads/s; TSV == K1 TSV on every "
+        f"read and == host on {len(sub)}; launches {split}; routes "
+        f"{split_routes}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
     # ---- the result is right: a classified read names its source genome
     first = {}
     for row in tsv_rows(out_dev):
@@ -413,7 +526,7 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     log(f"[{layout}] accuracy: {len(hits)}/{n_total} reads classified, "
         f"{right} of them to their source genome")
     return {"index": index, "recs": recs, "launches": launches,
-            "routes": routes, "peak_mib": peak}
+            "split": split, "routes": routes, "peak_mib": peak}
 
 
 def hier_report(torch, state) -> None:
@@ -462,6 +575,23 @@ def time_pair(torch, fn, plain, reps: int):
     return min(m1, m2), min(p1, p2), err, (m1, m2, p1, p2)
 
 
+def bound(nbytes: float, ops: float, peak: float) -> dict:
+    """The least time the card could take: the larger of nbytes over the
+    memory rate and ops over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / peak * 1e3
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes"}
+    return {"bound_ms": t_ops, "bound_by": "operations"}
+
+
+def sort_ops(n) -> float:
+    """Compare-exchanges of bitonic networks over pow2(n) keys, per row."""
+    P = [1 << max(0, x - 1).bit_length() for x in n]
+    return float(sum(p // 2 * (p.bit_length() - 1) * p.bit_length() // 2
+                     for p in P))
+
+
 def bucket_reads(recs, L: int) -> list[bytes]:
     """POS_BUDGET / L reads of the L bucket, as the pipeline batches them."""
     from taxor_tpu_torch.search.pipeline import POS_BUDGET
@@ -489,7 +619,22 @@ def time_kernels(torch, state) -> list[dict]:
     k1 = lambda: extract.syncmer_hashes(pk, ln, K, S, t, hcap)  # noqa: E731
     k1p = lambda: extract.syncmer_hashes_plain(pk, ln, K, S, t,  # noqa: E731
                                                hcap)
-    hi, lo, valid, _, _ = k1()
+    hi, lo, valid, _, n_emit = k1()
+    R, H = hi.shape
+    S_, Bp = dh.table.shape
+    W = extract.sort_width(L, K, S, t)
+    bounds = {
+        # packed + lengths in; hi, lo, valid, n_unique, n_emit out; one
+        # tracker step per base, the sort network, one hash per slot
+        "syncmer_extract": bound(
+            pk.numel() + 4 * R + 9 * R * H + 8 * R,
+            float(ln.sum()) + sort_ops(n_emit.clamp(max=W).tolist())
+            + R * H,
+            PEAK_SCALAR),
+        # hashes in, the table once, counts out; one fingerprint-byte
+        # compare per valid hash and bin
+        "probe_count": bound(9 * R * H + S_ * Bp + 4 * R * Bp,
+                             float(valid.sum()) * Bp, PEAK_INT8)}
     k2 = lambda: probe.probe_counts(hi, lo, valid, dh.table,  # noqa: E731
                                     dh.seed, dh.block_length)
     k2p = lambda: probe.probe_counts_plain(hi, lo, valid,  # noqa: E731
@@ -507,7 +652,90 @@ def time_kernels(torch, state) -> list[dict]:
             f"ms, plain {each[2]:.3f}/{each[3]:.3f} ms")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "plain_ms": plain_ms, **bounds[name],
+                     "library_ms": None})
+    state["k1_ms"] = rows[0]["ms"]
+    return rows
+
+
+def time_split(torch, state) -> list[dict]:
+    """K3 against the pair-sort route (K4) on the flat path's L=8192
+    reads; then syncmer_track, K3 and K4 timed against their twins, K4
+    against torch.sort of the combined key, and the split engine's
+    extraction against K1 (phase 10)."""
+    from taxor_tpu_torch.device import extract, sort
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.utils.u64 import INT64_MIN, join32, split32
+
+    dev = torch.device("cuda")
+    L = 8192
+    t = (K - S + 1) // 2
+    gap = dsync.emission_min_gap(K, S, t)
+    seqs = bucket_reads(state["recs"], L)
+    packed, lengths = dsync.pack_reads(seqs, L)
+    pk = torch.from_numpy(packed).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    hcap = dsync.hash_cap(L)
+    R = len(seqs)
+    kmer, emit = extract.syncmer_track(pk, ln, K, S, t)
+    fused = sort.dedup_fused(kmer, emit, hcap, gap)
+    sort.sort_pairs.LAUNCHES = 0
+    pairs = sort.dedup_pairs(kmer, emit, hcap)
+    state["k4_check"] = sort.sort_pairs.LAUNCHES
+    assert_equal(torch, "K3 vs the pair-sort route", ("kmer", "valid",
+                 "n_unique", "n_emit"), fused, pairs)
+    if state["k4_check"] != 1:
+        raise AssertionError(f"dedup_pairs launched K4 {state['k4_check']} "
+                             "times, not once")
+    log(f"K3 == sort.dedup_pairs (K4 over [{R}, {L}]) on the flat path's "
+        f"L={L} reads")
+
+    hi, lo = split32(torch.where(emit, kmer, torch.full_like(kmer, -1)))
+    keys = join32(hi, lo) ^ INT64_MIN
+    n_emit = fused[3]
+    Wp = L
+    cases = (
+        ("syncmer_track", "taxor_tpu_torch/csrc/extract.cu",
+         "taxor_tpu/hash/device_syncmer.py:279 (XLA scan, no Pallas "
+         "kernel)", lambda: extract.syncmer_track(pk, ln, K, S, t),
+         lambda: dsync.syncmer_kmers(pk, ln, K, S, t), None, 5,
+         # packed + lengths in, kmer + emit out; a tracker step and a
+         # k-mer per position
+         bound(pk.numel() + 4 * R + 9 * R * L, 2.0 * R * L, PEAK_SCALAR)),
+        ("dedup", "taxor_tpu_torch/csrc/dedup.cu",
+         "taxor_tpu/device/pallas_sort.py:68",
+         lambda: sort.dedup_fused(kmer, emit, hcap, gap),
+         lambda: sort.dedup_fused_plain(kmer, emit, hcap, gap), None, 20,
+         # kmer + emit in; kmer, valid, counts out; a scan of the row and
+         # the sort network over the emissions
+         bound(9 * R * L + 9 * R * hcap + 8 * R,
+               R * L + sort_ops(n_emit.tolist()), PEAK_SCALAR)),
+        ("sort_pairs", "taxor_tpu_torch/csrc/sort_pairs.cu",
+         "taxor_tpu/device/pallas_sort.py:62",
+         lambda: sort.sort_pairs(hi, lo),
+         lambda: sort.sort_pairs_plain(hi, lo),
+         lambda: torch.sort(keys, dim=1), 20,
+         bound(16 * R * L, sort_ops([Wp] * R), PEAK_SCALAR)))
+    rows = []
+    for name, src, rep, fn, plain, library, reps, bnd in cases:
+        ms, plain_ms, err, each = time_pair(torch, fn, plain, reps)
+        lib_ms = None if library is None else cuda_ms(library, reps)
+        log(f"time {name} at R={R}, L={L}, hcap={hcap}: kernel "
+            f"{each[0]:.4f}/{each[1]:.4f} ms, plain {each[2]:.3f}/"
+            f"{each[3]:.3f} ms, library {lib_ms}, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, **bnd, "library_ms": lib_ms})
+
+    def split_extract():
+        km, em = extract.syncmer_track(pk, ln, K, S, t)
+        srt, valid, _, _ = sort.dedup_fused(km, em, hcap, gap)
+        return extract.hashes_of_kmers(srt, valid)
+
+    split_ms = cuda_ms(split_extract, 5)
+    log(f"time split extraction (syncmer_track + K3 + wyhash) at R={R}, "
+        f"L={L}: {split_ms:.4f} ms vs K1 {state['k1_ms']:.4f} ms")
     return rows
 
 
@@ -515,7 +743,7 @@ def time_hier(torch, state) -> list[dict]:
     """K2n and K2 against their twin on the root group and on the first
     stacked level, at the hierarchical path's L=8192 bucket, with the
     descent's own activity masks."""
-    from taxor_tpu.search.thresholds import Thresholder
+    from taxor_tpu_torch.search.thresholds import Thresholder
     from taxor_tpu_torch.device import extract, probe
     from taxor_tpu_torch.device.e2e import descend
     from taxor_tpu_torch.hash import device_syncmer as dsync
@@ -551,11 +779,19 @@ def time_hier(torch, state) -> list[dict]:
                 f"active: kernel {each[0]:.4f}/{each[1]:.4f} ms, plain "
                 f"{each[2]:.3f}/{each[3]:.3f} ms")
             if label == "root" and name == "probe_count_narrow":
+                G, S_, Bp = g["tables"].shape
+                R, H = hi.shape
+                active_hashes = float((act[:, :, None] & valid[None])
+                                      .sum())
                 rows.append({
                     "name": name, "route": "cuda",
                     "source": "taxor_tpu_torch/csrc/probe_narrow.cu",
                     "replaces": "taxor_tpu/device/pallas_probe.py:578",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **bound(9 * R * H + G * S_ * Bp + G * R
+                            + 4 * G * R * Bp, active_hashes * Bp,
+                            PEAK_INT8),
+                    "library_ms": None})
     return rows
 
 
@@ -578,7 +814,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from taxor_tpu_torch.device import cuda_build, extract, probe
+    from taxor_tpu_torch.device import cuda_build, extract, probe, sort
     from taxor_tpu_torch.hash import device_syncmer as dsync
 
     card = card_line()
@@ -589,8 +825,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
-    check_k1(torch, dsync, extract, rng)
+    check_k1(torch, dsync, extract, sort, rng)
     check_k2(torch, probe, rng)
+    check_sorts(torch, sort, rng)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "taxor_tpu_torch", "_build")
     os.makedirs(root, exist_ok=True)
@@ -599,6 +836,7 @@ def main() -> int:
         flat = main_path(torch, os.path.join(work, "flat"), rng, args.genomes,
                          args.reads, "flat")
         kernels = time_kernels(torch, flat)
+        kernels += time_split(torch, flat)
         shutil.rmtree(os.path.join(work, "flat"), ignore_errors=True)
         check_grouped(torch, probe, rng)
         hier = main_path(torch, os.path.join(work, "hier"), rng,
@@ -607,11 +845,17 @@ def main() -> int:
         kernels += time_hier(torch, hier)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for row in kernels:  # launches of both main paths
+    for row in kernels:  # launches on both main paths, both engines
         key = {"syncmer_extract": "K1", "probe_count": "K2",
-               "probe_count_narrow": "K2n"}[row["name"]]
-        row["launches"] = flat["launches"][key] + hier["launches"][key]
-    if any(r["launches"] <= 0 for r in kernels):
+               "probe_count_narrow": "K2n", "syncmer_track": "track",
+               "dedup": "K3", "sort_pairs": "K4"}[row["name"]]
+        row["launches"] = sum(run[key] for path in (flat, hier)
+                              for run in (path["launches"], path["split"]))
+        row["launches_in"] = "main paths"
+        if key == "K4":  # as in the JAX package, no search path sorts pairs
+            row["launches_in"] = "not on a main path"
+            row["check_launches"] = flat["k4_check"]  # sort.dedup_pairs
+    if any(r["launches"] <= 0 for r in kernels if r["name"] != "sort_pairs"):
         raise AssertionError(f"a kernel never launched on a main path: "
                              f"{kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,16 @@
 """taxor_tpu_torch — the taxor_tpu classifier on PyTorch and CUDA (Hopper).
 
-A second package beside the JAX reference ``taxor_tpu``.  The numpy host
-layer of ``taxor_tpu`` (IO, index build, host hash oracles, thresholds,
-TSV/CAMI text) is imported, not copied; this package owns everything
-that ran on the TPU: the 64-bit hash math on device tensors, syncmer
-extraction (CUDA kernel K1, ``csrc/extract.cu``), the interleaved XOR
-filter probe/count (CUDA kernel K2, ``csrc/probe.cu``), the fused search
-step, the flat device index and the search pipeline and CLI around them.
+A second package beside the JAX reference ``taxor_tpu``, which it
+never imports.  It holds its own copy of the JAX package's numpy host
+layer (``io/``, ``hash/`` oracles and schemes, ``ixf/``, ``hixf/``,
+``search/thresholds.py``, ``apps/build.py``, ``profile/``, and the C++
+of ``native/``, built into ``_build/native``) and everything that ran on
+the TPU: the 64-bit hash math on device tensors, syncmer extraction
+(CUDA kernel K1, ``csrc/extract.cu``, or the split engine: the tracker
+``syncmer_track`` and the dedup kernel K3 ``csrc/dedup.cu``), the
+pair sort K4 (``csrc/sort_pairs.cu``), the interleaved XOR filter
+probe/count (K2 ``csrc/probe.cu``, K2n ``csrc/probe_narrow.cu``), the
+fused search steps, the device index and the search pipeline and CLI.
 
 Every kernel has a plain PyTorch twin in the same module, taken only for
 tensors on the CPU.  This package never imports JAX.

@@ -5,11 +5,11 @@ reference's flag names and defaults (src/main/main.cpp:54-77).
     python -m taxor_tpu_torch.cli search ...   # --engine device|host
     python -m taxor_tpu_torch.cli profile ...  # CAMI profile
 
-``build`` and ``profile`` run the JAX package's numpy host code
-(taxor_tpu.apps.build, taxor_tpu.profile), so both packages write the
-same index and the same text.  ``search`` runs this package's pipeline
-on ``--device`` (default cuda; with no CUDA device it fails instead of
-running on the CPU).
+``build`` and ``profile`` run this package's copy of the JAX package's
+numpy host layer (apps/build.py, profile/profile.py), so both packages
+write the same index and the same text.  ``search`` runs this package's
+pipeline on ``--device`` (default cuda; with no CUDA device it fails
+instead of running on the CPU).
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ def _add_profile(sub):
 
 def _run(args) -> None:
     if args.command == "build":
-        from taxor_tpu.apps.build import BuildConfig, run_build
+        from .apps.build import BuildConfig, run_build
 
         run_build(BuildConfig(
             input_file=args.input_file,
@@ -117,7 +117,7 @@ def _run(args) -> None:
             write_time=args.write_time,
         ), device=args.device)
     elif args.command == "profile":
-        from taxor_tpu.profile.profile import ProfileConfig, run_profile
+        from .profile.profile import ProfileConfig, run_profile
 
         run_profile(ProfileConfig(
             search_file=args.search_file,

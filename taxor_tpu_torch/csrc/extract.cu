@@ -1,4 +1,5 @@
-// K1: open canonical syncmer extraction, dedup and wyhash, one block per read.
+// K1: open canonical syncmer extraction, dedup and wyhash, one block per read;
+// and syncmer_track, the first kernel of the split engine.
 //
 // Replaces the TPU kernel taxor_tpu/device/pallas_extract.py
 // (_extract_kernel, launched by syncmer_hashes_fused) together with the
@@ -33,17 +34,29 @@
 // a unique minimum, where the tracker state is history-free), several
 // reads per block to fill the SMs on short buckets, and a sort over
 // registers/warp shuffles instead of block-wide shared-memory stages.
+//
+// syncmer_track (the split engine, device/e2e.USE_FUSED_EXTRACT = False)
+// writes what the tracker sees instead of sorting it: per end position
+// the canonical k-mer (int64 [R, L]) and whether it was emitted (bool
+// [R, L], false past the read's length), the contract of the plain
+// hash/device_syncmer.syncmer_kmers.  Its JAX counterpart is the XLA
+// scan device_syncmer.syncmer_kmers, not a Pallas kernel.  Thread 0
+// tracks into a shared bit mask; then every thread computes the k-mers
+// of its positions from the staged words (they depend on the bases
+// alone) and writes both rows, coalesced.  It is bound by the same
+// sequential tracker, then by writing 9 bytes per position.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bitonic.cuh"
+#include "tracker.cuh"
 #include "u64.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned long long kSentinel = ~0ull;
 
 // Shared-memory header before the sort buffer: L/16 stream words, a
 // 32-entry ring of s-mer values and two counters (16-byte aligned).
@@ -51,25 +64,12 @@ __host__ __device__ inline size_t header_bytes(int L) {
   return (size_t)(L / 4) + 32 * 4 + 16;
 }
 
-// Ascending bitonic network over buf[0, n), n a power of two.  Every
-// thread of the block calls it (the _bitonic_body network of
-// pallas_sort.py, written once).
-__device__ void bitonic_sort(unsigned long long* buf, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int idx = threadIdx.x; idx < (n >> 1); idx += blockDim.x) {
-        const int i = 2 * idx - (idx & (stride - 1));
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        const unsigned long long a = buf[i], b = buf[j];
-        if ((a > b) == up) {
-          buf[i] = b;
-          buf[j] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+// Stages read r's 2-bit words (L/16 of them) into shared memory.
+__device__ inline void stage_read(const uint8_t* packed, int r, int L,
+                                  uint32_t* words) {
+  const uint32_t* src =
+      reinterpret_cast<const uint32_t*>(packed + (size_t)r * (L / 4));
+  for (int i = threadIdx.x; i < L / 16; i += blockDim.x) words[i] = src[i];
 }
 
 __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
@@ -80,83 +80,36 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
     int32_t* __restrict__ n_unique_out, int32_t* __restrict__ n_emit_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = blockIdx.x;
-  const int nwords = L / 16;
   uint32_t* words = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* ring = words + nwords;
+  uint32_t* ring = words + L / 16;
   int* counters = reinterpret_cast<int*>(ring + 32);  // n_emit, n_unique
   unsigned long long* buf =
       scratch ? scratch + (size_t)r * W
               : reinterpret_cast<unsigned long long*>(smem + header_bytes(L));
 
-  // 1. stage the read: base i sits at bits 2*(i%16) of word i/16
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(packed + (size_t)r * (L / 4));
-  for (int i = threadIdx.x; i < nwords; i += blockDim.x) words[i] = src[i];
+  // 1. stage the read
+  stage_read(packed, r, L, words);
   if (threadIdx.x == 0) counters[1] = 0;
   __syncthreads();
 
-  // 2. the reference tracker, one thread
+  // 2. the reference tracker, one thread, appending to the sort buffer
   if (threadIdx.x == 0) {
     const int len = max(0, min(lengths[r], L));
-    const int w = k - s + 1;
-    const uint64_t kmask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
-    const uint32_t smask = (1u << (2 * s)) - 1;
-    const int kshift = 2 * (k - 1), sshift = 2 * (s - 1);
-    uint64_t xk0 = 0, xk1 = 0;
-    uint32_t xs0 = 0, xs1 = 0, word = 0;
-    uint32_t qv = 0xFFFFFFFFu;  // held minimum value ...
-    int qp = -1;                // ... and its s-mer start
-    int n = 0;
-    for (int i = 0; i < len; ++i) {
-      if ((i & 15) == 0) word = words[i >> 4];
-      const uint32_t c = (word >> (2 * (i & 15))) & 3u;
-      xk0 = ((xk0 << 2) | c) & kmask;
-      xk1 = (xk1 >> 2) | ((uint64_t)(3u - c) << kshift);
-      xs0 = ((xs0 << 2) | c) & smask;
-      xs1 = (xs1 >> 2) | ((3u - c) << sshift);
-      if (i < s - 1) continue;
-      const uint32_t ys = min(xs0, xs1);
-      ring[i & 31] = ys;  // s-mer ending at i; w <= 31 ends stay live
-      if (i < k - 1) continue;
-      if (i == k - 1) {  // first full window: leftmost minimum
-        qv = 0xFFFFFFFFu;
-        for (int j = 0; j < w; ++j) {
-          const uint32_t v = ring[(s - 1 + j) & 31];
-          if (v < qv) {
-            qv = v;
-            qp = j;
-          }
-        }
-      } else if (qp == i - k) {  // the minimum slid out: rightmost minimum
-        qv = 0xFFFFFFFFu;
-        for (int j = w - 1; j >= 0; --j) {
-          const uint32_t v = ring[(i - w + 1 + j) & 31];
-          if (v < qv) {
-            qv = v;
-            qp = i - k + 1 + j;
-          }
-        }
-      } else if (ys < qv) {  // only a strictly smaller newcomer takes over
-        qv = ys;
-        qp = i - s + 1;
-      }
-      if (qp == i - k + t) {
-        if (n < W) buf[n] = xk0 < xk1 ? xk0 : xk1;
-        ++n;
-      }
-    }
-    counters[0] = n;
+    counters[0] = taxor::track_syncmers(
+        words, ring, len, k, s, t, [&](int n, int, uint64_t kmer) {
+          if (n < W) buf[n] = kmer;
+        });
   }
   __syncthreads();
 
   // 3. sort, first occurrences, wyhash
   const int n = counters[0];
   const int m = min(n, W);
-  int P = 1;
-  while (P < m) P <<= 1;
-  for (int i = m + threadIdx.x; i < P; i += blockDim.x) buf[i] = kSentinel;
+  const int P = taxor::pow2_at_least(m);
+  for (int i = m + threadIdx.x; i < P; i += blockDim.x)
+    buf[i] = taxor::kSentinel;
   __syncthreads();
-  bitonic_sort(buf, P);
+  taxor::bitonic_sort(buf, P);
   int local = 0;
   for (int j = threadIdx.x; j < m; j += blockDim.x)
     local += (j == 0 || buf[j] != buf[j - 1]);
@@ -176,6 +129,52 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
   }
 }
 
+// Canonical k-mer ending at base i, bases before 0 read as A: the value
+// syncmer_kmers gives at every position (emitted or not).
+__device__ inline uint64_t kmer_at(const uint32_t* words, int i, int k) {
+  uint64_t f = 0, rv = 0;
+  for (int j = 0; j < k; ++j) {
+    const int p = i - j;
+    const uint32_t c = p >= 0 ? taxor::base_at(words, p) : 0u;
+    f |= (uint64_t)c << (2 * j);
+    rv |= (uint64_t)(3u - c) << (2 * (k - 1 - j));
+  }
+  return f < rv ? f : rv;
+}
+
+__global__ void __launch_bounds__(kThreads) syncmer_track_kernel(
+    const uint8_t* __restrict__ packed, const int32_t* __restrict__ lengths,
+    int L, int k, int s, int t, int64_t* __restrict__ out_kmer,
+    uint8_t* __restrict__ out_emit) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r = blockIdx.x;
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* ring = words + L / 16;
+  uint32_t* bits = ring + 32;  // emission mask, ceil(L/32) words
+
+  stage_read(packed, r, L, words);
+  for (int i = threadIdx.x; i < (L + 31) / 32; i += blockDim.x) bits[i] = 0;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int len = max(0, min(lengths[r], L));
+    taxor::track_syncmers(words, ring, len, k, s, t,
+                          [&](int, int i, uint64_t) {
+                            bits[i >> 5] |= 1u << (i & 31);
+                          });
+  }
+  __syncthreads();
+  const size_t row = (size_t)r * L;
+  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+    out_kmer[row + i] = (int64_t)kmer_at(words, i, k);
+    out_emit[row + i] = (bits[i >> 5] >> (i & 31)) & 1u;
+  }
+}
+
+cudaError_t set_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace
 
 extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
@@ -186,9 +185,7 @@ extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
                                       void* n_emit, void* stream) {
   if (R == 0) return 0;
   const size_t smem = header_bytes(L) + (scratch ? 0 : (size_t)W * 8);
-  cudaError_t e = cudaFuncSetAttribute(
-      syncmer_extract_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t e = set_smem((const void*)syncmer_extract_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   syncmer_extract_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(packed),
@@ -197,5 +194,20 @@ extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
       static_cast<int32_t*>(out_hi), static_cast<int32_t*>(out_lo),
       static_cast<uint8_t*>(out_valid), static_cast<int32_t*>(n_unique),
       static_cast<int32_t*>(n_emit));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_syncmer_track(const void* packed, const void* lengths,
+                                    int R, int L, int k, int s, int t,
+                                    void* out_kmer, void* out_emit,
+                                    void* stream) {
+  if (R == 0) return 0;
+  const size_t smem = (size_t)(L / 4) + 32 * 4 + 4 * (size_t)((L + 31) / 32);
+  cudaError_t e = set_smem((const void*)syncmer_track_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  syncmer_track_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(packed),
+      static_cast<const int32_t*>(lengths), L, k, s, t,
+      static_cast<int64_t*>(out_kmer), static_cast<uint8_t*>(out_emit));
   return (int)cudaGetLastError();
 }

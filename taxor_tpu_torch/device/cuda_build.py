@@ -40,6 +40,13 @@ _SIGNATURES = {
                            ctypes.c_uint64, ctypes.c_uint32, _P, _P],
     "launch_probe_count_narrow": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                                   ctypes.c_uint64, ctypes.c_uint32, _P, _P],
+    # (packed, lengths, R, L, k, s, t, out_kmer, out_emit, stream)
+    "launch_syncmer_track": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (kmer, emit, R, L, hcap, Wb, scratch, out_kmer, out_valid, n_unique,
+    #  n_emit, stream)
+    "launch_dedup": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (hi, lo, R, W, Wp, scratch, out_hi, out_lo, stream)
+    "launch_sort_pairs": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 

@@ -23,6 +23,9 @@ Three replacements against the JAX step:
     ``lax.top_k``'s lower-index-first order among ties (``torch.topk``
     does not promise it);
   - no tie rescue: K1 is exact for every read.
+
+``USE_FUSED_EXTRACT = False`` swaps K1 for the split engine (the JAX
+package's scan-exact path); the output is the same.
 """
 
 from __future__ import annotations
@@ -31,8 +34,29 @@ import threading
 
 import torch
 
-from .extract import syncmer_hashes
+from ..hash.device_syncmer import emission_min_gap
+from .extract import hashes_of_kmers, syncmer_hashes, syncmer_track
 from .probe import probe_counts, probe_counts_grouped
+from .sort import dedup_fused
+
+# Extraction engine of both steps, as in the JAX package: True runs K1
+# (extraction, dedup and wyhash in one kernel); False runs the split
+# engine, the tracker kernel syncmer_track, then the dedup kernel K3
+# (dedup_fused) and the wyhash as tensor ops.  Both give the same
+# output; flip it to A/B them.
+USE_FUSED_EXTRACT = True
+
+
+def _syncmer_hashes(packed, lengths, k: int, s: int, t: int, hcap: int):
+    """(hi, lo, valid, n_unique, n_emit) of the wyhashed sorted syncmer
+    k-mers (device/extract.py's contract) from the engine that
+    USE_FUSED_EXTRACT selects."""
+    if USE_FUSED_EXTRACT:
+        return syncmer_hashes(packed, lengths, k, s, t, hcap)
+    kmer, emit = syncmer_track(packed, lengths, k, s, t)
+    srt, valid, n_unique, n_emit = dedup_fused(kmer, emit, hcap,
+                                               emission_min_gap(k, s, t))
+    return (*hashes_of_kmers(srt, valid), valid, n_unique, n_emit)
 
 
 def segment_sums(counts: torch.Tensor, run_g: torch.Tensor,
@@ -100,8 +124,8 @@ def fused_e2e_step(table: torch.Tensor, packed: torch.Tensor,
     (pack_reads); run_offsets int64 [n_runs + 1]; run_users int32
     [n_runs]; all on one device."""
     _check_scheme("fused_e2e_step", scheme_kind, scale_thresh)
-    hi, lo, valid, n_unique, n_emit = syncmer_hashes(packed, lengths, k, s,
-                                                     t, hcap)
+    hi, lo, valid, n_unique, n_emit = _syncmer_hashes(packed, lengths, k, s,
+                                                      t, hcap)
     counts = probe_counts(hi, lo, valid, table, seed, block_length,
                           route="fused")
     sums = run_sums(counts, run_offsets, prefix_runs)
@@ -188,10 +212,11 @@ def make_hixf_e2e_grouped_fn(groups, leaf_users: torch.Tensor, k: int,
     where the leaf's IXF was not descended), their user bins, the unique
     hash count and the emission count per read.
 
-    K1 extracts the hashes once.  Then, per group in order (ancestors
-    before descendants, ``descend``): the group's G subgroup tables
-    [G, S, Bpad] probe as one launch (probe_counts_grouped), each
-    subgroup with the OR of its members' descent masks; the counts
+    K1 (or the split engine) extracts the hashes once.  Then, per group
+    in order (ancestors before descendants, ``descend``): the group's G
+    subgroup tables [G, S, Bpad] probe as one launch
+    (probe_counts_grouped), each subgroup with the OR of its members'
+    descent masks; the counts
     [G, R, Bpad] sum into the group's runs; each merged run activates its
     child where ``active & (sum >= thr_table[n_unique])``; the leaf runs
     give the leaf values.  Top-k runs over the leaf columns concatenated
@@ -211,8 +236,8 @@ def make_hixf_e2e_grouped_fn(groups, leaf_users: torch.Tensor, k: int,
     n_nodes = 1 + max(m[0] for g in groups for m in g["members"])
 
     def run(packed, lengths, thr_table, hcap: int) -> torch.Tensor:
-        hi, lo, valid, n_unique, n_emit = syncmer_hashes(packed, lengths, k,
-                                                         s, t, hcap)
+        hi, lo, valid, n_unique, n_emit = _syncmer_hashes(packed, lengths,
+                                                          k, s, t, hcap)
         thr = thr_table[n_unique.clamp(0, thr_table.shape[0] - 1).long()]
         leaf_vals = descend(groups, n_nodes, hi, lo, valid, thr, stats)
         vals, users = topk_desc(torch.cat(leaf_vals).T, leaf_users, topk)

@@ -43,10 +43,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from taxor_tpu.hash.schemes import scaling_threshold_u64
-from taxor_tpu.hixf.container import HIXF
-
 from ..hash.device_syncmer import hash_cap
+from ..hash.schemes import scaling_threshold_u64
+from ..hixf.container import HIXF
 from .e2e import (ActivityStats, fused_e2e_step, make_hixf_e2e_grouped_fn,
                   run_sums, segment_sums, topk_desc)
 from .probe import (pad_bins, pad_fingerprints, probe_counts,

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.u64 import INT64_MIN, umin
+from ..utils.u64 import umin, usort_rows
 
 # reads longer than this take the host-hash route (search/pipeline.py)
 L_CAP = 32768
@@ -62,7 +62,7 @@ def pack_reads(seqs: list[bytes], L: int):
     R = len(seqs)
     lengths = np.fromiter((min(len(s), L) for s in seqs), dtype=np.int64,
                           count=R)
-    from taxor_tpu.native import get_lib
+    from ..native import get_lib
 
     lib = get_lib()
     if lib is not None:
@@ -193,7 +193,8 @@ def syncmer_kmers(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     return kmer, emit & (pos < lengths.to(torch.int64)[:, None])
 
 
-def dedup_kmers(kmer: torch.Tensor, emit: torch.Tensor, hcap: int):
+def dedup_kmers(kmer: torch.Tensor, emit: torch.Tensor, hcap: int,
+                sort_rows=usort_rows):
     """Sort each read's emitted canonical k-mers, mark first occurrences,
     keep the first hcap sorted slots.
 
@@ -201,14 +202,16 @@ def dedup_kmers(kmer: torch.Tensor, emit: torch.Tensor, hcap: int):
     the emissions, valid bool [R, hcap], n_unique int32 [R] over ALL
     emissions, n_emit int32 [R] pre-dedup).  n_emit > hcap means unique
     k-mers may lie beyond the slice: the caller falls back to the host
-    oracle for that read."""
+    oracle for that read.
+
+    sort_rows sorts the sentinel-masked rows ascending as uint64: the
+    plain ``torch.sort`` by default (the plain twin); device/sort.py's
+    ``dedup_pairs`` passes the pair sort K4."""
     R, L = kmer.shape
     n_emit = emit.sum(dim=1)
-    vals = torch.where(emit, kmer, torch.full_like(kmer, SENTINEL))
-    srt = torch.sort(vals ^ INT64_MIN, dim=1).values ^ INT64_MIN
-    col = torch.arange(L, device=kmer.device)[None, :]
+    srt = sort_rows(torch.where(emit, kmer, torch.full_like(kmer, SENTINEL)))
     prev = torch.cat([srt[:, :1] ^ 1, srt[:, :-1]], dim=1)
-    uniq = (srt != prev) & (col < n_emit[:, None])
+    uniq = (srt != prev) & (srt != SENTINEL)
     n_unique = uniq.sum(dim=1)
     if L < hcap:
         srt = torch.cat([srt, torch.full((R, hcap - L), SENTINEL,

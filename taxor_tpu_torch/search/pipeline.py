@@ -4,9 +4,9 @@ Counterpart of ``search_single`` and ``run_search`` in
 ``taxor_tpu/search/pipeline.py``, which cannot be reused as they are:
 ``search_single`` imports the JAX device extractor before it looks at
 the engine, and ``run_search`` builds the JAX ``DeviceHIXF``.  The text
-is the reference's by construction: the row formatting, the thresholds
-and the device-result decoders are imported from the JAX package's host
-layer, not copied.
+is the reference's: the row formatting, the thresholds and the
+device-result decoders below are copies of the JAX package's, held to
+it by tests/test_torch_hostlayer.py and the TSV parity tests.
 
 Engines:
   - 'device': per batch, reads up to L_CAP go through the fused step
@@ -27,25 +27,206 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from taxor_tpu.hash import schemes as _schemes
-from taxor_tpu.hash.schemes import search_hashes
-from taxor_tpu.hixf.index import TaxorIndex, load_index
-from taxor_tpu.io.fastx import iter_fastx_chunks
-from taxor_tpu.search.pipeline import (HEADER, SearchConfig, _format_rows,
-                                       _pairs_from_counts, _pairs_from_e2e,
-                                       _pairs_from_topk, _scaling_ratio)
-from taxor_tpu.search.thresholds import Thresholder
-
 from ..device.hixf_search import DeviceHIXF
 from ..device.probe import pack_hash_lists
 from ..hash import device_syncmer as dsync
+from ..hash import schemes as _schemes
+from ..hash.schemes import search_hashes
+from ..hixf.index import TaxorIndex, load_index
+from ..io.fastx import iter_fastx_chunks
+from .thresholds import Thresholder
 
 # positions per fused dispatch: bounds the device working set per call
 POS_BUDGET = 2048 * 2048
+
+
+@dataclass
+class SearchConfig:
+    index_file: str = ""
+    query_file: str = ""
+    report_file: str = "search.out"
+    threads: int = 1  # host hashing threads (hash/schemes.NUM_THREADS)
+    percentage: float = -1.0
+    error_rate: float = 0.04
+    engine: str = "device"  # 'device' | 'host'
+    batch_size: int = 1024
+    # batches in flight on worker threads: packing, upload, the device
+    # step, download and decoding of consecutive batches overlap
+    pipeline_depth: int = 4
+    write_time: bool = False
+    topk: int = 16  # device candidate slots; auto-escalates on truncation
+
+
+HEADER = (
+    "#QUERY_NAME\tACCESSION\tREFERENCE_NAME\tTAXID\tREF_LEN\tQUERY_LEN\t"
+    "QHASH_COUNT\tQHASH_MATCH\tTAX_STR\tTAX_ID_STR\n"
+)
+
+
+def _format_rows(
+    rec_id: str,
+    seq_len: int,
+    hash_count: int,
+    pairs: list[tuple[int, int]],
+    index: TaxorIndex,
+    ub2sp: dict[int, int],
+) -> str:
+    """The rows of one read (taxor_search.cpp:268-307): every bin within
+    0.8 of the read's best count, or the 6-column no-hit row."""
+    if not pairs:
+        return f"{rec_id}\t-\t-\t-\t-\t{seq_len}\n"
+    max_count = max(c for _, c in pairs)
+    out = []
+    for user_bin, count in pairs:
+        if float(count) < float(max_count) * 0.8:
+            continue
+        sp = index.species[ub2sp[user_bin]]
+        out.append(
+            f"{rec_id}\t{sp.accession_id}\t{sp.organism_name}\t{sp.taxid}\t"
+            f"{sp.seq_len}\t{seq_len}\t{hash_count}\t{count}\t"
+            f"{sp.taxnames_string}\t{sp.taxid_string}\n"
+        )
+    return "".join(out)
+
+
+def _scaling_ratio(hash_count: int, seq_len: int, kmer_size: int) -> float:
+    """(double)hash_count / ((double)len - k + 1.0) with C double
+    semantics (taxor_search.cpp:263): seq_len == k-1 yields 0/0 = NaN
+    (hash_count is always 0 for such reads), which the fracminhash model
+    propagates to the size_t sentinel — 'no read can pass', exactly as
+    the reference binary computes it.  Only that model consumes the
+    ratio."""
+    denom = float(seq_len) - float(kmer_size) + 1.0
+    if denom == 0.0:
+        return float("nan") if hash_count == 0 else float("inf")
+    return float(hash_count) / denom
+
+
+def _read_threshold(thresholder, hash_count, seq_len, kmer_size):
+    """The per-read threshold exactly as the host prepare computes it."""
+    return int(thresholder.get(
+        hash_count, _scaling_ratio(hash_count, seq_len, kmer_size)))
+
+
+def _pairs_from_e2e(vals, users, counts, n_emit, seqs, index, scheme,
+                    thresholder, dfs_rank, hcap,
+                    trunc_out: list | None = None):
+    """Decode the fused device result (device/e2e.py).
+
+    The device returns top-k RAW run sums; this applies the per-read
+    threshold (exact host float64: no device float math in the parity
+    path) and detects the two truncation cases that need the host
+    oracle: raw emissions overflowing the device hash capacity (n_emit
+    counts pre-dedup emissions, and duplicates can push unique k-mers
+    past the hcap slice even when counts <= hcap; hcap is the capacity
+    the device step used, passed through the collector), and all k
+    candidate slots surviving the threshold and the 0.8*max pre-filter.
+    ``trunc_out`` receives the second set: the pipeline's top-k
+    escalation trigger (a larger k cannot fix an hcap overflow)."""
+    k_sch = scheme.kmer_size
+    kk = vals.shape[1]
+
+    def host_fallback(seq):
+        hl = search_hashes([seq], scheme)[0]
+        hc = hl.shape[0]
+        thr = _read_threshold(thresholder, hc, len(seq), k_sch)
+        return index.hixf.membership(hl, int(thr)), hc
+
+    Rs = len(seqs)  # device rows may include batch padding: drop it
+    counts = np.asarray(counts, dtype=np.int64)[:Rs]
+    n_emit = np.asarray(n_emit, dtype=np.int64)[:Rs]
+    vals = np.asarray(vals, dtype=np.int64)[:Rs]
+    users = np.asarray(users, dtype=np.int64)[:Rs]
+    lens = np.fromiter((len(s) for s in seqs), dtype=np.int64,
+                       count=len(seqs))
+    # threshold per read, memoized on (hash_count, read_len), the only
+    # inputs the models consume; exact host float64 math
+    thr_cache = getattr(thresholder, "_e2e_thr_cache", None)
+    if thr_cache is None:
+        thr_cache = thresholder._e2e_thr_cache = {}
+    thr = np.empty(len(seqs), dtype=np.int64)
+    for r, key in enumerate(zip(counts.tolist(), lens.tolist())):
+        t = thr_cache.get(key)
+        if t is None:
+            t = thr_cache[key] = _read_threshold(
+                thresholder, key[0], key[1], k_sch)
+        # size_t-wrapped "impossible" thresholds are >= 2^63 and would
+        # overflow int64; any value above every possible count is
+        # equivalent for the comparisons below
+        thr[r] = min(t, 2**62)
+    ok = (vals >= thr[:, None]) & (users >= 0)
+    n = ok.sum(axis=1)  # vals descending => ok is a prefix
+    f64 = np.float64
+    trunc = (n == kk) & (
+        vals[:, kk - 1].astype(f64) >= vals[:, 0].astype(f64) * 0.8)
+    if trunc_out is not None:
+        trunc_out.append(trunc)
+    need_fallback = (n_emit > hcap) | trunc
+    # dfs ordering of the candidate slots (argsort only for multi-hit
+    # reads)
+    vals_l = vals.tolist()
+    users_l = users.tolist()
+    n_l = n.tolist()
+    counts_l = counts.tolist()
+    fb_l = need_fallback.tolist()
+    pairs_per_read = []
+    hash_counts = []
+    for r, seq in enumerate(seqs):
+        if fb_l[r]:
+            pairs, hc = host_fallback(seq)
+            pairs_per_read.append(pairs)
+            hash_counts.append(hc)
+            continue
+        nn = n_l[r]
+        if nn == 0:
+            pairs_per_read.append([])
+        elif nn == 1:
+            pairs_per_read.append([(users_l[r][0], vals_l[r][0])])
+        else:
+            u = users[r, :nn]
+            order = np.argsort(dfs_rank[u], kind="stable")
+            vr, ur = vals_l[r], users_l[r]
+            pairs_per_read.append([(ur[i], vr[i]) for i in order])
+        hash_counts.append(counts_l[r])
+    return pairs_per_read, hash_counts
+
+
+def _pairs_from_topk(vals, users, thresholds, hash_lists, index, dfs_rank):
+    """Per-read pairs from the compact device result.  A read whose k-th
+    candidate still passes the 0.8*max rule may have lost qualifying bins
+    to truncation: the exact host oracle decides it (rare)."""
+    k = vals.shape[1]
+    pairs_per_read = []
+    for r in range(vals.shape[0]):
+        n = int((vals[r] >= 0).sum())
+        if n == k and float(vals[r, k - 1]) >= float(vals[r, 0]) * 0.8:
+            pairs_per_read.append(
+                index.hixf.membership(hash_lists[r], int(thresholds[r]))
+            )
+            continue
+        u = users[r, :n]
+        order = np.argsort(dfs_rank[u], kind="stable")
+        pairs_per_read.append(
+            [(int(u[i]), int(vals[r, i])) for i in order]
+        )
+    return pairs_per_read
+
+
+def _pairs_from_counts(counts, emitted, dfs_rank):
+    """Per-read pairs from exact per-user-bin counts and emission masks."""
+    pairs_per_read = []
+    for r in range(counts.shape[0]):
+        ubs = np.nonzero(emitted[r])[0]
+        order = np.argsort(dfs_rank[ubs], kind="stable")
+        pairs_per_read.append(
+            [(int(u), int(counts[r, u])) for u in ubs[order]]
+        )
+    return pairs_per_read
 
 
 class RouteCounts:

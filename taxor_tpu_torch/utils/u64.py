@@ -55,6 +55,12 @@ def umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(ult(b, a), b, a)
 
 
+def usort_rows(x: torch.Tensor) -> torch.Tensor:
+    """The rows of x sorted as uint64 (torch.sort is signed: flip the
+    sign bit on the way in and out)."""
+    return torch.sort(x ^ INT64_MIN, dim=1).values ^ INT64_MIN
+
+
 def join32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """int64 from (hi, lo) 32-bit halves given as int32 bit patterns."""
     return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & MASK32)

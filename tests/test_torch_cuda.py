@@ -1,7 +1,7 @@
-"""The CUDA kernels K1, K2 and K2n and the fused steps on the card, held
-bit-exact to their plain twins.  Needs a CUDA GPU and nvcc; skips
-elsewhere.  This file imports no JAX, so it also runs on a machine
-without it:
+"""The CUDA kernels K1, K2, K2n, syncmer_track, K3 and K4 and the steps
+on the card, held bit-exact to their plain twins.  Needs a CUDA GPU and
+nvcc; skips elsewhere.  This file imports no JAX, so it also runs on a
+machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider
 """
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from taxor_tpu_torch.device import extract, probe
+from taxor_tpu_torch.device import e2e, extract, probe, sort
 from taxor_tpu_torch.device.e2e import fused_e2e_step
 from taxor_tpu_torch.hash import device_syncmer as dsync
 
@@ -51,6 +51,103 @@ def test_k1_matches_twin(cuda, L, k, s, t):
     assert extract.syncmer_hashes.LAUNCHES == before + 1
     for a, b in zip(got, want):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L,k,s,t", [(256, 22, 12, 5), (4096, 22, 12, 5),
+                                     (32768, 22, 12, 5), (32768, 14, 12, 1)])
+def test_track_and_dedup_match_twins(cuda, L, k, s, t):
+    """syncmer_track, then K3 with hcap above and below the emission
+    count (the gap-1 scheme at L=32768 sorts in global scratch)."""
+    rng = np.random.default_rng(L + t)
+    packed, lengths = dsync.pack_reads(reads(rng, L), L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    before = extract.syncmer_track.LAUNCHES, sort.dedup_fused.LAUNCHES
+    kmer, emit = extract.syncmer_track(pk, ln, k, s, t)
+    want = dsync.syncmer_kmers(pk, ln, k, s, t)
+    torch.cuda.synchronize()
+    assert torch.equal(kmer, want[0]) and torch.equal(emit, want[1])
+    gap = dsync.emission_min_gap(k, s, t)
+    for hcap in (dsync.hash_cap(L), 64):
+        got = sort.dedup_fused(kmer, emit, hcap, gap)
+        ref = sort.dedup_fused_plain(kmer, emit, hcap, gap)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+    assert (extract.syncmer_track.LAUNCHES, sort.dedup_fused.LAUNCHES) == (
+        before[0] + 1, before[1] + 2)
+
+
+def test_dedup_reports_min_gap_overflow(cuda):
+    kmer = torch.arange(4 * 256, dtype=torch.int64, device=cuda).view(4, 256)
+    emit = torch.zeros((4, 256), dtype=torch.bool, device=cuda)
+    emit[:, ::5] = True
+    emit[1, 1::5] = True  # breaks min_gap 5
+    got = sort.dedup_fused(kmer, emit, 64, 5)
+    want = sort.dedup_fused_plain(kmer.cpu(), emit.cpu(), 64, 5)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert got[3].tolist() == [52, sort.OVERFLOW, 52, 52]
+
+
+@pytest.mark.parametrize("W", [100, 128, 8192, 32768])
+def test_sort_pairs_matches_twin(cuda, W):
+    """Duplicated keys and keys equal to the all-ones sentinel; W = 32768
+    sorts in global scratch."""
+    rng = np.random.default_rng(W)
+    hi = rng.integers(-4, 4, (6, W), dtype=np.int32)
+    lo = rng.integers(-2**31, 2**31, (6, W), dtype=np.int32)
+    hi[:, 1::2] = hi[:, ::2][:, :W // 2]  # every key twice
+    lo[:, 1::2] = lo[:, ::2][:, :W // 2]
+    hi[:, ::7] = -1
+    lo[:, ::7] = -1
+    args = [torch.from_numpy(x).to(cuda) for x in (hi, lo)]
+    before = sort.sort_pairs.LAUNCHES
+    got = sort.sort_pairs(*args)
+    want = sort.sort_pairs_plain(*args)
+    torch.cuda.synchronize()
+    assert sort.sort_pairs.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_dedup_pairs_equals_dedup_fused(cuda):
+    """The pair-sort route (K4) dedups as K3 does on emissions that
+    respect min_gap."""
+    rng = np.random.default_rng(8)
+    L, gap = 2048, 5
+    kmer = torch.from_numpy(rng.integers(0, 2**20, (6, L))).to(cuda)
+    emit = torch.zeros((6, L), dtype=torch.bool, device=cuda)
+    emit[:, ::gap] = True
+    emit[2] = False  # a row with no emission
+    before = sort.sort_pairs.LAUNCHES
+    got = sort.dedup_pairs(kmer, emit, 128)
+    want = sort.dedup_fused(kmer, emit, 128, gap)
+    torch.cuda.synchronize()
+    assert sort.sort_pairs.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_split_step_equals_k1_step(cuda, monkeypatch):
+    """The flat step with the split engine (syncmer_track, K3) equals the
+    K1 step on the card."""
+    rng = np.random.default_rng(6)
+    L = 2048
+    packed, lengths = dsync.pack_reads(reads(rng, L, n=40), L)
+    table = rng.integers(0, 256, (4500, probe.pad_bins(300)),
+                         dtype=np.uint8)
+    args = [torch.from_numpy(x).to(cuda) for x in (
+        table, packed, lengths, np.array([0, 3, 4, 10, 100, 250, 300]),
+        np.array([0, -1, 1, 2, 3, 4], dtype=np.int32))]
+    kw = dict(k=22, s=12, t=5, hcap=dsync.hash_cap(L), topk=16)
+    want = fused_e2e_step(*args, 77, 1500, **kw)
+    monkeypatch.setattr(e2e, "USE_FUSED_EXTRACT", False)
+    before = extract.syncmer_hashes.LAUNCHES, sort.dedup_fused.LAUNCHES
+    got = fused_e2e_step(*args, 77, 1500, **kw)
+    assert torch.equal(got, want)
+    assert extract.syncmer_hashes.LAUNCHES == before[0]
+    assert sort.dedup_fused.LAUNCHES == before[1] + 1
 
 
 @pytest.mark.parametrize("bl,bins", [(1000, 1000), (5000, 2000),
@@ -126,10 +223,10 @@ def test_hier_grouped_step_matches_cpu_twins(cuda, tmp_path):
     """The hierarchical grouped step on the card (K1, K2n over stacked
     subgroups) and the per-IXF traversal of host hashes equal the same
     on the CPU twins."""
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.hash.schemes import search_hashes
-    from taxor_tpu.search.thresholds import Thresholder
+    from taxor_tpu_torch.apps.build import BuildConfig, run_build
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.hash.schemes import search_hashes
+    from taxor_tpu_torch.search.thresholds import Thresholder
 
     from .util import make_ref_set
 
@@ -172,3 +269,7 @@ def test_wrappers_check_inputs(cuda):
     wide = torch.zeros((1, 30, 1024), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="exceeds"):
         probe.k2n_counts(z, z, z.bool(), wide, None, 1, 10)
+    with pytest.raises(ValueError, match="int64"):
+        sort.dedup_fused(z, z.bool(), 16)
+    with pytest.raises(ValueError, match="int32"):
+        sort.sort_pairs(z.long(), z)

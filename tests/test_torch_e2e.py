@@ -20,13 +20,13 @@ from taxor_tpu.hixf.index import save_index
 from taxor_tpu.io.fastx import read_all
 from taxor_tpu.search import pipeline as jax_pipeline
 from taxor_tpu.search.thresholds import Thresholder
-from taxor_tpu_torch.device import hixf_search
+from taxor_tpu_torch.device import e2e, hixf_search
 from taxor_tpu_torch.device.e2e import fused_e2e_step
 from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 from taxor_tpu_torch.hash import device_syncmer as dsync
 from taxor_tpu_torch.search import pipeline
 
-from .test_torch_hixf import build_hier_index
+from .test_torch_hixf import build_hier_index, split_engine  # noqa: F401
 from .util import make_reads, make_ref_set, write_fasta
 
 SPLITS = [3, 1, 2, 1, 2, 1]  # technical bins per user bin
@@ -71,10 +71,10 @@ def test_split_index_has_multi_bin_runs(split_setup):
     assert DeviceHIXF.from_hixf(index.hixf, "cpu").prefix_runs == 0
 
 
-@pytest.mark.parametrize("hcap,topk", [(None, 16), (8, 2)])
-def test_fused_step_matches_jax(split_setup, hcap, topk):
-    """Identical packed [R, 2*topk + 2] output; hcap=8 makes every read
-    overflow the hash capacity and topk=2 truncates the candidates."""
+def flat_steps(split_setup, hcap, topk):
+    """(port step, JAX step in interpret mode, the reads' lengths) on the
+    last 16 reads up to L_CAP, with the extraction engine each package's
+    flag selects."""
     index, _, _, seqs, _ = split_setup
     seqs = [s for s in seqs if len(s) <= dsync.L_CAP][-16:]  # one tile
     scheme = index.scheme
@@ -105,12 +105,31 @@ def test_fused_step_matches_jax(split_setup, hcap, topk):
         dh.table, torch.from_numpy(packed), torch.from_numpy(lengths),
         dh.run_offsets, dh.run_users, dh.seed, dh.block_length,
         prefix_runs=dh.prefix_runs, **kw).numpy()
-    assert got.dtype == np.int32 and got.shape == (len(packed),
+    return got, want, lengths[:len(seqs)]
+
+
+@pytest.mark.parametrize("hcap,topk", [(None, 16), (8, 2)])
+def test_fused_step_matches_jax(split_setup, hcap, topk):
+    """Identical packed [R, 2*topk + 2] output; hcap=8 makes every read
+    overflow the hash capacity and topk=2 truncates the candidates."""
+    got, want, lengths = flat_steps(split_setup, hcap, topk)
+    assert got.dtype == np.int32 and got.shape == (len(want),
                                                    2 * topk + 2)
     np.testing.assert_array_equal(got, want)
-    n_emit = got[:len(seqs), -1]
+    n_emit = got[:len(lengths), -1]
     if hcap == 8:
-        assert (n_emit[lengths[:len(seqs)] >= 100] > hcap).all()
+        assert (n_emit[lengths >= 100] > hcap).all()
+
+
+@pytest.mark.parametrize("hcap,topk", [(None, 16), (8, 2)])
+def test_split_step_matches_jax(split_setup, split_engine, hcap, topk):
+    """With the split engine (USE_FUSED_EXTRACT = False) in both packages
+    the flat steps are equal, and equal the port's K1 step."""
+    got, want, _ = flat_steps(split_setup, hcap, topk)
+    np.testing.assert_array_equal(got, want)
+    split_engine.setattr(e2e, "USE_FUSED_EXTRACT", True)
+    np.testing.assert_array_equal(got, flat_steps(split_setup, hcap,
+                                                  topk)[0])
 
 
 def search(config_kw, idx, reads, out, device="cpu"):
@@ -145,6 +164,15 @@ def test_search_device_equals_host(split_setup, host_tsv):
     rows = host_tsv.decode().splitlines()[1:]
     hits = sum(r.split("\t")[1] != "-" for r in rows)
     assert hits >= len(seqs) * 3 // 4
+
+
+def test_search_split_engine_equals_host(split_setup, host_tsv,
+                                        monkeypatch):
+    _, idx, reads, _, tmp = split_setup
+    monkeypatch.setattr(e2e, "USE_FUSED_EXTRACT", False)
+    dev = search({"engine": "device"}, idx, reads,
+                 os.path.join(tmp, "dev_split.tsv"))
+    assert dev == host_tsv
 
 
 def test_search_hash_capacity_overflow_falls_back(split_setup, host_tsv,

@@ -7,12 +7,14 @@ comparison is exact integer or byte equality."""
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from taxor_tpu.apps.build import BuildConfig, run_build
+from taxor_tpu.device import e2e as jax_e2e
 from taxor_tpu.device import pallas_probe
 from taxor_tpu.device.hixf_search import DeviceHIXF as JaxDeviceHIXF
 from taxor_tpu.device.probe import count_xla
@@ -23,7 +25,7 @@ from taxor_tpu.ixf.xor_filter import compute_probes
 from taxor_tpu.search import pipeline as jax_pipeline
 from taxor_tpu.search.thresholds import Thresholder
 from taxor_tpu.utils.u64np import fingerprint8, mix_split
-from taxor_tpu_torch.device import probe
+from taxor_tpu_torch.device import e2e, probe
 from taxor_tpu_torch.device.e2e import make_hixf_e2e_grouped_fn
 from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 from taxor_tpu_torch.hash import device_syncmer as dsync
@@ -60,6 +62,19 @@ def build_hier_index(tmp: str):
 @pytest.fixture(scope="module")
 def hier_setup(tmp_path_factory):
     return build_hier_index(str(tmp_path_factory.mktemp("torch_hier")))
+
+
+@pytest.fixture
+def split_engine(monkeypatch):
+    """USE_FUSED_EXTRACT = False in both packages.  The JAX steps read the
+    flag when they trace, so their jit caches are cleared before and
+    after."""
+    jax.clear_caches()
+    monkeypatch.setattr(jax_e2e, "USE_FUSED_EXTRACT", False)
+    monkeypatch.setattr(e2e, "USE_FUSED_EXTRACT", False)
+    yield monkeypatch
+    monkeypatch.undo()
+    jax.clear_caches()
 
 
 def thresholder_of(index, percentage=-1.0):
@@ -110,6 +125,28 @@ def test_grouped_step_matches_jax(hier_setup, percentage):
         assert a.dtype == np.int32
         np.testing.assert_array_equal(a, b)
     assert (got[0][:, 0] >= 0).all()  # every read reached a leaf
+
+
+def test_grouped_split_step_matches_jax(hier_setup, split_engine):
+    """With the split engine (USE_FUSED_EXTRACT = False) in both packages,
+    the port's grouped step equals the JAX grouped step (its XLA tracker
+    and the Pallas dedup in interpret mode), and equals the port's K1
+    step."""
+    index = hier_setup[0]
+    th = thresholder_of(index)
+    packed, lengths = fused_reads(hier_setup[3])
+    ref = JaxDeviceHIXF(index.hixf, engine="pallas")
+    ref._interpret = True
+    want = ref.e2e_async(packed, lengths, index.scheme, th)()
+    dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
+    got = dh.e2e_async(packed, lengths, index.scheme, th)()
+    split_engine.setattr(e2e, "USE_FUSED_EXTRACT", True)
+    k1 = dh.e2e_async(packed, lengths, index.scheme, th)()
+    assert got[4] == want[4] == k1[4]  # hcap
+    for a, b, c in zip(got[:4], want[:4], k1[:4]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert (got[0][:, 0] >= 0).all()
 
 
 def test_thr_table_matches_jax(hier_setup):

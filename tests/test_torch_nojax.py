@@ -1,7 +1,8 @@
-"""taxor_tpu_torch runs where JAX is absent: a subprocess with ``jax``
-blocked builds an index and searches it with both engines on the CPU,
-and no source of the package imports JAX or the JAX package's device
-modules."""
+"""taxor_tpu_torch runs where JAX and the JAX package are absent: a
+subprocess with ``jax`` and ``taxor_tpu`` blocked builds an index,
+searches it with both engines on the CPU and profiles the result; a
+subprocess where both are importable does the same and loads neither;
+and no source of the port, nor chip_smoke.py, imports either."""
 
 import os
 import re
@@ -12,13 +13,11 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "taxor_tpu_torch")
 
-# modules of the JAX package that import jax at module level
-JAX_MODULES = ("taxor_tpu.device", "taxor_tpu.hash.device_syncmer",
-               "taxor_tpu.utils.u64jnp", "taxor_tpu.cli")
-
 SCRIPT = textwrap.dedent("""
     import os, sys
-    sys.modules["jax"] = None  # any `import jax` now raises ImportError
+    if BLOCK:  # any `import jax` or `import taxor_tpu` now raises
+        sys.modules["jax"] = None
+        sys.modules["taxor_tpu"] = None
     import numpy as np
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from util import make_reads, make_ref_set
@@ -34,7 +33,7 @@ SCRIPT = textwrap.dedent("""
                      gdir, "--output-filename", idx, "--kmer-size", "22",
                      "--syncmer-size", "12", "--use-syncmer", "--layout",
                      LAYOUT, "--tmax", "64"]) == 0
-    from taxor_tpu.hixf.index import load_index
+    from taxor_tpu_torch.hixf.index import load_index
     n_ixfs = len(load_index(idx).hixf.ixfs)
     assert (n_ixfs > 1) == (LAYOUT == "auto"), n_ixfs
     out = {}
@@ -45,20 +44,26 @@ SCRIPT = textwrap.dedent("""
                          engine, "--device", "cpu"]) == 0
     dev, host = (open(out[e], "rb").read() for e in ("device", "host"))
     assert dev == host and dev.count(b"GCF_") >= 3 * N_SPECIES, dev
-    assert sys.modules["jax"] is None
-    loaded = [m for m in sys.modules if m.startswith(JAX_MODULES)]
+    cami = os.path.join(WORK, "profile.tsv")
+    assert cli.main(["profile", "--search-file", out["device"],
+                     "--cami-report-file", cami, "--binning-file",
+                     os.path.join(WORK, "binning.tsv"), "--sample-id",
+                     "s1"]) == 0
+    assert "@SampleID:s1" in open(cami).read()
+    loaded = [m for m, mod in sys.modules.items() if mod is not None
+              and m.split(".")[0] in ("jax", "jaxlib", "taxor_tpu")]
     assert not loaded, loaded
     print("NOJAX_OK")
 """)
 
 
-def run_blocked(tmp_path, layout: str, n_species: int,
-                genome_len: int) -> None:
+def run_blocked(tmp_path, layout: str, n_species: int, genome_len: int,
+                block: bool = True) -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("JAX_PLATFORMS", None)
     code = (f"REPO = {REPO!r}\nWORK = {str(tmp_path)!r}\n"
-            f"JAX_MODULES = {JAX_MODULES!r}\nLAYOUT = {layout!r}\n"
+            f"BLOCK = {block!r}\nLAYOUT = {layout!r}\n"
             f"N_SPECIES = {n_species}\nGENOME_LEN = {genome_len}\n"
             + SCRIPT)
     res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
@@ -78,25 +83,34 @@ def test_port_runs_hierarchical_with_jax_blocked(tmp_path):
     run_blocked(tmp_path, "auto", 100, 3000)
 
 
+def test_port_loads_no_jax_where_jax_is_installed(tmp_path):
+    """JAX importable: build, search with both engines and profile leave
+    jax and taxor_tpu out of sys.modules."""
+    import jax  # noqa: F401  (JAX is installed here)
+
+    run_blocked(tmp_path, "auto", 100, 3000, block=False)
+
+
 def _sources():
+    """(path, text) of every Python source of the port and chip_smoke.py."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, files in os.walk(PKG):
         dirs[:] = [d for d in dirs if d != "_build"]  # generated files
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(root, f)
-                with open(path) as fh:
-                    yield os.path.relpath(path, REPO), fh.read()
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            yield os.path.relpath(path, REPO), fh.read()
 
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(r"^\s*(import jax\b|from jax\b)", re.M)
     offenders = [p for p, src in _sources() if pat.search(src)]
     assert not offenders, offenders
-    assert len(list(_sources())) >= 10
+    assert len(list(_sources())) >= 30
 
 
 def test_port_never_imports_jax_package_device_modules():
-    names = "|".join(re.escape(m) for m in JAX_MODULES)
-    pat = re.compile(rf"^\s*(from|import)\s+({names})\b", re.M)
+    """Nor any module of the JAX package."""
+    pat = re.compile(r"^\s*(from|import)\s+taxor_tpu(\.|\s|$)", re.M)
     offenders = [p for p, src in _sources() if pat.search(src)]
     assert not offenders, offenders

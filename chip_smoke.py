@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~5-6 min on an H100
-    python3 chip_smoke.py --genomes 64 --reads 512 --hier-genomes 200 \
+    python3 chip_smoke.py                 # full size, ~5-7 min on an H100
+    python3 chip_smoke.py --genomes 600 --reads 512 --hier-genomes 200 \
         --hier-reads 512                  # quick start check
 
 Phases (any failure exits non-zero):
   1. card and build: prints nvidia-smi's name and power limit, builds
-     the CUDA kernels from taxor_tpu_torch/csrc and times the build;
+     the CUDA kernels from taxor_tpu_torch/csrc (the search's library and
+     the diagnostic library of csrc/diag/, every nvcc started together)
+     and times the build;
   2. K1 (syncmer extraction) against its plain twin, bit-exact, at every
      length bucket 256..32768 on random, homopolymer, tandem-repeat and
      N-containing reads, plus a gap-1 scheme whose sort buffer spills to
@@ -49,7 +51,27 @@ Phases (any failure exits non-zero):
      launches and, apart, the launches of that one check;
  10. syncmer_track, K3 and K4 timed against their twins, K4 against
      ``torch.sort`` of the combined key, and the split engine's
-     extraction against K1, at the flat path's L=8192 bucket.
+     extraction against K1, at the flat path's L=8192 bucket;
+ 11. the tools' four diagnostic kernels (csrc/diag/) against their plain
+     twins, bit-exact: probe_bounds in its five modes and
+     probe_experiment in both position layouts, 1, 2 and 4 reads a
+     thread, 4, 8 and 16 ALU rounds and the position-word flood (K = 2,
+     4, 8), at R=256 on the TPU tools' geometry (2,419 slots x 512 bins)
+     and on the flat cell's table; extract_stage in all ten stages at
+     every length bucket 256..32768 on phase 2's kinds of reads; and
+     window_shift for all 16 phases on the same reads' stream words;
+ 12. the tooling path, with every launch count set to 0 just before it:
+     ``tools.bench`` on its primary config (viral_flat_256) with its
+     parity gate (five scheme/layout families, device TSV == host TSV),
+     ``tools.probe_bounds``, ``tools.probe_experiments`` (its three
+     experiment lists) and ``tools.profile_phases`` at the JAX tools'
+     sizes (R=8192, H=512, nvalid=173; build_problem's 8,192 reads), and
+     ``tools.debug_extract --stage all`` and ``tools.debug_min``, and
+     ``cli prewarm`` and ``cli search --profile-trace`` on a small flat
+     index (the trace's kernels on the card are counted); then the four
+     diagnostic kernels timed against their twins.  Their
+     records count the tooling path's launches (``launches_in``:
+     "tools"), with phase 11's apart as ``check_launches``.
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -72,6 +94,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -795,6 +818,274 @@ def time_hier(torch, state) -> list[dict]:
     return rows
 
 
+# -------------------------------------------------- diagnostic kernels --
+DIAG = {  # record name -> (wrapper name in device/diag.py, source, TPU kernel)
+    "probe_bounds": ("probe_bounds", "taxor_tpu_torch/csrc/diag/probe_bounds.cu",
+                     "bench_probe_bounds.py:33"),
+    "probe_experiments": ("probe_experiment",
+                          "taxor_tpu_torch/csrc/diag/probe_experiments.cu",
+                          "bench_probe_r4.py:61"),
+    "extract_stages": ("extract_stage",
+                       "taxor_tpu_torch/csrc/diag/extract_stages.cu",
+                       "tools/debug_extract.py:27"),
+    "window_shift": ("window_shift",
+                     "taxor_tpu_torch/csrc/diag/extract_stages.cu",
+                     "tools/debug_min.py:22"),
+}
+
+
+def diag_counts(diag, zero: bool = False) -> dict:
+    """{record name: launches} of the diagnostic wrappers (set to 0)."""
+    out = {}
+    for name, (fn, _, _) in DIAG.items():
+        wrapper = getattr(diag, fn)
+        out[name] = wrapper.LAUNCHES
+        if zero:
+            wrapper.LAUNCHES = 0
+    return out
+
+
+def check_diag(torch, flat_table, flat_bl: int, rng) -> None:
+    """Phase 11: every diagnostic kernel against its twin, bit-exact."""
+    from taxor_tpu_torch.device import diag
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools import probe_bounds as pb
+    from taxor_tpu_torch.tools import probe_experiments as pe
+    from taxor_tpu_torch.tools.debug_min import stream_words
+
+    dev = torch.device("cuda")
+    R, H = 256, 512
+    t0 = time.perf_counter()
+    tool_table = torch.from_numpy(pb.tool_table(rng)).to(dev)
+    for label, table, bl in (("tool geometry", tool_table, pe.BL_TOOL),
+                             ("flat cell", flat_table, flat_bl)):
+        S1, B = table.shape
+        n_np = rng.integers(0, H + 1, R).astype(np.int32)
+        n_np[:8] = H  # full reads, and one with no hash
+        n_np[8] = 0
+        n_hash = torch.from_numpy(n_np).to(dev)
+        rand16 = torch.from_numpy(pb.make_inputs(rng, R, H, S1)).to(dev)
+        w16, w10 = (torch.from_numpy(x).to(dev)
+                    for x in pe.make_inputs(rng, R, H, S1, bl))
+        for mode in diag.PROBE_BOUNDS_MODES:
+            assert_equal(torch, f"probe_bounds {mode} ({label})", ("counts",),
+                         (diag.probe_bounds(table, rand16, n_hash, mode),),
+                         (diag.probe_bounds_plain(table, rand16, n_hash,
+                                                  mode),))
+        runs = [dict(layout=lay, nr=nr) for lay in ("p16", "p10")
+                for nr in (1, 2, 4)]
+        runs += [dict(layout="p16", rounds=r) for r in (4, 8, 16)]
+        runs += [dict(layout="p10", nr=2, rounds=4)]
+        runs += [dict(flood_k=k) for k in (2, 4, 8)]
+        first = None
+        for kw in runs:
+            w = w10 if kw.get("layout") == "p10" else w16
+            got = diag.probe_experiment(table, w, n_hash, block_length=bl,
+                                        **kw)
+            assert_equal(torch, f"probe_experiment {kw} ({label})",
+                         ("counts", "extra"), got,
+                         diag.probe_experiment_plain(table, w, n_hash,
+                                                     block_length=bl, **kw))
+            if "flood_k" not in kw:  # the same counts in every layout
+                first = got[0] if first is None else first
+                assert_equal(torch, f"probe_experiment {kw} == p16",
+                             ("counts",), (got[0],), (first,))
+        log(f"probe_bounds (5 modes) and probe_experiment ({len(runs)} "
+            f"runs) on the {label} [{S1}, {B}], R={R}, H={H} (bl {bl}): "
+            f"bit-exact vs twins, p10 == p16, max count "
+            f"{int(first.max())}")
+    t = (K - S + 1) // 2
+    for L in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768):
+        seqs = k1_reads(rng, L)
+        packed, lengths = dsync.pack_reads(seqs, L)
+        pk = torch.from_numpy(packed).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        want = diag.extract_stages_plain(pk, ln, K, S, t)
+        for stage in diag.STAGES:
+            assert_equal(torch, f"extract_stage {stage} L={L}", (stage,),
+                         (diag.extract_stage(pk, ln, K, S, t, stage),),
+                         (want[stage],))
+        x = torch.from_numpy(stream_words(packed)).to(dev)
+        assert_equal(torch, f"window_shift L={L}", ("words",),
+                     (diag.window_shift(x),),
+                     (diag.window_shift_plain(x, range(16)),))
+        log(f"extract_stage (10 stages) and window_shift (16 phases) L={L}: "
+            f"bit-exact vs twins on {len(seqs)} reads "
+            f"({int(want['emit'].sum())} emissions)")
+    log(f"phase 11: diagnostic kernels checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def cli_tools(torch, work: str) -> dict:
+    """``cli prewarm`` and ``cli search --profile-trace`` on a flat index
+    of build_problem(64 genomes of 20 kb, 2,048 reads of 2 kb); returns
+    their seconds."""
+    from taxor_tpu_torch import cli
+    from taxor_tpu_torch.tools import synth
+
+    _, tsv, gdir, reads = synth.build_problem(
+        n_species=64, genome_len=20000, n_reads=2048, read_len=2000,
+        root=work)
+    idx = os.path.join(work, "tools.taxor.npz")
+    cwd = os.getcwd()
+    os.chdir(work)  # the build writes its layout file (binning.out) here
+    try:
+        rc = cli.main(["build", "--input-file", tsv, "--input-sequence-dir",
+                       gdir, "--output-filename", idx, "--kmer-size",
+                       str(K), "--syncmer-size", str(S), "--use-syncmer",
+                       "--layout", "flat"])
+    finally:
+        os.chdir(cwd)
+    secs = {}
+    t0 = time.perf_counter()
+    rc |= cli.main(["prewarm", "--index-file", idx, "--lengths",
+                    "1024,2048,4096", "--device", "cuda"])
+    secs["prewarm"] = time.perf_counter() - t0
+    trace = os.path.join(work, "trace")
+    t0 = time.perf_counter()
+    rc |= cli.main(["search", "--index-file", idx, "--query-file", reads,
+                    "--output-file", os.path.join(work, "traced.tsv"),
+                    "--engine", "device", "--device", "cuda",
+                    "--profile-trace", trace])
+    secs["search --profile-trace"] = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError("cli build, prewarm or traced search failed")
+    with open(os.path.join(trace, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    on_card = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e["name"] for e in on_card})
+    log(f"cli prewarm {secs['prewarm']:.1f} s; search --profile-trace "
+        f"{secs['search --profile-trace']:.1f} s, trace of {len(events)} "
+        f"events, {len(on_card)} kernels on the card "
+        f"({sum(e.get('dur', 0) for e in on_card) / 1e3:.3f} ms), e.g. "
+        f"{[n[:60] for n in names[:4]]}")
+    return secs
+
+
+def tool_path(torch, modules, work: str) -> dict:
+    """Phase 12: the tooling path through its entry points, the launch
+    counts of every kernel set to 0 just before and read just after."""
+    from taxor_tpu_torch.device import diag
+    from taxor_tpu_torch.tools import (bench, debug_extract, debug_min,
+                                       probe_bounds, probe_experiments,
+                                       profile_phases)
+
+    reset_counts(*modules)
+    diag_counts(diag, zero=True)
+    secs = {}
+    t0 = time.perf_counter()
+    result, rc = bench.run(["--configs", bench.PRIMARY])
+    secs["bench"] = time.perf_counter() - t0
+    cfg = result["detail"]["configs"][0]
+    log(f"tools.bench ({secs['bench']:.1f} s): rc {rc}; {bench.PRIMARY}: "
+        f"device compute {cfg.get('device_compute_reads_per_s')} reads/s "
+        f"({cfg.get('ms_per_pass')} ms a pass), full pipeline "
+        f"{result['full_pipeline_reads_per_s']} reads/s, native baseline "
+        f"{cfg.get('baseline_1thread_reads_per_s')} reads/s a thread, "
+        f"fallback {cfg.get('host_fallback_fraction')}; parity "
+        f"{result['parity']}")
+    if rc != 0 or not result["parity_ok"] or result["skipped"] \
+            or result["parity"] != {f: True for f in bench.FAMILIES}:
+        raise AssertionError(f"tools.bench failed: rc {rc}, {result}")
+    t0 = time.perf_counter()
+    bounds = probe_bounds.run("cuda")
+    secs["probe_bounds"] = time.perf_counter() - t0
+    exps = {}
+    t0 = time.perf_counter()
+    for name in probe_experiments.LISTS:
+        exps[name] = probe_experiments.run(name, "cuda")
+    secs["probe_experiments"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phases = profile_phases.profile("cuda")
+    secs["profile_phases"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if debug_extract.main(["--stage", "all", "--device", "cuda"]) != 0 \
+            or debug_min.main(["--device", "cuda"]) != 0:
+        raise AssertionError("debug_extract or debug_min found a difference")
+    secs["debug"] = time.perf_counter() - t0
+    secs.update(cli_tools(torch, work))
+    counts = diag_counts(diag)
+    launches = read_counts(*modules[:3])
+    log(f"tool path: probe_bounds ns/hash "
+        f"{ {k: round(v['ns_per_hash'], 4) for k, v in bounds.items()} }")
+    for name, rows in exps.items():
+        log(f"tool path: probe_experiments {name}: "
+            f"{[(r['mode'], r['U'], r['nops'], round(r['ms'], 4)) for r in rows]}")
+    log(f"tool path: profile_phases ms {json.dumps(phases)}")
+    log(f"tool path: seconds {({k: round(v, 1) for k, v in secs.items()})}; "
+        f"diagnostic launches {counts}; search kernel launches {launches}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"the tooling path skipped a diagnostic kernel: "
+                             f"{counts}")
+    return counts
+
+
+def time_diag(torch, state) -> list[dict]:
+    """The four diagnostic kernels against their twins: the probe
+    variants at the JAX tools' geometry (R=8192, H=512, 176 hashes a
+    read, 2,419 slots x 512 bins), the stage dump (stage ``pre``, the
+    tracker) and the window shift at the flat path's L=8192 bucket."""
+    from taxor_tpu_torch.device import diag
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools import probe_bounds as pb
+    from taxor_tpu_torch.tools import probe_experiments as pe
+    from taxor_tpu_torch.tools.debug_min import stream_words
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 12)
+    R, H, n = pb.R_TOOL, pb.H_TOOL, pb.n_probed(pb.NVALID)
+    table = torch.from_numpy(pb.tool_table(rng)).to(dev)
+    S1, B = table.shape
+    w16 = torch.from_numpy(pb.make_inputs(rng, R, H, S1)).to(dev)
+    w10 = torch.from_numpy(pe.make_inputs(rng, R, H, S1, pe.BL_TOOL)[1]).to(
+        dev)
+    n_hash = torch.full((R,), n, dtype=torch.int32, device=dev)
+    L = 8192
+    seqs = bucket_reads(state["recs"], L)
+    packed, lengths = dsync.pack_reads(seqs, L)
+    pk = torch.from_numpy(packed).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    words = torch.from_numpy(stream_words(packed)).to(dev)
+    Rs, Wd = words.shape
+    t = (K - S + 1) // 2
+    probe_out = 4 * R * B + S1 * B + 4 * R  # counts out, table, n_hash
+    cases = (
+        ("probe_bounds", f"p16 at R={R}, n={n}, table [{S1}, {B}]",
+         lambda: diag.probe_bounds(table, w16, n_hash, "p16"),
+         lambda: diag.probe_bounds_plain(table, w16, n_hash, "p16"), 20,
+         # the position words of the probed hashes; one fingerprint-byte
+         # compare per hash and bin
+         bound(8 * R * n + probe_out, float(R * n * B), PEAK_INT8)),
+        ("probe_experiments", f"p10, one read a thread, at R={R}, n={n}",
+         lambda: diag.probe_experiment(table, w10, n_hash, "p10",
+                                       block_length=pe.BL_TOOL),
+         lambda: diag.probe_experiment_plain(table, w10, n_hash, "p10",
+                                             block_length=pe.BL_TOOL), 20,
+         bound(5 * R * n + probe_out + 4 * R, float(R * n * B), PEAK_INT8)),
+        ("extract_stages", f"stage pre at R={Rs}, L={L}",
+         lambda: diag.extract_stage(pk, ln, K, S, t, "pre"),
+         lambda: diag.extract_stage_plain(pk, ln, K, S, t, "pre"), 5,
+         # packed + lengths in, 8 bytes a position out; a tracker step
+         # per base
+         bound(pk.numel() + 4 * Rs + 8 * Rs * L, float(ln.sum()),
+               PEAK_SCALAR)),
+        ("window_shift", f"16 phases of [{Rs}, {Wd}] stream words",
+         lambda: diag.window_shift(words),
+         lambda: diag.window_shift_plain(words, range(16)), 50,
+         bound(4 * Rs * Wd * 17 + 64, 16.0 * Rs * Wd, PEAK_SCALAR)),
+    )
+    rows = []
+    for name, shape, fn, plain, reps, bnd in cases:
+        ms, plain_ms, err, each = time_pair(torch, fn, plain, reps)
+        log(f"time {name} ({shape}): kernel {each[0]:.4f}/{each[1]:.4f} ms, "
+            f"plain {each[2]:.3f}/{each[3]:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows.append({"name": name, "route": "cuda", "source": DIAG[name][1],
+                     "replaces": DIAG[name][2], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, **bnd, "library_ms": None})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genomes", type=int, default=4096,
@@ -820,8 +1111,11 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    cuda_build.lib()
-    log(f"build: kernels compiled and loaded in "
+    with ThreadPoolExecutor(2) as ex:  # every nvcc of both libraries at once
+        for built in [ex.submit(cuda_build.lib),
+                      ex.submit(cuda_build.diag_lib)]:
+            built.result()
+    log(f"build: search and diagnostic kernels compiled and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
@@ -855,8 +1149,32 @@ def main() -> int:
         if key == "K4":  # as in the JAX package, no search path sorts pairs
             row["launches_in"] = "not on a main path"
             row["check_launches"] = flat["k4_check"]  # sort.dedup_pairs
+
+    # ---- phases 11 and 12: the diagnostic kernels and the tooling path
+    from taxor_tpu_torch.device import diag
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.search import pipeline
+
+    dh = DeviceHIXF.from_hixf(flat["index"].hixf, "cuda")
+    diag_counts(diag, zero=True)
+    check_diag(torch, dh.table, dh.block_length,
+               np.random.default_rng(SEED + 11))
+    checks = diag_counts(diag)
+    del dh
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_", dir=root)
+    try:
+        tools = tool_path(torch, (extract, probe, sort, pipeline), work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 12: tooling path in {time.perf_counter() - t0:.1f} s")
+    for row in time_diag(torch, flat):
+        row.update(launches=tools[row["name"]], launches_in="tools",
+                   tool_launches=tools[row["name"]],
+                   check_launches=checks[row["name"]])
+        kernels.append(row)
     if any(r["launches"] <= 0 for r in kernels if r["name"] != "sort_pairs"):
-        raise AssertionError(f"a kernel never launched on a main path: "
+        raise AssertionError(f"a kernel never launched on its path: "
                              f"{kernels}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,12 +4,13 @@ reference's flag names and defaults (src/main/main.cpp:54-77).
     python -m taxor_tpu_torch.cli build ...    # host index build
     python -m taxor_tpu_torch.cli search ...   # --engine device|host
     python -m taxor_tpu_torch.cli profile ...  # CAMI profile
+    python -m taxor_tpu_torch.cli prewarm ...  # build kernels, warm up
 
 ``build`` and ``profile`` run this package's copy of the JAX package's
 numpy host layer (apps/build.py, profile/profile.py), so both packages
-write the same index and the same text.  ``search`` runs this package's
-pipeline on ``--device`` (default cuda; with no CUDA device it fails
-instead of running on the CPU).
+write the same index and the same text.  ``search`` and ``prewarm`` run
+on ``--device`` (default cuda; with no CUDA device they fail instead of
+running on the CPU).
 """
 
 from __future__ import annotations
@@ -65,7 +66,85 @@ def _add_search(sub):
                    help="accepted for parity; unused, as in the "
                         "reference's search path")
     p.add_argument("--write-time", action="store_true")
+    p.add_argument("--profile-trace", default="",
+                   help="write a torch.profiler Chrome trace of the compute "
+                        "phase to this directory")
     return p
+
+
+def _add_prewarm(sub):
+    p = sub.add_parser(
+        "prewarm",
+        help="Build and load the CUDA kernels, upload an index and drive "
+             "one small batch per (length bucket, top-k rung) through the "
+             "fused step, so that a later search in this process starts "
+             "warm (framework extension, no reference equivalent)")
+    p.add_argument("--index-file", required=True)
+    p.add_argument("--lengths", default="1024,2048,4096",
+                   help="comma-separated read-length buckets to drive")
+    p.add_argument("--topk", default="",
+                   help="comma-separated top-k rungs (default: the index's "
+                        "suggested rung and the escalation ladder's start)")
+    p.add_argument("--percentage", type=float, default=-1.0,
+                   help="threshold mode of the later search (the "
+                        "hierarchical descent depends on it)")
+    p.add_argument("--error-rate", type=float, default=0.04)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda, cuda:N or cpu)")
+    return p
+
+
+def run_prewarm(index_file: str, lengths: str, topk: str,
+                percentage: float = -1.0, error_rate: float = 0.04,
+                device: str = "cuda") -> None:
+    """Drive one 16-read batch through the fused step for every (length
+    bucket, top-k) pair and print each one's milliseconds.  There is no
+    compile cache to fill (the kernels are built once per source hash
+    into _build/): what this warms is the nvcc build, the module load, the
+    index upload and the CUDA caching allocator."""
+    import numpy as np
+    import torch
+
+    from .device.hixf_search import DeviceHIXF
+    from .hash import device_syncmer as dsync
+    from .hixf.index import load_index
+    from .search.thresholds import Thresholder
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: no CUDA device is available "
+                               "(use --device cpu to run the plain twins)")
+        from .device import cuda_build
+
+        t0 = time.perf_counter()
+        cuda_build.lib()
+        print(f"prewarm: kernels built and loaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    index = load_index(index_file)
+    scheme = index.scheme
+    thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
+                                   error_rate, percentage,
+                                   scheme.use_syncmer)
+    t0 = time.perf_counter()
+    dhixf = DeviceHIXF.from_hixf(index.hixf, dev)
+    print(f"prewarm: index uploaded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not (dhixf.e2e_capable(thresholder) and dsync.supports(scheme)
+            and scheme.scaling == 1):
+        print("prewarm: the index's scheme takes no fused step; nothing "
+              "more to warm")
+        return
+    ks = ([int(x) for x in topk.split(",") if x]
+          or sorted({16, int(getattr(index, "suggested_topk", 16))}))
+    for L in (int(x) for x in lengths.split(",") if x):
+        Lb = dsync.pad_len_bucket(L)
+        packed, lens = dsync.pack_reads([b"ACGT" * (Lb // 4)] * 16, Lb)
+        for kk in ks:
+            t0 = time.perf_counter()
+            dhixf.e2e_async(packed, lens, scheme, thresholder, k=kk)()
+            print(f"prewarm: L={Lb} topk={kk} in "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
 
 
 def _add_profile(sub):
@@ -115,7 +194,11 @@ def _run(args) -> None:
             error_rate=args.error_rate,
             engine=args.engine,
             write_time=args.write_time,
+            profile_trace=args.profile_trace,
         ), device=args.device)
+    elif args.command == "prewarm":
+        run_prewarm(args.index_file, args.lengths, args.topk,
+                    args.percentage, args.error_rate, args.device)
     elif args.command == "profile":
         from .profile.profile import ProfileConfig, run_profile
 
@@ -139,6 +222,7 @@ def main(argv: list[str] | None = None) -> int:
     _add_build(sub)
     _add_search(sub)
     _add_profile(sub)
+    _add_prewarm(sub)
     args = parser.parse_args(argv)
 
     t0 = time.process_time()

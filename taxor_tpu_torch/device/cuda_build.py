@@ -2,12 +2,17 @@
 
 Every ``csrc/*.cu`` compiles for ``sm_90a`` in its own ``nvcc`` process,
 all started together, and one more ``nvcc`` call links the objects into a
-shared library with a plain C interface, loaded with ctypes.  The build
-runs at first use (never at import) into ``taxor_tpu_torch/_build/``,
-which .gitignore lists; the library's name carries a hash of the
-sources, so an edited source rebuilds.  Each C launcher enqueues on the
-stream it is given and returns ``cudaGetLastError()``; ``check`` turns a
-non-zero code into an exception.
+shared library with a plain C interface, loaded with ctypes (``lib``).
+The diagnostic kernels of the tools (``csrc/diag/*.cu``) build the same
+way into a second library (``diag_lib``), so that a diagnostic kernel
+that fails to compile never stops a search; it fails the tool that asked
+for it.  They include the headers they share with the search kernels
+from ``csrc/``, whose text is part of their hash.  The builds run at
+first use (never at import) into ``taxor_tpu_torch/_build/``, which
+.gitignore lists; a library's name carries a hash of its sources, so an
+edited source rebuilds.  Each C launcher enqueues on the stream it is
+given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
+into an exception.
 """
 
 from __future__ import annotations
@@ -21,11 +26,14 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
+DIAG_CSRC = os.path.join(CSRC, "diag")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
 _LIB = None
+_DIAG_LOCK = threading.Lock()
+_DIAG_LIB = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,10 +56,23 @@ _SIGNATURES = {
     # (hi, lo, R, W, Wp, scratch, out_hi, out_lo, stream)
     "launch_sort_pairs": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
+_DIAG_SIGNATURES = {
+    # (table, B, words, R, W, n_hash, mode, U, RT, out, stream)
+    "launch_probe_bounds": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],
+    # (table, B, words, R, W, H, n_hash, layout, nr, rounds, flood_k,
+    #  block_length, out, extra, stream)
+    "launch_probe_experiment": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I,
+                                ctypes.c_uint32, _P, _P, _P],
+    # (packed, lengths, R, L, k, s, t, stage, out, out_emit, stream)
+    "launch_extract_stage": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (x, R, Wd, phases, P, out, stream)
+    "launch_window_shift": [_P, _I, _I, _P, _I, _P, _P],
+}
 
 
-def _sources() -> list[str]:
-    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+def _sources(src_dir: str) -> list[str]:
+    """The .cu and .cuh files at the top level of src_dir."""
+    return sorted(os.path.join(src_dir, f) for f in os.listdir(src_dir)
                   if f.endswith((".cu", ".cuh")))
 
 
@@ -65,15 +86,19 @@ def _nvcc() -> str:
                        "build with the CUDA toolkit")
 
 
-def build() -> str:
-    """Compile csrc/ if the library for its current sources is missing;
-    returns the library path."""
-    srcs = _sources()
+def build(src_dir: str = CSRC, name: str = "taxor_kernels") -> str:
+    """Compile the .cu files of src_dir into lib<name>_<hash>.so if the
+    library for the current sources is missing; returns its path.  The
+    hash covers src_dir's sources and, for a subdirectory of csrc/, the
+    headers of csrc/ it may include."""
+    srcs = _sources(src_dir)
+    deps = srcs if src_dir == CSRC else srcs + [
+        p for p in _sources(CSRC) if p.endswith(".cuh")]
     h = hashlib.sha256()
-    for path in srcs:
+    for path in deps:
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + fh.read())
-    out = os.path.join(BUILD_DIR, f"libtaxor_kernels_{h.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -104,18 +129,33 @@ def build() -> str:
     return out
 
 
+def _load(path: str, signatures: dict) -> ctypes.CDLL:
+    cdll = ctypes.CDLL(path)
+    for name, argtypes in signatures.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return cdll
+
+
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library of the search (built on first call)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            cdll = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(cdll, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _LIB = cdll
+            _LIB = _load(build(), _SIGNATURES)
     return _LIB
+
+
+def diag_lib() -> ctypes.CDLL:
+    """The loaded library of the tools' diagnostic kernels (built on
+    first call from csrc/diag/; a failed build raises)."""
+    global _DIAG_LIB
+    with _DIAG_LOCK:
+        if _DIAG_LIB is None:
+            _DIAG_LIB = _load(build(DIAG_CSRC, "taxor_diag"),
+                              _DIAG_SIGNATURES)
+    return _DIAG_LIB
 
 
 def check(err: int, name: str) -> None:

@@ -1,9 +1,10 @@
 """Native (C++) host components: the syncmer scanner and 2-bit read
 packer (``syncmer_scan.cpp``), the XOR-filter peeling builder
-(``xor_peel.cpp``) and the layout DP (``layout_dp.cpp``).
+(``xor_peel.cpp``), the layout DP (``layout_dp.cpp``) and the CPU proxy
+of the reference's search worker that the benchmark measures against
+(``ref_baseline.cpp``, wrapped by ``baseline.py``).
 
-The port's own copy of ``taxor_tpu/native``, without the CPU proxy of
-the JAX package's benchmark.  The shared library is compiled with g++ at
+The port's own copy of ``taxor_tpu/native``.  The shared library is compiled with g++ at
 first use (never at import) into ``taxor_tpu_torch/_build/native/``,
 which .gitignore lists; its name carries a hash of the sources.  Each
 process compiles into a temporary file of its own and renames it into
@@ -23,7 +24,8 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build", "native")
-_SOURCES = ("syncmer_scan.cpp", "xor_peel.cpp", "layout_dp.cpp")
+_SOURCES = ("syncmer_scan.cpp", "xor_peel.cpp", "ref_baseline.cpp",
+            "layout_dp.cpp")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -37,6 +39,8 @@ _SIGNATURES = {
     "pack_reads_2bit": (None, [_P, _P, _L, _L, _P]),
     "ixf_build_bins": (_L, [_P, _P, _L, ctypes.c_ulonglong, _L, _P, _L,
                             _I]),
+    "ref_baseline_search": (_I, [_P, _P, _L, _I, _I, _I, _P, _P, _I, _P, _P,
+                                 _P, _P, _P, _P, _P, _L, _P, _P, _P, _I]),
     "syncmer_scan_batch": (None, [_P, _P, _L, _L, _I, _I, _I, _P, _P]),
     "hll_union_band": (None, [_P, _P, _L, _L, _L, _P, _I]),
     "layout_dp": (_L, [_P, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _I]),

@@ -39,6 +39,7 @@ from ..hash import schemes as _schemes
 from ..hash.schemes import search_hashes
 from ..hixf.index import TaxorIndex, load_index
 from ..io.fastx import iter_fastx_chunks
+from ..utils.logging import maybe_profile
 from .thresholds import Thresholder
 
 # positions per fused dispatch: bounds the device working set per call
@@ -60,6 +61,7 @@ class SearchConfig:
     pipeline_depth: int = 4
     write_time: bool = False
     topk: int = 16  # device candidate slots; auto-escalates on truncation
+    profile_trace: str = ""  # torch.profiler trace directory (utils/logging)
 
 
 HEADER = (
@@ -448,7 +450,8 @@ def run_search(config: SearchConfig, device="cuda") -> dict:
             "kmer selection schemes")
 
     timings = {"index_io": 0.0, "reads_io": 0.0, "compute": 0.0}
-    with open(config.report_file, "w") as out:
+    with open(config.report_file, "w") as out, \
+            maybe_profile(config.profile_trace, device):
         out.write(HEADER)
         for query in query_files:
             for index in loaded:

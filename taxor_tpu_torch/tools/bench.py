@@ -1,0 +1,414 @@
+"""Benchmark of the port: classification throughput (reads/s) on one
+CUDA GPU, against a native CPU proxy of the reference, and the
+device-vs-host parity gate.
+
+    python -m taxor_tpu_torch.tools.bench [--device cuda] [--configs a,b]
+        [--parity-only]
+
+Prints ONE JSON line to stdout (progress goes to stderr) and exits 0 only
+when every config asked for ran and every parity family is byte-equal:
+1 when a config raised or a family differs or was skipped, 2 when a
+config was skipped for the time budget (BUDGET_S, reported as such).
+
+The port of the JAX package's bench.py, at the same configs and sizes:
+
+  viral_flat_256      8,192 x 2 kb reads, 256-genome flat index: the
+                      primary metric (with the full pipeline's reads/s)
+  flat_4096           2,048 reads, 4,096-genome flat index
+  flat_16384          2,048 reads, 16,384-genome flat index
+  hier_1024           2,048 reads, 1,024 genomes, --layout auto --tmax 64
+                      (hierarchical: the level-grouped descent)
+  device_layout_1024  the same under the build's "device" layout cost
+                      model, which is the JAX package's TPU model copied
+                      (hixf/binning.py; a GPU model is ROADMAP A.10)
+  stress_identical    1,024 reads over 64 near-identical genomes (top-k
+                      truncation stress; measured again at top-k 256)
+
+Per config: the native baseline (native/ref_baseline.cpp, the
+reference's worker loop in C++: reads/s on 1 thread, best of 3, times 32
+as the proxy of the reference's 32-core deployment, and a literal
+32-thread run on this host), the device compute reads/s of the fused step
+on device-resident reads (flat: device/e2e.fused_e2e_step; hierarchical:
+DeviceHIXF._hixf_e2e_fn; timed by tools/timing.rolled_ms), the host
+fallback and classified fractions of one real dispatch.  The parity gate
+searches five scheme/layout families with the device and the host
+engines and compares the TSVs byte for byte.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from ..apps.build import BuildConfig, run_build
+from ..device.hixf_search import DeviceHIXF
+from ..hash import device_syncmer as dsync
+from ..io.fastx import read_all
+from ..native.baseline import baseline_search
+from ..search.pipeline import SearchConfig, search_single
+from ..search.thresholds import Thresholder
+from . import synth
+from .timing import rolled_ms
+
+PRIMARY = "viral_flat_256"
+BUDGET_S = 2400.0  # wall-clock seconds before later configs are skipped
+CONFIGS = {
+    "viral_flat_256": dict(n_species=256, genome_len=20000, n_reads=8192,
+                           read_len=2000, measure_pipeline=True),
+    "flat_4096": dict(n_species=4096, genome_len=5000, n_reads=2048,
+                      read_len=2000, baseline_sub=512),
+    "flat_16384": dict(n_species=16384, genome_len=3000, n_reads=2048,
+                       read_len=2000, baseline_sub=128),
+    "hier_1024": dict(n_species=1024, genome_len=5000, n_reads=2048,
+                      read_len=2000, layout_mode="auto", tmax=64,
+                      baseline_sub=512),
+    "device_layout_1024": dict(n_species=1024, genome_len=5000,
+                               n_reads=2048, read_len=2000,
+                               layout_mode="auto", tmax=64,
+                               layout_cost="device", baseline_sub=512),
+    "stress_identical": dict(n_species=64, genome_len=20000, n_reads=1024,
+                             read_len=2000, mutate=0.005,
+                             baseline_sub=256),
+}
+FAMILIES = ("syncmer", "plain_kmer", "scaled_kmer", "hier_syncmer_mixedlen",
+            "hier_scaled_minimizer")
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+class Budget:
+    """Seconds left of the run's wall-clock budget."""
+
+    def __init__(self, seconds: float):
+        self.deadline = time.monotonic() + seconds
+
+    def left(self) -> float:
+        return self.deadline - time.monotonic()
+
+
+def card_line() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_index(tsv, gdir, layout_mode="flat", tmax=0, threads=8,
+                layout_cost="cpu"):
+    return run_build(BuildConfig(
+        input_file=tsv, input_sequence_dir=gdir, output_filename="",
+        kmer_size=22, syncmer_size=12, use_syncmer=True,
+        layout_mode=layout_mode, tmax=tmax, layout_file="",
+        threads=threads, layout_cost=layout_cost))
+
+
+def native_baseline(index, seqs, thresholder, sub=None):
+    """(reads/s on 1 thread, best of 3; reads/s on 32 threads).  The
+    single-thread rate of a shared host swings between runs: the best of
+    3 is the most favourable number for the reference, and the most
+    stable."""
+    seqs = seqs if sub is None else seqs[:sub]
+    r1 = 0.0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        baseline_search(index.hixf, seqs, index.scheme, thresholder,
+                        threads=1)
+        r1 = max(r1, len(seqs) / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    baseline_search(index.hixf, seqs, index.scheme, thresholder, threads=32)
+    return r1, len(seqs) / (time.perf_counter() - t0)
+
+
+def device_reads_per_s(index, seqs, thresholder, device, topk=16):
+    """(reads/s, ms per pass, fallback fraction, classified fraction) of
+    the fused step on device-resident reads; the fractions come from one
+    real dispatch."""
+    from ..device.e2e import fused_e2e_step
+
+    dev = torch.device(device)
+    scheme = index.scheme
+    dh = DeviceHIXF.from_hixf(index.hixf, dev)
+    if not (dh.e2e_capable(thresholder) and dsync.supports(scheme)):
+        raise ValueError("the index takes no fused step")
+    L = dsync.pad_len_bucket(max(len(s) for s in seqs))
+    packed, lengths = dsync.pack_reads(seqs, L)
+    R, hcap = len(seqs), dsync.hash_cap(L)
+
+    vals, _, _, n_emit, _ = dh.e2e_async(packed, lengths, scheme,
+                                         thresholder, k=topk)()
+    kk = vals.shape[1]
+    nv = (vals >= 0).sum(axis=1)
+    fb = (nv == kk) & (vals[:, kk - 1].astype(np.float64)
+                       >= vals[:, 0].astype(np.float64) * 0.8)
+    fb |= np.asarray(n_emit) > hcap
+    classified = float((vals[:, 0] > 0).mean())
+
+    pr = torch.from_numpy(packed).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    kw = dict(k=scheme.kmer_size, s=scheme.syncmer_size,
+              t=scheme.t_syncmer, hcap=hcap, topk=topk)
+    if dh.flat_fast_path:
+        ms = rolled_ms(lambda p, l: fused_e2e_step(
+            dh.table, p, l, dh.run_offsets, dh.run_users, dh.seed,
+            dh.block_length, prefix_runs=dh.prefix_runs, **kw), pr, ln)
+    else:
+        fn = dh._hixf_e2e_fn(scheme, topk)
+        tbl = torch.from_numpy(dh._thr_table(thresholder, hcap)).to(dev)
+        ms = rolled_ms(lambda p, l: fn(p, l, tbl, hcap), pr, ln)
+    return R / (ms / 1e3), ms, float(fb.mean()), classified
+
+
+def pipeline_reads_per_s(index, reads_file, n_reads, device) -> float:
+    """Reads/s of the whole search path (decode, packing, the device
+    step, thresholds, fallback, TSV text, overlapped by the pipeline):
+    the better of two runs, the first of which also warms up."""
+    dh = DeviceHIXF.from_hixf(index.hixf, device)
+    cfg = SearchConfig(engine="device", batch_size=2048)
+    best = None
+    for _ in range(2):
+        t0 = time.perf_counter()
+        search_single(index, reads_file, io.StringIO(), cfg, dh)
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return n_reads / best
+
+
+def bench_config(name, device, root, *, n_species, genome_len, n_reads,
+                 read_len, layout_mode="flat", tmax=0, mutate=0.0, topk=16,
+                 baseline_sub=None, seed=0, layout_cost="cpu",
+                 measure_pipeline=False) -> dict:
+    """The record of one config (module docstring)."""
+    t0 = time.perf_counter()
+    _, tsv, gdir, reads_file = synth.build_problem(
+        n_species=n_species, genome_len=genome_len, n_reads=n_reads,
+        read_len=read_len, seed=seed, mutate_from_first=mutate, root=root)
+    index = build_index(tsv, gdir, layout_mode=layout_mode, tmax=tmax,
+                        layout_cost=layout_cost)
+    t_build = time.perf_counter() - t0
+    seqs = [r.seq for r in read_all(reads_file)]
+    scheme = index.scheme
+    th = Thresholder.make(scheme.kmer_size, scheme.window_size, 0.04, -1.0,
+                          scheme.use_syncmer)
+    r1, r32 = native_baseline(index, seqs, th, sub=baseline_sub)
+    baseline = 32 * r1
+    n_bins = index.hixf.ixfs[0].bin_count
+    log(f"bench[{name}]: built in {t_build:.1f}s, {len(index.hixf.ixfs)} "
+        f"IXF(s), root {n_bins} bins; native baseline {r1:.0f}/thread "
+        f"(32x => {baseline:.0f}; literal 32thr {r32:.0f})")
+    result = dict(name=name, n_species=n_species, root_bins=n_bins,
+                  n_ixfs=len(index.hixf.ixfs), read_len=read_len,
+                  n_reads=len(seqs), index_build_s=t_build,
+                  baseline_1thread_reads_per_s=r1,
+                  baseline_32x_reads_per_s=baseline,
+                  baseline_32thread_on_this_host_reads_per_s=r32)
+    if layout_cost == "device":
+        result["layout_cost_model"] = "tpu (ROADMAP A.10)"
+    # the index pre-seeds the top-k ladder from build-time homology; the
+    # first dispatch starts there, as the pipeline's does
+    sugg = int(getattr(index, "suggested_topk", 16))
+    topk_eff = max(topk, sugg)
+    rps, ms, fb, cls = device_reads_per_s(index, seqs, th, device, topk_eff)
+    log(f"bench[{name}]: device compute {ms:.3f} ms/pass ({rps:.0f} "
+        f"reads/s, {rps / baseline:.2f}x baseline, fallback "
+        f"{fb * 100:.2f}%, classified {cls:.3f})")
+    result.update(suggested_topk=sugg, device_compute_reads_per_s=rps,
+                  ms_per_pass=ms, vs_baseline=rps / baseline,
+                  host_fallback_fraction=fb, classified_fraction=cls)
+    if mutate > 0.0 and topk_eff < 256:
+        # the pipeline's escalation ladder tops out at 256 slots; with 64
+        # co-equal genomes that is where truncation fallback disappears
+        rps2, _, fb2, _ = device_reads_per_s(index, seqs, th, device, 256)
+        result.update(host_fallback_fraction_k256=fb2,
+                      device_compute_reads_per_s_k256=rps2)
+    if measure_pipeline:
+        prs = pipeline_reads_per_s(index, reads_file, len(seqs), device)
+        result.update(full_pipeline_reads_per_s=prs,
+                      pipeline_vs_device_compute=prs / rps)
+        log(f"bench[{name}]: full pipeline {prs:.0f} reads/s "
+            f"({prs / rps:.2f}x of device compute; decode, thresholds, "
+            f"fallback and TSV on {os.cpu_count()} host cores)")
+    return result
+
+
+def parity_gate(device="cuda", n_reads: int = 256, n_mixed: int = 192,
+                budget: Budget | None = None, root: str | None = None):
+    """{family: True | False | None}: for each scheme/layout family one
+    small search with the device engine and one with the host engine
+    (the numpy oracle), the TSVs compared byte for byte; None where the
+    budget skipped the family.  Covers flat and hierarchical layouts,
+    syncmers, plain k-mers, FracMinHash scaling, minimizers and mixed
+    500 b .. 4 kb read lengths (several length buckets)."""
+    with tempfile.TemporaryDirectory(prefix="taxor_parity_",
+                                     dir=root) as tmp:
+        _, tsv, gdir, reads_file = synth.build_problem(
+            n_species=32, genome_len=8000, n_reads=n_reads, read_len=1000,
+            seed=7, root=tmp)
+        tmp2 = os.path.join(tmp, "hier")
+        os.makedirs(tmp2)
+        tsv2, gdir2, mixed = synth.mixed_length_reads(tmp2, n_reads=n_mixed)
+        results = {}
+        for name, layout, src, kw in (
+            ("syncmer", "flat", 0,
+             dict(kmer_size=22, syncmer_size=12, use_syncmer=True)),
+            ("plain_kmer", "flat", 0,
+             dict(kmer_size=20, syncmer_size=10, use_syncmer=False)),
+            ("scaled_kmer", "flat", 0,
+             dict(kmer_size=20, syncmer_size=10, use_syncmer=False,
+                  scaling=4)),
+            ("hier_syncmer_mixedlen", "auto", 1,
+             dict(kmer_size=22, syncmer_size=12, use_syncmer=True)),
+            ("hier_scaled_minimizer", "auto", 1,
+             dict(kmer_size=20, syncmer_size=10, window_size=26,
+                  use_syncmer=False, scaling=3)),
+        ):
+            if budget is not None and budget.left() < 90:
+                results[name] = None
+                log(f"bench[parity]: skipping {name} (budget exhausted)")
+                continue
+            b_tsv, b_gdir = (tsv, gdir) if src == 0 else (tsv2, gdir2)
+            index = run_build(BuildConfig(
+                input_file=b_tsv, input_sequence_dir=b_gdir,
+                output_filename="", layout_mode=layout,
+                tmax=64 if layout == "auto" else 0,
+                layout_file=(os.path.join(tmp2, f"{name}.out")
+                             if layout == "auto" else ""),
+                threads=8, **kw))
+            if layout == "auto" and len(index.hixf.ixfs) < 2:
+                results[name] = False
+                log(f"bench[parity]: {name}: expected a hierarchical layout")
+                continue
+            texts = {}
+            for engine in ("device", "host"):
+                buf = io.StringIO()
+                dh = (DeviceHIXF.from_hixf(index.hixf, device)
+                      if engine == "device" else None)
+                search_single(index, reads_file if src == 0 else mixed, buf,
+                              SearchConfig(engine=engine, batch_size=256),
+                              dh)
+                texts[engine] = buf.getvalue()
+            ok = texts["device"] == texts["host"]
+            results[name] = ok
+            log(f"bench[parity]: {name} device==host byte parity: {ok}")
+            if not ok:
+                d, h = texts["device"].splitlines(), texts["host"].splitlines()
+                for i, (a, b) in enumerate(zip(d, h)):
+                    if a != b:
+                        log(f"bench[parity]: first diff line {i}:\n  dev : "
+                            f"{a}\n  host: {b}")
+                        break
+        return results
+
+
+def run(argv: list[str] | None = None) -> tuple[dict, int]:
+    """(the JSON result, the exit code) of one benchmark run."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda, cuda:N, or cpu for the "
+                         "plain twins)")
+    ap.add_argument("--configs", default=",".join(CONFIGS),
+                    help="comma-separated configs to run")
+    ap.add_argument("--parity-only", action="store_true",
+                    help="run the parity gate and no config")
+    args = ap.parse_args(argv)
+    from ..hash import schemes as _schemes
+
+    dev = torch.device(args.device)
+    card = None
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: no CUDA device is available "
+                               "(use --device cpu to run the plain twins)")
+        from ..device import cuda_build
+
+        card = card_line()
+        t0 = time.perf_counter()
+        cuda_build.lib()
+        log(f"bench: {card}; kernels built and loaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+    names = [] if args.parity_only else [
+        n for n in args.configs.split(",") if n]
+    unknown = [n for n in names if n not in CONFIGS]
+    if unknown:
+        raise ValueError(f"unknown configs {unknown}; known: {list(CONFIGS)}")
+    _schemes.NUM_THREADS = 8
+    budget = Budget(BUDGET_S)
+    configs, failed, skipped = [], [], []
+    for name in names:
+        if budget.left() < 120:
+            log(f"bench: skipping {name} (budget exhausted)")
+            configs.append(dict(name=name, skipped="budget"))
+            skipped.append(name)
+            continue
+        try:
+            with tempfile.TemporaryDirectory(prefix="taxor_bench_") as tmp:
+                configs.append(bench_config(name, dev, tmp, **CONFIGS[name]))
+        except Exception as e:  # reported, and the run exits non-zero
+            log(f"bench[{name}]: failed:\n{traceback.format_exc()}")
+            configs.append(dict(name=name, error=repr(e)))
+            failed.append(name)
+    try:
+        parity = parity_gate(dev, budget=budget)
+    except Exception as e:
+        log(f"bench[parity]: failed:\n{traceback.format_exc()}")
+        parity = {"error": repr(e)}
+    parity_ok = (set(parity) == set(FAMILIES)
+                 and all(v is True for v in parity.values()))
+    log(f"bench[parity]: PARITY_RESULT={json.dumps(parity)} "
+        f"parity_ok={parity_ok}")
+    primary = next((c for c in configs if c["name"] == PRIMARY), {})
+    result = {
+        "metric": "reads/s/GPU classification throughput (k=22,s=12 "
+                  "syncmers, 256-genome index, 2kb reads)",
+        "value": primary.get("device_compute_reads_per_s"),
+        "unit": "reads/s",
+        "vs_baseline": primary.get("vs_baseline"),
+        "device": {"torch_device": str(dev),
+                   "name": (torch.cuda.get_device_name(dev)
+                            if dev.type == "cuda" else "cpu"),
+                   "nvidia_smi": card},
+        "detail": {
+            "configs": configs,
+            "note": "value = device compute of the fused step on the "
+                    "primary config (device-resident reads); vs_baseline "
+                    "compares one GPU against 32 x the single-thread "
+                    "native C++ reference worker (native/ref_baseline.cpp) "
+                    "on the same reads",
+            "baseline_proxy": "32 x the measured single-thread rate of the "
+                              "native C++ reference worker",
+            "host_cores": os.cpu_count(),
+        },
+        "vs_baseline_summary": {c["name"]: c.get("vs_baseline")
+                                for c in configs},
+        "full_pipeline_reads_per_s": primary.get("full_pipeline_reads_per_s"),
+        "failed": failed,
+        "skipped": skipped,
+        # last, so that a cut tail of the output still shows them
+        "parity": parity,
+        "parity_ok": parity_ok,
+    }
+    rc = 1 if failed or not parity_ok else 2 if skipped else 0
+    return result, rc
+
+
+def main(argv: list[str] | None = None) -> int:
+    result, rc = run(argv)
+    print(json.dumps(result), flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

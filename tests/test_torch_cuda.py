@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2, K2n, syncmer_track, K3 and K4 and the steps
-on the card, held bit-exact to their plain twins.  Needs a CUDA GPU and
+"""The CUDA kernels K1, K2, K2n, syncmer_track, K3 and K4, the steps on
+the card and the tools' four diagnostic kernels, held bit-exact to their
+plain twins.  Needs a CUDA GPU and
 nvcc; skips elsewhere.  This file imports no JAX, so it also runs on a
 machine without it:
 
@@ -273,3 +274,58 @@ def test_wrappers_check_inputs(cuda):
         sort.dedup_fused(z, z.bool(), 16)
     with pytest.raises(ValueError, match="int32"):
         sort.sort_pairs(z.long(), z)
+
+
+# ------------------------------------------- the tools' diagnostic kernels --
+@pytest.fixture
+def diag_inputs(cuda):
+    from taxor_tpu_torch.tools import probe_bounds as pb
+    from taxor_tpu_torch.tools import probe_experiments as pe
+
+    rng = np.random.default_rng(40)
+    table = pb.tool_table(rng)
+    n_hash = rng.integers(0, 513, 48).astype(np.int32)
+    n_hash[0] = 0
+    w16r = pb.make_inputs(rng, 48, 512, table.shape[0])
+    w16, w10 = pe.make_inputs(rng, 48, 512, table.shape[0], pe.BL_TOOL)
+    return [torch.from_numpy(x).to(cuda)
+            for x in (table, n_hash, w16r, w16, w10)]
+
+
+def test_diag_probe_kernels_match_twins(diag_inputs):
+    from taxor_tpu_torch.device import diag
+
+    table, n_hash, w16r, w16, w10 = diag_inputs
+    before = diag.probe_bounds.LAUNCHES
+    for mode in diag.PROBE_BOUNDS_MODES:
+        got = diag.probe_bounds(table, w16r, n_hash, mode)
+        assert torch.equal(got, diag.probe_bounds_plain(table, w16r, n_hash,
+                                                        mode)), mode
+    assert diag.probe_bounds.LAUNCHES == before + 5
+    for kw in (dict(layout="p16", nr=4), dict(layout="p10", nr=2),
+               dict(layout="p16", rounds=8), dict(flood_k=4)):
+        w = w10 if kw.get("layout") == "p10" else w16
+        got = diag.probe_experiment(table, w, n_hash, block_length=806, **kw)
+        want = diag.probe_experiment_plain(table, w, n_hash,
+                                           block_length=806, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
+
+
+@pytest.mark.parametrize("L", [256, 8192, 32768])
+def test_diag_stage_and_shift_kernels_match_twins(cuda, L):
+    from taxor_tpu_torch.device import diag
+    from taxor_tpu_torch.tools.debug_min import stream_words
+
+    rng = np.random.default_rng(L + 41)
+    packed, lengths = dsync.pack_reads(reads(rng, L), L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    want = diag.extract_stages_plain(pk, ln, 22, 12, 5)
+    for stage in diag.STAGES:
+        got = diag.extract_stage(pk, ln, 22, 12, 5, stage)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and torch.equal(got, want[stage])
+    x = torch.from_numpy(stream_words(packed)).to(cuda)
+    assert torch.equal(diag.window_shift(x),
+                       diag.window_shift_plain(x, range(16)))

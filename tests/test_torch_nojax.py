@@ -91,6 +91,40 @@ def test_port_loads_no_jax_where_jax_is_installed(tmp_path):
     run_blocked(tmp_path, "auto", 100, 3000, block=False)
 
 
+TOOLS_SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    sys.modules["jax"] = None  # any `import jax` or `import taxor_tpu`
+    sys.modules["taxor_tpu"] = None  # now raises
+    import taxor_tpu_torch.tools as tools
+    names = [m.name for m in pkgutil.iter_modules(tools.__path__)]
+    for name in names:
+        importlib.import_module("taxor_tpu_torch.tools." + name)
+    from taxor_tpu_torch.tools import debug_min
+    assert debug_min.main(["--device", "cpu", "--phases", "0,5,15"]) == 0
+    loaded = [m for m, mod in sys.modules.items() if mod is not None
+              and m.split(".")[0] in ("jax", "jaxlib", "taxor_tpu", "bench",
+                                      "profile_phases", "util")]
+    assert not loaded, loaded
+    print("TOOLS_OK", sorted(names))
+""")
+
+
+def test_tools_import_neither_jax_nor_the_jax_tooling(tmp_path):
+    """Every module of taxor_tpu_torch.tools imports, and debug_min runs,
+    with jax and taxor_tpu blocked; none loads the JAX package's bench.py,
+    profile_phases.py or tests/util.py."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("JAX_PLATFORMS", None)
+    res = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    for name in ("bench", "debug_extract", "debug_min", "probe_bounds",
+                 "probe_experiments", "profile_phases", "synth", "timing"):
+        assert f"'{name}'" in res.stdout
+
+
 def _sources():
     """(path, text) of every Python source of the port and chip_smoke.py."""
     paths = [os.path.join(REPO, "chip_smoke.py")]

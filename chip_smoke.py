@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~5-7 min on an H100
+    python3 chip_smoke.py                 # full size, ~4-8 min on an H100
     python3 chip_smoke.py --genomes 600 --reads 512 --hier-genomes 200 \
         --hier-reads 512                  # quick start check
 
@@ -11,9 +11,11 @@ Phases (any failure exits non-zero):
      the diagnostic library of csrc/diag/, every nvcc started together)
      and times the build;
   2. K1 (syncmer extraction) against its plain twin, bit-exact, at every
-     length bucket 256..32768 on random, homopolymer, tandem-repeat and
-     N-containing reads, plus a gap-1 scheme whose sort buffer spills to
-     global memory; on the same reads the split engine's kernels
+     length bucket 256..32768 on random, homopolymer-run, tandem-repeat,
+     N-containing and two-letter-alphabet reads, a read whose first
+     window is tied and a homopolymer over the whole bucket, plus a gap-1
+     scheme whose sort buffer spills to global memory; on the same reads
+     the split engine's kernels
      (phase 9): syncmer_track against ``syncmer_kmers`` and K3 (dedup)
      against its twin with hcap above and below the emission count;
   3. the probe (K2, or K2n for tables of at most 512 bins) against its
@@ -29,7 +31,8 @@ Phases (any failure exits non-zero):
      a subset; then the same search with the split engine
      (``device.e2e.USE_FUSED_EXTRACT = False``), whose TSV must equal the
      K1 TSV on every read, with syncmer_track and K3 launched and K1 not;
-  5. K1 and K2 timed against their twins at the flat path's shapes;
+  5. K1 and K2 timed against their twins at the flat path's shapes, and
+     K1 on a batch tied in every window (its worst case);
   6. K2n and K2 over stacked tables (G = 1 and 8) with a mixed activity
      mask against their twin, bit-exact, at 16..512 bins (K2n) and 4,096
      bins (K2), with fingerprint-0 slots, counts above 256 and a read
@@ -52,6 +55,7 @@ Phases (any failure exits non-zero):
  10. syncmer_track, K3 and K4 timed against their twins, K4 against
      ``torch.sort`` of the combined key, and the split engine's
      extraction against K1, at the flat path's L=8192 bucket;
+     syncmer_track also on phase 5's batch tied in every window;
  11. the tools' four diagnostic kernels (csrc/diag/) against their plain
      twins, bit-exact: probe_bounds in its five modes and
      probe_experiment in both position layouts, 1, 2 and 4 reads a
@@ -77,7 +81,8 @@ Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
 once) over the H100's 3.35 TB/s and its operations over the peak rate
 for their type (the H100's dense peak rates; 64-bit key compares and
-tracker steps, which have no entry, at the 67 TFLOP/s scalar fp32 rate).
+the tracker's integer operations, which have no entry, at the 67
+TFLOP/s scalar fp32 rate; ``tracker_ops`` counts them).
 
 The second-to-last line of stdout is nvidia-smi's name and power limit;
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.  The
@@ -140,7 +145,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 # ------------------------------------------------------------------ K1 --
 def k1_reads(rng, L: int) -> list[bytes]:
-    """Random reads of the bucket plus the tracker's hard cases."""
+    """Random reads of the bucket plus the tracker's hard cases: tied
+    window minima (homopolymer runs, a tandem repeat, two-letter
+    alphabets, a first window tied at every offset, a homopolymer over
+    the whole bucket), N codes, and reads without a k-mer."""
     half = max(1, L // 2)
     seqs = [ACGT[rng.integers(0, 4, int(rng.integers(half, L + 1)))]
             .tobytes() for _ in range(10)]
@@ -156,6 +164,13 @@ def k1_reads(rng, L: int) -> list[bytes]:
     arr[rng.integers(0, L - 7, L // 50)] = ord("N")  # ambiguity codes
     seqs.append(arr.tobytes())
     seqs += [b"", ACGT[rng.integers(0, 4, K - 1)].tobytes()]  # no k-mer
+    for pair in (b"AC", b"AT", b"CG"):  # two letters: ties everywhere
+        two = np.frombuffer(pair, np.uint8)
+        seqs.append(two[rng.integers(0, 2, int(rng.integers(half, L + 1)))]
+                    .tobytes())
+    seqs.append(b"A" * (K + 2)  # the first window tied at every offset
+                + ACGT[rng.integers(0, 4, L - K - 2)].tobytes())
+    seqs.append(ACGT[int(rng.integers(0, 4))].tobytes() * L)  # all tied
     return seqs
 
 
@@ -608,6 +623,20 @@ def bound(nbytes: float, ops: float, peak: float) -> dict:
     return {"bound_ms": t_ops, "bound_by": "operations"}
 
 
+def tracker_ops(k: int, s: int) -> int:
+    """Integer operations a base of the position-parallel tracker
+    (csrc/tracker.cuh) takes: ~12 for the canonical s-mer (a funnel
+    shift, a bit reversal and a pair swap, the complement, the min), 4 a
+    window element for the scan (two compares, the minimum and an argmin
+    selected), ~6 to classify the window and ballot it: 62 at w = 11."""
+    return 12 + 4 * (k - s + 1) + 6
+
+
+# a canonical k-mer: two funnel shifts, two 2-bit reversals and their
+# 64-bit shift, the complement and mask, the min
+KMER_OPS = 14
+
+
 def sort_ops(n) -> float:
     """Compare-exchanges of bitonic networks over pow2(n) keys, per row."""
     P = [1 << max(0, x - 1).bit_length() for x in n]
@@ -629,6 +658,7 @@ def time_kernels(torch, state) -> list[dict]:
     from taxor_tpu_torch.device import extract, probe
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
     from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools.time_extract import all_tied_reads
 
     dev = torch.device("cuda")
     L = 8192
@@ -647,12 +677,14 @@ def time_kernels(torch, state) -> list[dict]:
     S_, Bp = dh.table.shape
     W = extract.sort_width(L, K, S, t)
     bounds = {
-        # packed + lengths in; hi, lo, valid, n_unique, n_emit out; one
-        # tracker step per base, the sort network, one hash per slot
+        # packed + lengths in; hi, lo, valid, n_unique, n_emit out; the
+        # tracker's operations a base, a k-mer an emission, the sort
+        # network, one hash a slot
         "syncmer_extract": bound(
             pk.numel() + 4 * R + 9 * R * H + 8 * R,
-            float(ln.sum()) + sort_ops(n_emit.clamp(max=W).tolist())
-            + R * H,
+            float(ln.sum()) * tracker_ops(K, S)
+            + float(n_emit.sum()) * KMER_OPS
+            + sort_ops(n_emit.clamp(max=W).tolist()) + R * H,
             PEAK_SCALAR),
         # hashes in, the table once, counts out; one fingerprint-byte
         # compare per valid hash and bin
@@ -678,6 +710,21 @@ def time_kernels(torch, state) -> list[dict]:
                      "plain_ms": plain_ms, **bounds[name],
                      "library_ms": None})
     state["k1_ms"] = rows[0]["ms"]
+
+    # the worst case: every window of every read tied
+    tied = all_tied_reads(np.random.default_rng(SEED + 5), L, len(seqs))
+    tpk, tln = (torch.from_numpy(x).to(dev)
+                for x in dsync.pack_reads(tied, L))
+    state["all_tied"] = (tpk, tln)
+    worst, _, _, each = time_pair(
+        torch, lambda: extract.syncmer_hashes(tpk, tln, K, S, t, hcap),
+        lambda: extract.syncmer_hashes_plain(tpk, tln, K, S, t, hcap), 3)
+    rows[0]["all_tied_ms"] = worst
+    log(f"time syncmer_extract worst case, R={len(tied)} reads tied in "
+        f"every window (homopolymers, tandem repeats of period 2-5) at "
+        f"L={L}: kernel {each[0]:.4f}/{each[1]:.4f} ms "
+        f"({worst / rows[0]['ms']:.1f}x the flat path's reads), plain "
+        f"{each[2]:.3f}/{each[3]:.3f} ms; bit-exact vs twin")
     return rows
 
 
@@ -722,9 +769,11 @@ def time_split(torch, state) -> list[dict]:
          "taxor_tpu/hash/device_syncmer.py:279 (XLA scan, no Pallas "
          "kernel)", lambda: extract.syncmer_track(pk, ln, K, S, t),
          lambda: dsync.syncmer_kmers(pk, ln, K, S, t), None, 5,
-         # packed + lengths in, kmer + emit out; a tracker step and a
-         # k-mer per position
-         bound(pk.numel() + 4 * R + 9 * R * L, 2.0 * R * L, PEAK_SCALAR)),
+         # packed + lengths in, kmer + emit out; the tracker's operations
+         # a base and a k-mer a position
+         bound(pk.numel() + 4 * R + 9 * R * L,
+               float(ln.sum()) * tracker_ops(K, S) + R * L * KMER_OPS,
+               PEAK_SCALAR)),
         ("dedup", "taxor_tpu_torch/csrc/dedup.cu",
          "taxor_tpu/device/pallas_sort.py:68",
          lambda: sort.dedup_fused(kmer, emit, hcap, gap),
@@ -750,6 +799,16 @@ def time_split(torch, state) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, **bnd, "library_ms": lib_ms})
+
+    tpk, tln = state["all_tied"]
+    assert_equal(torch, "syncmer_track on reads tied everywhere",
+                 ("kmer", "emit"), extract.syncmer_track(tpk, tln, K, S, t),
+                 dsync.syncmer_kmers(tpk, tln, K, S, t))
+    rows[0]["all_tied_ms"] = cuda_ms(
+        lambda: extract.syncmer_track(tpk, tln, K, S, t), 3)
+    log(f"time syncmer_track worst case (phase 5's {tpk.shape[0]} reads "
+        f"tied everywhere) at L={L}: {rows[0]['all_tied_ms']:.4f} ms; "
+        "bit-exact vs twin")
 
     def split_extract():
         km, em = extract.syncmer_track(pk, ln, K, S, t)

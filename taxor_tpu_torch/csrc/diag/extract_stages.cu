@@ -15,10 +15,12 @@
 //   pre       the emitted canonical k-mers in emission order, all ones
 //             past the emission count (before K1's sort)
 // Bases before 0 read as A (the port's kmer_at and _rolling).  Values are
-// int64 (the 32-bit ones zero-extended).  emit and pre run the tracker of
-// K1 and syncmer_track (tracker.cuh) itself, one thread per read, so a
-// redesigned K1 stage can be held against it; the other stages are per
-// position, in parallel, from the staged 2-bit words.
+// int64 (the 32-bit ones zero-extended).  emit and pre run the sequential
+// reference tracker (tracker.cuh track_syncmers), one thread per read:
+// K1 and syncmer_track classify windows in parallel and replay the same
+// step rule only inside tied runs, so this is what they are bisected
+// against; the other stages are per position, in parallel, from the
+// staged 2-bit words.
 //
 // window_shift replaces tools/debug_min.py (kern): for each phase c,
 // off = 2c - 22, jb = floor(off / 32), sh = off - 32 jb; the row of stream
@@ -26,8 +28,8 @@
 // shifted left by 32 - sh and masked to 24 bits; phase-major output.
 //
 // What bounds them on the H100: extract_stages writes 8 bytes per
-// position, and its emit and pre stages run the sequential tracker (as
-// K1); window_shift is bound by its bytes.
+// position, and its emit and pre stages run the sequential tracker;
+// window_shift is bound by its bytes.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -1,50 +1,64 @@
-// K1: open canonical syncmer extraction, dedup and wyhash, one block per read;
-// and syncmer_track, the first kernel of the split engine.
+// K1: open canonical syncmer extraction, dedup and wyhash, one block per
+// read; and syncmer_track, the first kernel of the split engine.
 //
-// Replaces the TPU kernel taxor_tpu/device/pallas_extract.py
+// K1 replaces the TPU kernel taxor_tpu/device/pallas_extract.py
 // (_extract_kernel, launched by syncmer_hashes_fused) together with the
 // bitonic network it inlines (taxor_tpu/device/pallas_sort.py
-// _bitonic_body).  The TPU kernel had no cheap sequential code, so it
-// computed a scan-free sliding argmin, flagged reads whose tied window
-// minima made emission history-dependent (n_emit = 2^30) and left them to
-// a rescue sub-batch or the host.  Here one thread runs the reference's
-// exact stateful tracker (hash/syncmer.py, src/hashing/syncmer.cpp:
-// 109-146), so every read is exact and n_emit is always the true count.
+// _bitonic_body).  syncmer_track replaces the XLA scan
+// taxor_tpu/hash/device_syncmer.syncmer_kmers (no Pallas kernel).  The TPU
+// kernel computed a scan-free sliding argmin and sent reads with tied
+// window minima to the host (n_emit = 2^30).  Here the tracker is
+// position-parallel and exact (tracker.cuh: window_outcome,
+// resolve_tied_runs): no flag, no fallback, n_emit is always the true
+// count.
 //
-// Per block (read r):
-//   1. all threads stage the read's 2-bit words in shared memory;
-//   2. thread 0 runs the tracker over the bases and appends each emitted
-//      canonical k-mer to a sort buffer;
-//   3. all threads bitonic-sort the buffer (padded with all-ones to a
-//      power of two), mark first occurrences, count them and wyhash the
-//      first hcap slots.
-// Outputs per read: hi/lo (int32 bit patterns of the wyhash) and valid
-// for hcap slots in ascending canonical-k-mer order (0/0/false where a
-// slot holds no first occurrence), n_unique over all emissions, n_emit.
+// Per block (read r, 256 threads):
+//   1. stage the read's 2-bit words in shared memory, with zero words
+//      before and after (tracker.cuh kBias);
+//   2. every thread computes the canonical s-mers ys[i] of its positions:
+//      one funnel shift of two staged words and a 2-bit reversal;
+//   3. per window end i, a direct scan of ys[i-w+1 .. i] gives the minimum
+//      and its leftmost and rightmost argmin: the window emits (unique
+//      minimum at the offset), is tied, or is uncertain (tied, with a
+//      minimum at the offset); __ballot_sync packs each outcome into one
+//      32-bit word per 32 positions;
+//   4. one thread per tied run holding an uncertain window replays the
+//      tracker's rule over that run (resolve_tied_runs);
+//   5. K1: a block-wide prefix sum over the emission words gathers the
+//      emitted positions in order, each thread computes their canonical
+//      k-mers (a 64-bit funnel shift of three staged words), then all
+//      threads bitonic-sort the buffer (padded with all-ones to a power of
+//      two), mark first occurrences, count them and wyhash the first hcap
+//      slots.  syncmer_track instead writes, per position, the canonical
+//      k-mer (int64 [R, L], bases before 0 read as A) and the emission bit
+//      (bool [R, L], false past the length), coalesced.
+// K1's outputs per read: hi/lo (int32 bit patterns of the wyhash) and
+// valid for hcap slots in ascending canonical-k-mer order (0/0/false where
+// a slot holds no first occurrence), n_unique over all emissions, n_emit.
 //
-// What bounds it on the H100: the sequential tracker, ~30 dependent
-// instructions per base on one thread of each block; the sort and the
-// hashing are parallel and small.  The sort buffer holds W = next power
-// of two of the most emissions a read of L bases can have (the
-// emission-gap bound, hash/device_syncmer.max_emissions): 64 KB at
-// L = 32768 for k=22/s=12.  When W*8 does not fit shared memory (gap-1
-// schemes at L = 32768) the wrapper passes a global scratch buffer.
+// What bounds them on the H100.  Per position, steps 2-3 take ~12 integer
+// operations for the s-mer and ~4 per window element for the scan (w =
+// k-s+1 = 11 for k=22/s=12: ~56 a position); syncmer_track adds ~14 for
+// its k-mer and writes 9 bytes a position, so its bytes bound it.  K1
+// reads a quarter byte a position and writes 9 bytes an hcap slot
+// (hcap = L/4), which at the card's rates takes about as long as its
+// operations (the scan, then the sort network over the emissions):
+// chip_smoke.py's record says which of the two is larger.  Step 4 is
+// serial only inside tied runs; a read tied everywhere is one run on one
+// thread, as the whole read was before.
 //
-// Left for later: warp-per-read tracking (split the read at windows with
-// a unique minimum, where the tracker state is history-free), several
-// reads per block to fill the SMs on short buckets, and a sort over
-// registers/warp shuffles instead of block-wide shared-memory stages.
-//
-// syncmer_track (the split engine, device/e2e.USE_FUSED_EXTRACT = False)
-// writes what the tracker sees instead of sorting it: per end position
-// the canonical k-mer (int64 [R, L]) and whether it was emitted (bool
-// [R, L], false past the read's length), the contract of the plain
-// hash/device_syncmer.syncmer_kmers.  Its JAX counterpart is the XLA
-// scan device_syncmer.syncmer_kmers, not a Pallas kernel.  Thread 0
-// tracks into a shared bit mask; then every thread computes the k-mers
-// of its positions from the staged words (they depend on the bases
-// alone) and writes both rows, coalesced.  It is bound by the same
-// sequential tracker, then by writing 9 bytes per position.
+// Shared memory: one layout for both kernels (smem_layout), the whole read
+// at once, no tiling: a 64-byte header, the staged words (L/4 + 16 bytes),
+// three bit masks (3 L/8 bytes) and ys (4 L bytes).  K1's sort buffer of
+// W = next power of two of the most emissions a read can have
+// (hash/device_syncmer.max_emissions) reuses the ys region once step 4 is
+// done, which grows it to 8 W bytes where that is larger (gap-1 schemes).
+// At L = 32768: 8,208 + 12,288 + 131,072 + 64 = 151,632 bytes (148 KB) for
+// both kernels at k=22/s=12 (W*8 = 64 KB fits the ys region), under the
+// 227 KB a block may use; at L = 8192, 37,968 bytes.  Where the sort
+// buffer would not fit (gap-1 schemes at L = 32768: 256 KB) the wrapper
+// passes a global scratch buffer; it asks the library
+// (syncmer_extract_smem) which case holds.
 
 #include <cuda_runtime.h>
 
@@ -57,19 +71,70 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr size_t kHeader = 64;  // warp totals, the emission and unique counts
 
-// Shared-memory header before the sort buffer: L/16 stream words, a
-// 32-entry ring of s-mer values and two counters (16-byte aligned).
-__host__ __device__ inline size_t header_bytes(int L) {
-  return (size_t)(L / 4) + 32 * 4 + 16;
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
 }
 
-// Stages read r's 2-bit words (L/16 of them) into shared memory.
-__device__ inline void stage_read(const uint8_t* packed, int r, int L,
-                                  uint32_t* words) {
+// Byte offsets of the shared-memory layout at length bucket L; sort_bytes
+// is the size of a sort buffer kept in shared memory (0 for none).
+struct Layout {
+  size_t words, bits, region, total;
+};
+
+__host__ __device__ inline Layout smem_layout(int L, size_t sort_bytes) {
+  Layout o;
+  o.words = kHeader;
+  o.bits = o.words + align16((size_t)taxor::staged_words(L) * 4);
+  o.region = o.bits + align16((size_t)3 * ((L + 31) / 32) * 4);
+  const size_t ys = (size_t)L * 4;
+  o.total = o.region + (sort_bytes > ys ? sort_bytes : ys);
+  return o;
+}
+
+// Steps 1-4 for read r: stages the words into sw, computes ys and the
+// emission mask emit (ceil(L/32) words, exact, zero outside [k-1, len)),
+// using tied and uncertain as scratch masks.  Ends with a barrier.
+__device__ void emission_mask(const uint8_t* packed, const int32_t* lengths,
+                              int r, int L, int k, int s, int t,
+                              uint32_t* sw, uint32_t* ys, uint32_t* emit,
+                              uint32_t* tied, uint32_t* uncertain) {
+  // 1. stage the read: kBias/16 zero words, the L/16 words, two zero words
   const uint32_t* src =
       reinterpret_cast<const uint32_t*>(packed + (size_t)r * (L / 4));
-  for (int i = threadIdx.x; i < L / 16; i += blockDim.x) words[i] = src[i];
+  const int nsw = taxor::staged_words(L), head = taxor::kBias / 16;
+  for (int j = threadIdx.x; j < nsw; j += blockDim.x)
+    sw[j] = j >= head && j < head + L / 16 ? src[j - head] : 0u;
+  const int len = max(0, min(lengths[r], L));
+  __syncthreads();
+
+  // 2. canonical s-mers (those ending before s-1 are never read)
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    ys[i] = taxor::canon_smer(sw, i, s);
+  __syncthreads();
+
+  // 3. window outcomes, one ballot word per 32 positions
+  const int lane = threadIdx.x & 31;
+  for (int i0 = 0; i0 < L; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    taxor::Window o = {false, false, false};
+    if (i >= k - 1 && i < len) o = taxor::window_outcome(ys, i, k, s, t);
+    const uint32_t e = __ballot_sync(0xFFFFFFFFu, o.emit);
+    const uint32_t d = __ballot_sync(0xFFFFFFFFu, o.tied);
+    const uint32_t u = __ballot_sync(0xFFFFFFFFu, o.uncertain);
+    if (lane == 0 && i < L) {
+      emit[i >> 5] = e;
+      tied[i >> 5] = d;
+      uncertain[i >> 5] = u;
+    }
+  }
+  __syncthreads();
+
+  // 4. the uncertain windows, exactly
+  taxor::resolve_tied_runs(ys, tied, uncertain, emit, len, k, s, t);
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
@@ -80,30 +145,52 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
     int32_t* __restrict__ n_unique_out, int32_t* __restrict__ n_emit_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = blockIdx.x;
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* ring = words + L / 16;
-  int* counters = reinterpret_cast<int*>(ring + 32);  // n_emit, n_unique
+  const Layout o = smem_layout(L, 0);
+  int* warp_tot = reinterpret_cast<int*>(smem);
+  int* counters = warp_tot + kWarps;  // n_emit, n_unique
+  uint32_t* sw = reinterpret_cast<uint32_t*>(smem + o.words);
+  const int nw = (L + 31) / 32;
+  uint32_t* emit = reinterpret_cast<uint32_t*>(smem + o.bits);
+  uint32_t* ys = reinterpret_cast<uint32_t*>(smem + o.region);
   unsigned long long* buf =
       scratch ? scratch + (size_t)r * W
-              : reinterpret_cast<unsigned long long*>(smem + header_bytes(L));
+              : reinterpret_cast<unsigned long long*>(smem + o.region);
 
-  // 1. stage the read
-  stage_read(packed, r, L, words);
+  // 1-4. the exact emission mask; ys is dead afterwards, buf may reuse it
+  emission_mask(packed, lengths, r, L, k, s, t, sw, ys, emit, emit + nw,
+                emit + 2 * nw);
+
+  // 5. gather the emitted k-mers in position order: thread j owns the
+  // contiguous words [j*per, (j+1)*per), an exclusive block-wide prefix
+  // sum over their popcounts gives its first slot
+  const int per = (nw + kThreads - 1) / kThreads;
+  const int w0 = min(nw, threadIdx.x * per), w1 = min(nw, w0 + per);
+  int c = 0;
+  for (int j = w0; j < w1; ++j) c += __popc(emit[j]);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = c;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
   if (threadIdx.x == 0) counters[1] = 0;
   __syncthreads();
-
-  // 2. the reference tracker, one thread, appending to the sort buffer
-  if (threadIdx.x == 0) {
-    const int len = max(0, min(lengths[r], L));
-    counters[0] = taxor::track_syncmers(
-        words, ring, len, k, s, t, [&](int n, int, uint64_t kmer) {
-          if (n < W) buf[n] = kmer;
-        });
+  int off = incl - c, n = 0;
+  for (int v = 0; v < kWarps; ++v) {
+    if (v < warp) off += warp_tot[v];
+    n += warp_tot[v];
+  }
+  for (int j = w0; j < w1; ++j) {
+    for (uint32_t bits = emit[j]; bits; bits &= bits - 1) {
+      const int i = 32 * j + __ffs(bits) - 1;
+      if (off < W) buf[off] = taxor::canon_kmer(sw, i, k);
+      ++off;
+    }
   }
   __syncthreads();
 
-  // 3. sort, first occurrences, wyhash
-  const int n = counters[0];
+  // sort, first occurrences, wyhash
   const int m = min(n, W);
   const int P = taxor::pow2_at_least(m);
   for (int i = m + threadIdx.x; i < P; i += blockDim.x)
@@ -115,12 +202,12 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
     local += (j == 0 || buf[j] != buf[j - 1]);
   atomicAdd(&counters[1], local);  // integer sum: order-free
   for (int j = threadIdx.x; j < hcap; j += blockDim.x) {
-    const size_t o = (size_t)r * hcap + j;
+    const size_t q = (size_t)r * hcap + j;
     const bool v = j < m && (j == 0 || buf[j] != buf[j - 1]);
     const uint64_t h = v ? taxor::wyhash64(buf[j]) : 0;
-    out_hi[o] = (int32_t)(uint32_t)(h >> 32);
-    out_lo[o] = (int32_t)(uint32_t)h;
-    out_valid[o] = v;
+    out_hi[q] = (int32_t)(uint32_t)(h >> 32);
+    out_lo[q] = (int32_t)(uint32_t)h;
+    out_valid[q] = v;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -129,44 +216,23 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
   }
 }
 
-// Canonical k-mer ending at base i, bases before 0 read as A: the value
-// syncmer_kmers gives at every position (emitted or not).
-__device__ inline uint64_t kmer_at(const uint32_t* words, int i, int k) {
-  uint64_t f = 0, rv = 0;
-  for (int j = 0; j < k; ++j) {
-    const int p = i - j;
-    const uint32_t c = p >= 0 ? taxor::base_at(words, p) : 0u;
-    f |= (uint64_t)c << (2 * j);
-    rv |= (uint64_t)(3u - c) << (2 * (k - 1 - j));
-  }
-  return f < rv ? f : rv;
-}
-
 __global__ void __launch_bounds__(kThreads) syncmer_track_kernel(
     const uint8_t* __restrict__ packed, const int32_t* __restrict__ lengths,
     int L, int k, int s, int t, int64_t* __restrict__ out_kmer,
     uint8_t* __restrict__ out_emit) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = blockIdx.x;
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* ring = words + L / 16;
-  uint32_t* bits = ring + 32;  // emission mask, ceil(L/32) words
-
-  stage_read(packed, r, L, words);
-  for (int i = threadIdx.x; i < (L + 31) / 32; i += blockDim.x) bits[i] = 0;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int len = max(0, min(lengths[r], L));
-    taxor::track_syncmers(words, ring, len, k, s, t,
-                          [&](int, int i, uint64_t) {
-                            bits[i >> 5] |= 1u << (i & 31);
-                          });
-  }
-  __syncthreads();
+  const Layout o = smem_layout(L, 0);
+  uint32_t* sw = reinterpret_cast<uint32_t*>(smem + o.words);
+  const int nw = (L + 31) / 32;
+  uint32_t* emit = reinterpret_cast<uint32_t*>(smem + o.bits);
+  uint32_t* ys = reinterpret_cast<uint32_t*>(smem + o.region);
+  emission_mask(packed, lengths, r, L, k, s, t, sw, ys, emit, emit + nw,
+                emit + 2 * nw);
   const size_t row = (size_t)r * L;
   for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    out_kmer[row + i] = (int64_t)kmer_at(words, i, k);
-    out_emit[row + i] = (bits[i >> 5] >> (i & 31)) & 1u;
+    out_kmer[row + i] = (int64_t)taxor::canon_kmer(sw, i, k);
+    out_emit[row + i] = (emit[i >> 5] >> (i & 31)) & 1u;
   }
 }
 
@@ -177,6 +243,14 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 
 }  // namespace
 
+// Dynamic shared memory K1 takes at length bucket L with a W-key sort
+// buffer in shared memory (in_smem != 0) or in global scratch (in_smem ==
+// 0).  The wrapper passes scratch when the first exceeds what a block may
+// use.
+extern "C" int syncmer_extract_smem(int L, int W, int in_smem) {
+  return (int)smem_layout(L, in_smem ? (size_t)W * 8 : 0).total;
+}
+
 extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
                                       int R, int L, int k, int s, int t,
                                       int hcap, int W, void* scratch,
@@ -184,7 +258,7 @@ extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
                                       void* out_valid, void* n_unique,
                                       void* n_emit, void* stream) {
   if (R == 0) return 0;
-  const size_t smem = header_bytes(L) + (scratch ? 0 : (size_t)W * 8);
+  const size_t smem = (size_t)syncmer_extract_smem(L, W, scratch == nullptr);
   cudaError_t e = set_smem((const void*)syncmer_extract_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   syncmer_extract_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
@@ -202,7 +276,7 @@ extern "C" int launch_syncmer_track(const void* packed, const void* lengths,
                                     void* out_kmer, void* out_emit,
                                     void* stream) {
   if (R == 0) return 0;
-  const size_t smem = (size_t)(L / 4) + 32 * 4 + 4 * (size_t)((L + 31) / 32);
+  const size_t smem = smem_layout(L, 0).total;
   cudaError_t e = set_smem((const void*)syncmer_track_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   syncmer_track_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(

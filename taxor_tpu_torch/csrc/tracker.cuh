@@ -1,13 +1,34 @@
-// The reference's open-canonical-syncmer tracker over one read, run by
-// ONE thread: shared by K1 (extract.cu, syncmer_extract) and the split
-// engine's syncmer_track (extract.cu).
+// The reference's open-canonical-syncmer tracker: its step rule, the
+// sequential whole-read tracker built on it, and the parallel decomposition
+// that K1 (extract.cu, syncmer_extract) and the split engine's
+// syncmer_track (extract.cu) run instead.
 //
-// The exact stateful window-minimum tracker of hash/syncmer.py and
-// src/hashing/syncmer.cpp:109-146: leftmost minimum on the first full
-// window; when the held minimum slides out, the RIGHTMOST minimum of the
-// new window; otherwise only a strictly smaller newcomer takes over.  Its
-// state depends on history (tied minima), so it is sequential: ~30
-// dependent instructions per base.
+// The tracker (hash/syncmer.py, src/hashing/syncmer.cpp:109-146): leftmost
+// minimum on the first full window; when the held minimum slides out, the
+// RIGHTMOST minimum of the new window; otherwise only a strictly smaller
+// newcomer takes over.  Emit the k-mer ending at i iff the held s-mer
+// starts at i-k+t.  Its replacement on the TPU was the scan-free sliding
+// argmin of taxor_tpu/device/pallas_extract.py (_extract_kernel, :19-31
+// and :193-226), which flagged reads with tied window minima for the host.
+//
+// tracker_step is that rule for one window, over any store of s-mers.
+// track_syncmers runs it over a whole read on ONE thread (~30 dependent
+// instructions a base): the diagnostic kernel extract_stages.cu (stages
+// emit and pre) keeps it as the reference tracker to bisect against.
+//
+// The decomposition (window_outcome, resolve_tied_runs) makes the tracker
+// position-parallel and exact.  The held value is always the window
+// minimum, so after a window whose minimum is unique the holder is that
+// argmin, whatever came before.  History matters only inside maximal runs
+// of tied windows, and a tied window's emission is uncertain only when
+// one of its tied minima sits at the emission offset.  Every window is
+// classified in parallel (unique: emit iff the argmin is at the offset;
+// tied with no minimum at the offset: no emission; else uncertain); one
+// thread per tied run that holds an uncertain window replays tracker_step
+// over that run from the unique window before it (or from the first
+// window), stepping only where the held minimum slides out.  A read tied
+// everywhere (a homopolymer, a short tandem repeat) is one run, replayed
+// serially and exactly in hops of up to w windows.
 #pragma once
 #include <cstdint>
 
@@ -19,15 +40,51 @@ __device__ __forceinline__ uint32_t base_at(const uint32_t* words, int i) {
   return (words[i >> 4] >> (2 * (i & 15))) & 3u;
 }
 
-// Runs the tracker over bases [0, len) of `words` and calls
-// emit(n, i, kmer) for the n-th emission, the canonical k-mer ending at
-// base i.  `ring` is 32 words of scratch (w = k-s+1 <= 31 s-mer ends stay
-// live).  Returns the number of emissions.  2 <= s <= 15, s < k <= 32,
-// 1 <= t <= k-s+1.
+// One step of the reference tracker at the window of the k-mer ending at
+// base i (i >= k-1): updates the held minimum value qv and its s-mer start
+// qp, and returns whether that k-mer is emitted.  ys(e) is the canonical
+// s-mer ending at base e, read for e in [i-w+1, i], w = k-s+1.
+template <class Ys>
+__device__ __forceinline__ bool tracker_step(int i, int k, int s, int t,
+                                             Ys&& ys, uint32_t& qv,
+                                             int& qp) {
+  const int w = k - s + 1;
+  if (i == k - 1) {  // first full window: leftmost minimum
+    qv = 0xFFFFFFFFu;
+    for (int j = 0; j < w; ++j) {
+      const uint32_t v = ys(s - 1 + j);
+      if (v < qv) {
+        qv = v;
+        qp = j;
+      }
+    }
+  } else if (qp == i - k) {  // the minimum slid out: rightmost minimum
+    qv = 0xFFFFFFFFu;
+    for (int j = w - 1; j >= 0; --j) {
+      const uint32_t v = ys(i - w + 1 + j);
+      if (v < qv) {
+        qv = v;
+        qp = i - k + 1 + j;
+      }
+    }
+  } else {  // only a strictly smaller newcomer takes over
+    const uint32_t y = ys(i);
+    if (y < qv) {
+      qv = y;
+      qp = i - s + 1;
+    }
+  }
+  return qp == i - k + t;
+}
+
+// Runs the tracker over bases [0, len) of `words` on the calling thread
+// and calls emit(n, i, kmer) for the n-th emission, the canonical k-mer
+// ending at base i.  `ring` is 32 words of scratch (w = k-s+1 <= 31 s-mer
+// ends stay live).  Returns the number of emissions.  2 <= s <= 15,
+// s < k <= 32, 1 <= t <= k-s+1.
 template <class Emit>
 __device__ int track_syncmers(const uint32_t* words, uint32_t* ring, int len,
                               int k, int s, int t, Emit&& emit) {
-  const int w = k - s + 1;
   const uint64_t kmask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
   const uint32_t smask = (1u << (2 * s)) - 1;
   const int kshift = 2 * (k - 1), sshift = 2 * (s - 1);
@@ -36,6 +93,7 @@ __device__ int track_syncmers(const uint32_t* words, uint32_t* ring, int len,
   uint32_t qv = 0xFFFFFFFFu;  // held minimum value ...
   int qp = -1;                // ... and its s-mer start
   int n = 0;
+  const auto ys = [&](int e) { return ring[e & 31]; };
   for (int i = 0; i < len; ++i) {
     if ((i & 15) == 0) word = words[i >> 4];
     const uint32_t c = (word >> (2 * (i & 15))) & 3u;
@@ -44,37 +102,139 @@ __device__ int track_syncmers(const uint32_t* words, uint32_t* ring, int len,
     xs0 = ((xs0 << 2) | c) & smask;
     xs1 = (xs1 >> 2) | ((3u - c) << sshift);
     if (i < s - 1) continue;
-    const uint32_t ys = min(xs0, xs1);
-    ring[i & 31] = ys;  // s-mer ending at i
+    ring[i & 31] = min(xs0, xs1);  // s-mer ending at i
     if (i < k - 1) continue;
-    if (i == k - 1) {  // first full window: leftmost minimum
-      qv = 0xFFFFFFFFu;
-      for (int j = 0; j < w; ++j) {
-        const uint32_t v = ring[(s - 1 + j) & 31];
-        if (v < qv) {
-          qv = v;
-          qp = j;
-        }
-      }
-    } else if (qp == i - k) {  // the minimum slid out: rightmost minimum
-      qv = 0xFFFFFFFFu;
-      for (int j = w - 1; j >= 0; --j) {
-        const uint32_t v = ring[(i - w + 1 + j) & 31];
-        if (v < qv) {
-          qv = v;
-          qp = i - k + 1 + j;
-        }
-      }
-    } else if (ys < qv) {  // only a strictly smaller newcomer takes over
-      qv = ys;
-      qp = i - s + 1;
-    }
-    if (qp == i - k + t) {
+    if (tracker_step(i, k, s, t, ys, qv, qp)) {
       emit(n, i, xk0 < xk1 ? xk0 : xk1);
       ++n;
     }
   }
   return n;
+}
+
+// ---------------------------------------------------- the decomposition --
+
+// Reads are staged with kBias zero bases (two words) before base 0 and two
+// zero words after the last, so every s-mer and k-mer is a funnel shift of
+// two or three staged words, bases before 0 reading as A.
+constexpr int kBias = 32;
+
+__host__ __device__ inline int staged_words(int L) { return L / 16 + 4; }
+
+// Reverses the 16 2-bit fields of x.
+__device__ __forceinline__ uint32_t rev2_32(uint32_t x) {
+  const uint32_t b = __brev(x);
+  return ((b >> 1) & 0x55555555u) | ((b & 0x55555555u) << 1);
+}
+
+// The staged words hold the oldest base lowest; the reference's forward
+// register holds the newest base lowest.  So for the m bases ending at i,
+// raw = the staged bits: reverse complement = ~raw (masked), forward =
+// the 2-bit fields of raw reversed.
+
+// Canonical s-mer ending at base i (s <= 15): two staged words.
+__device__ __forceinline__ uint32_t canon_smer(const uint32_t* sw, int i,
+                                               int s) {
+  const int q = i - s + 1 + kBias;
+  const uint32_t raw =
+      __funnelshift_r(sw[q >> 4], sw[(q >> 4) + 1], 2 * (q & 15));
+  const uint32_t smask = (1u << (2 * s)) - 1;
+  const uint32_t fwd = rev2_32(raw) >> (32 - 2 * s);
+  const uint32_t rc = ~raw & smask;
+  return fwd < rc ? fwd : rc;
+}
+
+// Canonical k-mer ending at base i (k <= 32): three staged words.
+__device__ __forceinline__ uint64_t canon_kmer(const uint32_t* sw, int i,
+                                               int k) {
+  const int q = i - k + 1 + kBias;
+  const uint32_t* p = sw + (q >> 4);
+  const int sh = 2 * (q & 15);
+  const uint32_t lo = __funnelshift_r(p[0], p[1], sh);
+  const uint32_t hi = __funnelshift_r(p[1], p[2], sh);
+  const uint64_t kmask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
+  const uint64_t rc = ~(((uint64_t)hi << 32) | lo) & kmask;
+  const uint64_t fwd =
+      (((uint64_t)rev2_32(lo) << 32) | rev2_32(hi)) >> (64 - 2 * k);
+  return fwd < rc ? fwd : rc;
+}
+
+// The outcome of the window of the k-mer ending at i (k-1 <= i < len),
+// from the canonical s-mers ys (indexed by end base): a direct scan for
+// the minimum and its leftmost and rightmost argmin.
+struct Window {
+  bool emit;       // unique minimum at the emission offset
+  bool tied;       // the minimum occurs more than once
+  bool uncertain;  // tied, and one of the minima is at the offset
+};
+
+__device__ __forceinline__ Window window_outcome(const uint32_t* ys, int i,
+                                                 int k, int s, int t) {
+  const int w = k - s + 1;
+  uint32_t m = 0xFFFFFFFFu;
+  int lm = 0, rm = 0;
+  for (int e = i - w + 1; e <= i; ++e) {
+    const uint32_t y = ys[e];
+    if (y < m) {
+      m = y;
+      lm = e;
+      rm = e;
+    } else if (y == m) {
+      rm = e;
+    }
+  }
+  const int off = i - w + t;  // end of the s-mer starting at i-k+t
+  const bool tied = lm != rm;
+  return {!tied && lm == off, tied, tied && ys[off] == m};
+}
+
+// Step 4: every maximal run of tied windows that holds an uncertain
+// window is replayed with tracker_step by one thread, from the unique
+// window before it (a held minimum that has just slid out rescans that
+// window, whose rightmost minimum is its only one) or from the first
+// window, up to its last uncertain window; emissions are OR-ed into emit.
+// Inside a tied run no newcomer is strictly smaller than the held minimum
+// (it would be its window's only minimum), so the holder changes only
+// where it slides out: the replay steps there, hops of up to w windows,
+// and marks the one window in between where the holder sits at the
+// offset.  tied, uncertain and emit are bit masks, bit i%32 of word i/32,
+// zero at every i outside [k-1, len).  Every thread of the block calls
+// it.
+__device__ inline void resolve_tied_runs(const uint32_t* ys,
+                                         const uint32_t* tied,
+                                         const uint32_t* uncertain,
+                                         uint32_t* emit, int len, int k,
+                                         int s, int t) {
+  const int nw = (len + 31) / 32;
+  for (int j = threadIdx.x; j < nw; j += blockDim.x) {
+    const uint32_t tj = tied[j];
+    uint32_t starts = tj & ~((tj << 1) | (j ? tied[j - 1] >> 31 : 0u));
+    while (starts) {
+      const int b = __ffs(starts) - 1;
+      starts &= starts - 1;
+      const int a = 32 * j + b;  // the run's first window
+      int last = -1;             // its last uncertain window
+      for (int q = j, lo = b; q < nw; ++q, lo = 0) {
+        const uint32_t from = ~0u << lo;
+        const uint32_t ends = ~tied[q] & from;
+        const uint32_t in_run =
+            ends ? from & ((1u << (__ffs(ends) - 1)) - 1u) : from;
+        const uint32_t u = uncertain[q] & in_run;
+        if (u) last = 32 * q + 31 - __clz(u);
+        if (ends) break;
+      }
+      if (last < 0) continue;
+      uint32_t qv = 0;
+      int qp = a - 1 - k;  // as if the held minimum had just slid out
+      const auto at = [&](int e) { return ys[e]; };
+      for (int i = a == k - 1 ? a : a - 1; i <= last; i = qp + k) {
+        if (tracker_step(i, k, s, t, at, qv, qp))
+          atomicOr(&emit[i >> 5], 1u << (i & 31));
+        const int e = qp + k - t;  // the window where the holder emits
+        if (e > i && e <= last) atomicOr(&emit[e >> 5], 1u << (e & 31));
+      }
+    }
+  }
 }
 
 }  // namespace taxor

@@ -12,7 +12,9 @@ first use (never at import) into ``taxor_tpu_torch/_build/``, which
 .gitignore lists; a library's name carries a hash of its sources, so an
 edited source rebuilds.  Each C launcher enqueues on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
-into an exception.
+into an exception.  ``syncmer_extract_smem`` is no launcher: it returns
+the shared memory K1 takes, so that its wrapper never repeats the
+kernel's layout.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ _SIGNATURES = {
     #  out_hi, out_lo, out_valid, n_unique, n_emit, stream)
     "launch_syncmer_extract": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                                _P, _P, _P, _P, _P, _P],
+    # (L, W, in_smem) -> K1's dynamic shared-memory bytes
+    "syncmer_extract_smem": [_I, _I, _I],
     # (hi, lo, valid, R, H, tables, G, S, Bpad, active, seed,
     #  block_length, out, stream)
     "launch_probe_count": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,

@@ -314,8 +314,8 @@ def extract_stage(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     """One stage of the syncmer extractor for packed reads uint8 [R, L/4]
     (pack_reads) and lengths int32 [R], in position order: bool [R, L]
     for ``emit``, else int64 [R, L] (csrc/diag/extract_stages.cu lists
-    the stages).  ``emit`` and ``pre`` run K1's tracker.  Kernel on CUDA,
-    twin on CPU."""
+    the stages).  ``emit`` and ``pre`` run the sequential reference
+    tracker of csrc/tracker.cuh.  Kernel on CUDA, twin on CPU."""
     if stage not in STAGES:
         raise ValueError(f"extract_stage: unknown stage {stage!r}")
     if packed.device.type == "cpu":

@@ -2,9 +2,11 @@
 
 Counterpart of ``taxor_tpu/device/pallas_extract.py`` (the Pallas
 ``_extract_kernel`` with the ``pallas_sort._bitonic_body`` network).
-The kernel (``csrc/extract.cu``) runs the reference's exact stateful
-tracker, so it needs neither the TPU kernel's tie flag nor the tie-rescue
-sub-batch of ``device/e2e.py``: n_emit is always the true count.
+The kernel (``csrc/extract.cu``) runs the reference's stateful tracker
+position-parallel and exact (windows classified in parallel, tied runs
+replayed in the kernel: ``csrc/tracker.cuh``), so it needs neither the
+TPU kernel's tie flag nor the tie-rescue sub-batch of ``device/e2e.py``:
+n_emit is always the true count.
 
 Contract of ``syncmer_hashes`` for packed reads uint8 [R, L/4]
 (``pack_reads`` layout) and lengths int32 [R]:
@@ -94,10 +96,10 @@ def syncmer_hashes(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     valid = torch.empty((R, hcap), dtype=torch.bool, device=dev)
     n_unique = torch.empty(R, dtype=torch.int32, device=dev)
     n_emit = torch.empty_like(n_unique)
-    scratch = None
-    if L // 4 + 144 + 8 * W > SMEM_LIMIT:  # csrc/extract.cu header_bytes
-        scratch = torch.empty((R, W), dtype=torch.int64, device=dev)
     lib = cuda_build.lib()
+    scratch = None
+    if lib.syncmer_extract_smem(L, W, 1) > SMEM_LIMIT:
+        scratch = torch.empty((R, W), dtype=torch.int64, device=dev)
     err = lib.launch_syncmer_extract(
         packed.data_ptr(), lengths.data_ptr(), R, L, k, s, t, hcap, W,
         None if scratch is None else scratch.data_ptr(),

@@ -28,12 +28,19 @@ def cuda():
 
 
 def reads(rng, L, n=12):
+    """Random reads plus the tracker's tied cases: a homopolymer run,
+    a tandem repeat, two-letter alphabets, a first window tied at every
+    offset, a homopolymer over the whole bucket."""
     seqs = [ACGT[rng.integers(0, 4, int(rng.integers(L // 2, L + 1)))]
             .tobytes() for _ in range(n)]
     arr = ACGT[rng.integers(0, 4, L)].copy()
     arr[10:60] = ord("A")
     arr[rng.integers(0, L, L // 40)] = ord("N")
-    return seqs + [arr.tobytes(), (b"ACGTTG" * L)[:L], b"", b"ACGT" * 5]
+    two = [np.frombuffer(p, np.uint8)[rng.integers(0, 2, L - 9)].tobytes()
+           for p in (b"AC", b"AT", b"CG")]
+    return seqs + two + [
+        arr.tobytes(), (b"ACGTTG" * L)[:L], b"", b"ACGT" * 5,
+        b"A" * 24 + ACGT[rng.integers(0, 4, L - 24)].tobytes(), b"G" * L]
 
 
 @pytest.mark.parametrize("L,k,s,t", [(256, 22, 12, 5), (4096, 22, 12, 5),

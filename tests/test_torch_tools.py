@@ -32,7 +32,8 @@ from taxor_tpu_torch.native.baseline import baseline_search
 from taxor_tpu_torch.search.thresholds import Thresholder
 from taxor_tpu_torch.tools import (bench, debug_extract, debug_min,
                                    probe_bounds, probe_experiments,
-                                   profile_phases, synth, timing)
+                                   profile_phases, synth, time_extract,
+                                   timing)
 
 from .test_torch_extract import reads as extract_reads
 from .util import make_reads, make_ref_set
@@ -407,6 +408,17 @@ def test_debug_tools_run_on_the_twins(capsys):
     out = capsys.readouterr().out
     assert out.count("kernel == twin: True") == 11
     assert "total diffs: 0" in out
+
+
+def test_time_extract_runs_on_the_twins(capsys):
+    assert time_extract.main(["--L", "256", "--reads", "3", "--device",
+                              "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and out["L"] == 256
+    for batch in ("random", "all_tied"):
+        assert out[batch]["equal"] and out[batch]["reads"] == 3
+        assert out[batch]["emissions"] > 0
+        assert out[batch]["syncmer_extract_ms"] > 0
 
 
 def test_profile_phases_on_the_twins():

@@ -21,30 +21,36 @@ Phases (any failure exits non-zero):
   3. the probe (K2, or K2n for tables of at most 512 bins) against its
      plain twin, bit-exact, at the flat geometries of the reference's
      five probe kernels, with invalid slots whose fingerprint is 0 and
-     per-bin counts above 256;
+     per-bin counts above 256; K2 through the variant its shape picks
+     (the slab route where a bin slab of the table fits a block's shared
+     memory, else the rows route) and, where that is the slab route,
+     through the rows route too; both variants must have run;
   4. the flat main path: a flat k=22/s=12 syncmer index of synthetic
      30 kb genomes built with ``taxor_tpu_torch.cli build``, ONT-like
      reads (log-normal lengths clipped to 500-30,000 bases, 4%
      substitutions) plus reads over L_CAP, searched with
-     ``taxor_tpu_torch.cli search --engine device``; K1 and K2 must have
-     launched, and the TSV must equal ``--engine host`` byte for byte on
+     ``taxor_tpu_torch.cli search --engine device``; K1 and K2's slab
+     route must have launched, and the TSV must equal ``--engine host``
+     byte for byte on
      a subset; then the same search with the split engine
      (``device.e2e.USE_FUSED_EXTRACT = False``), whose TSV must equal the
      K1 TSV on every read, with syncmer_track and K3 launched and K1 not;
-  5. K1 and K2 timed against their twins at the flat path's shapes, and
-     K1 on a batch tied in every window (its worst case);
+  5. K1 and K2 timed against their twins at the flat path's shapes (K2
+     through both variants, with its valid hashes, row bytes and GB/s of
+     rows), and K1 on a batch tied in every window (its worst case);
   6. K2n and K2 over stacked tables (G = 1 and 8) with a mixed activity
      mask against their twin, bit-exact, at 16..512 bins (K2n) and 4,096
-     bins (K2), with fingerprint-0 slots, counts above 256 and a read
-     inactive everywhere;
+     bins (K2, through both variants), with fingerprint-0 slots, counts
+     above 256 and a read inactive everywhere;
   7. the hierarchical main path: the same recipe on an index built with
      ``--layout auto --tmax 64`` (a 64-bin root); K1, the grouped probe
      and the per-IXF traversal of the reads over L_CAP must have
      launched, the TSV must equal ``--engine host`` on a subset, and 99%
      of the classified reads must name their source genome; then the
      split engine on the same reads, as in phase 4;
-  8. K2n and K2 timed against their twin on the root group and on one
-     stacked level at the hierarchical path's L=8192 bucket;
+  8. K2n and K2 (the variant each shape picks) timed against their twin
+     on the root group and on one stacked level at the hierarchical
+     path's L=8192 bucket;
   9. K4 (pair sort) against its twin, bit-exact, at W = 100, 128, 8192
      and 32768 (global scratch) with duplicated keys and keys equal to
      the sentinel; K3 on a row that breaks min_gap (n_emit = 2**30); and,
@@ -220,7 +226,7 @@ def check_k1(torch, dsync, extract, sort, rng) -> None:
 
 
 # ------------------------------------------------------------------ K2 --
-def check_k2(torch, probe, rng) -> None:
+def check_k2(torch, probe, rng) -> int:
     from taxor_tpu_torch.utils.u64np import fingerprint8, mix_split
 
     dev = torch.device("cuda")
@@ -234,6 +240,8 @@ def check_k2(torch, probe, rng) -> None:
              ("S+1>65536", "_kernel", 30000, 64),
              ("S+1>65536, B>=4096", "_kernel_wide", 22000, 4096)]
     R, H = 8, 2048
+    variants = probe.k2_counts.VARIANTS
+    start = dict(variants)
     for label, ref, bl, B in geoms:
         S_ = 3 * bl
         Bp = probe.pad_bins(B)
@@ -249,23 +257,48 @@ def check_k2(torch, probe, rng) -> None:
                 for x in (hi, lo, valid)]
         tbl = torch.from_numpy(table).to(dev)
         n2, n2n = probe.k2_counts.LAUNCHES, probe.k2n_counts.LAUNCHES
+        before = dict(variants)
         got = probe.probe_counts(*args, tbl, seed, bl)
         want = probe.probe_counts_plain(*args, tbl, seed, bl)
         torch.cuda.synchronize()
-        kernel = "K2n" if probe.k2n_counts.LAUNCHES > n2n else "K2"
-        assert probe.k2_counts.LAUNCHES + probe.k2n_counts.LAUNCHES \
-            == n2 + n2n + 1
+        grew = {v: n - before.get(v, 0) for v, n in variants.items()
+                if n != before.get(v, 0)}
+        one = (list(grew.values()) == [1] if probe.k2_counts.LAUNCHES > n2
+               else not grew)
+        if (probe.k2_counts.LAUNCHES + probe.k2n_counts.LAUNCHES
+                != n2 + n2n + 1 or not one):
+            raise AssertionError(
+                f"probe {label}: one call launched K2 "
+                f"{probe.k2_counts.LAUNCHES - n2} and K2n "
+                f"{probe.k2n_counts.LAUNCHES - n2n} times, K2 variants "
+                f"{grew}; expected one launch of one kernel")
+        kernel = "K2n" if probe.k2n_counts.LAUNCHES > n2n else \
+            f"K2 ({next(iter(grew))})"
         if not torch.equal(got, want):
-            raise AssertionError(f"K2 {label}: counts differ from the twin")
+            raise AssertionError(f"{kernel} {label}: counts differ from the "
+                                 "twin")
         if int(got.max()) <= 256 or int(got[1].abs().sum()) != 0:
             raise AssertionError(f"K2 {label}: case did not exercise "
                                  "counts > 256 / all-invalid reads")
+        also = ""
+        if kernel == "K2 (slab)":  # the same counts through the rows route
+            if not torch.equal(probe.k2_counts(*args, tbl[None], None, seed,
+                                               bl, variant="rows")[0], want):
+                raise AssertionError(f"K2 (rows) {label}: counts differ "
+                                     "from the twin")
+            also = "; K2 (rows) bit-exact too"
         log(f"{kernel} {label} (S={S_}, Bpad={Bp}; TPU {ref}): bit-exact vs "
-            f"twin, max count {int(got.max())}")
+            f"twin, max count {int(got.max())}{also}")
+    ran = {v: n - start.get(v, 0) for v, n in variants.items()}
+    if not (ran.get("slab", 0) > 0 and ran.get("rows", 0) > 0):
+        raise AssertionError(f"phase 3 did not run both K2 variants: {ran}")
+    log(f"phase 3: K2 launches by variant {ran}")
+    return ran["rows"]
 
 
-def check_grouped(torch, probe, rng) -> None:
-    """K2n and K2 over G stacked tables with a mixed activity mask."""
+def check_grouped(torch, probe, rng) -> int:
+    """K2n and K2 over G stacked tables with a mixed activity mask;
+    returns the launches of K2's rows route."""
     from taxor_tpu_torch.utils.u64np import fingerprint8, mix_split
 
     dev = torch.device("cuda")
@@ -281,6 +314,7 @@ def check_grouped(torch, probe, rng) -> None:
     lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
     args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             for x in (hi, lo, valid)]
+    start = dict(probe.k2_counts.VARIANTS)
     for Bp in (16, 64, 128, 512, 4096):
         kernel = (probe.k2n_counts if Bp <= probe.NARROW_MAX_BINS
                   else probe.k2_counts)
@@ -299,15 +333,27 @@ def check_grouped(torch, probe, rng) -> None:
             if kernel.LAUNCHES != n + 1 or not torch.equal(got, want):
                 raise AssertionError(f"grouped probe Bpad={Bp} G={G}: "
                                      "kernel differs from the twin")
+            if kernel is probe.k2_counts and not torch.equal(
+                    probe.k2_counts(*args, tb, act, seed, bl,
+                                    variant="rows"), want):
+                raise AssertionError(f"grouped K2 (rows) Bpad={Bp} G={G}: "
+                                     "kernel differs from the twin")
             if (int(got[:, 0].max()) <= 256
                     or int(got[:, R - 1].abs().sum()) != 0):
                 raise AssertionError(f"grouped probe Bpad={Bp} G={G}: case "
                                      "did not exercise counts > 256 / "
                                      "inactive reads")
-            name = "K2n" if kernel is probe.k2n_counts else "K2"
+            name = ("K2n" if kernel is probe.k2n_counts else
+                    f"K2 (slab of {probe.slab_bins(3 * bl, Bp, dev)} bins, "
+                    "and rows)")
             log(f"{name} grouped Bpad={Bp} G={G} (S={3 * bl}, R={R}, H={H}, "
                 f"{int(active.sum())}/{G * R} active): bit-exact vs twin, "
                 f"max count {int(got.max())}")
+    ran = {v: n - start.get(v, 0) for v, n in probe.k2_counts.VARIANTS.items()}
+    if not (ran.get("slab", 0) > 0 and ran.get("rows", 0) > 0):
+        raise AssertionError(f"phase 6 did not run both K2 variants: {ran}")
+    log(f"phase 6: K2 launches by variant {ran}")
+    return ran["rows"]
 
 
 # ------------------------------------------------------------- K3, K4 --
@@ -418,12 +464,15 @@ def reset_counts(extract, probe, sort, pipeline) -> None:
     for k in (probe.k2_counts, probe.k2n_counts):
         k.LAUNCHES = 0
         k.ROUTES = {}
+    probe.k2_counts.VARIANTS = {}
     pipeline.ROUTES.reset()
 
 
 def read_counts(extract, probe, sort) -> dict:
     return {"K1": extract.syncmer_hashes.LAUNCHES,
             "K2": probe.k2_counts.LAUNCHES, "K2n": probe.k2n_counts.LAUNCHES,
+            "K2 slab": probe.k2_counts.VARIANTS.get("slab", 0),
+            "K2 rows": probe.k2_counts.VARIANTS.get("rows", 0),
             "track": extract.syncmer_track.LAUNCHES,
             "K3": sort.dedup_fused.LAUNCHES, "K4": sort.sort_pairs.LAUNCHES,
             "K2 routes": dict(probe.k2_counts.ROUTES),
@@ -489,6 +538,9 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
         raise RuntimeError(f"device search failed ({rc})")
     if launches["K1"] <= 0 or launches["K2"] + launches["K2n"] <= 0:
         raise AssertionError(f"main path skipped a kernel: {launches}")
+    if layout == "flat" and launches["K2 slab"] <= 0:
+        raise AssertionError(f"the flat path did not take K2's slab route: "
+                             f"{launches}")
     with open(out_dev + ".time") as fh:
         phases = fh.read().strip().replace("\n", " | ")
     n_total = len(recs)
@@ -687,20 +739,29 @@ def time_kernels(torch, state) -> list[dict]:
             + sort_ops(n_emit.clamp(max=W).tolist()) + R * H,
             PEAK_SCALAR),
         # hashes in, the table once, counts out; one fingerprint-byte
-        # compare per valid hash and bin
+        # compare per valid hash and bin (either variant of K2)
         "probe_count": bound(9 * R * H + S_ * Bp + 4 * R * Bp,
                              float(valid.sum()) * Bp, PEAK_INT8)}
+    bounds["probe_count_rows"] = bounds["probe_count"]
+    tables = dh.table[None]
     k2 = lambda: probe.probe_counts(hi, lo, valid, dh.table,  # noqa: E731
                                     dh.seed, dh.block_length)
+    k2r = lambda: probe.k2_counts(hi, lo, valid, tables, None,  # noqa: E731
+                                  dh.seed, dh.block_length,
+                                  variant="rows")[0]
     k2p = lambda: probe.probe_counts_plain(hi, lo, valid,  # noqa: E731
                                            dh.table, dh.seed,
                                            dh.block_length)
+    n_valid = int(valid.sum())
+    row_bytes = 3 * n_valid * Bp  # the table rows the probe reads
     rows = []
     for name, src, rep, fn, plain, reps in (
             ("syncmer_extract", "taxor_tpu_torch/csrc/extract.cu",
              "taxor_tpu/device/pallas_extract.py:160", k1, k1p, 5),
-            ("probe_count", "taxor_tpu_torch/csrc/probe.cu",
-             "taxor_tpu/device/pallas_probe.py:257", k2, k2p, 20)):
+            ("probe_count", "taxor_tpu_torch/csrc/probe_slab.cu",
+             "taxor_tpu/device/pallas_probe.py:257", k2, k2p, 20),
+            ("probe_count_rows", "taxor_tpu_torch/csrc/probe.cu",
+             "taxor_tpu/device/pallas_probe.py:257", k2r, k2p, 20)):
         ms, plain_ms, err, each = time_pair(torch, fn, plain, reps)
         log(f"time {name} at R={len(seqs)}, L={L}, H={hcap}, table "
             f"{tuple(dh.table.shape)}: kernel {each[0]:.4f}/{each[1]:.4f} "
@@ -709,6 +770,17 @@ def time_kernels(torch, state) -> list[dict]:
                      "replaces": rep, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, **bounds[name],
                      "library_ms": None})
+        if name.startswith("probe_count"):
+            rows[-1].update(valid_hashes=n_valid, row_bytes=row_bytes,
+                            rows_gbps=row_bytes / ms / 1e6)
+    rows[1]["slab_bins"] = probe.slab_bins(S_, Bp, dev)
+    log(f"time K2 at the flat table [{S_}, {Bp}]: {n_valid} valid hashes "
+        f"({n_valid / R:.1f} a read), {row_bytes / 1e9:.3f} GB of rows; slab "
+        f"route ({rows[1]['slab_bins']} bins a slab) {rows[1]['ms']:.4f} ms "
+        f"= {rows[1]['rows_gbps']:.1f} GB/s of rows from shared memory; rows "
+        f"route {rows[2]['ms']:.4f} ms = {rows[2]['rows_gbps']:.1f} GB/s "
+        f"from L2; bound {rows[1]['bound_ms']:.4f} ms "
+        f"({rows[1]['bound_by']})")
     state["k1_ms"] = rows[0]["ms"]
 
     # the worst case: every window of every read tied
@@ -855,6 +927,9 @@ def time_hier(torch, state) -> list[dict]:
                            ("probe_count", probe.k2_counts)):
             ms, plain_ms, err, each = time_pair(
                 torch, lambda: kern(*a), plain, 20)  # noqa: B023
+            if kern is probe.k2_counts:
+                b = probe.slab_bins(*g["tables"].shape[1:], dev)
+                name += f" ({f'slab of {b} bins' if b else 'rows'})"
             log(f"time {name} on the {label} group at R={len(seqs)}, "
                 f"L={L}, H={hcap}, tables {tuple(g['tables'].shape)}, "
                 f"{int(act.sum())}/{act.numel()} (subgroup, read) pairs "
@@ -1179,7 +1254,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     check_k1(torch, dsync, extract, sort, rng)
-    check_k2(torch, probe, rng)
+    k2_rows_checks = check_k2(torch, probe, rng)
     check_sorts(torch, sort, rng)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "taxor_tpu_torch", "_build")
@@ -1191,7 +1266,7 @@ def main() -> int:
         kernels = time_kernels(torch, flat)
         kernels += time_split(torch, flat)
         shutil.rmtree(os.path.join(work, "flat"), ignore_errors=True)
-        check_grouped(torch, probe, rng)
+        k2_rows_checks += check_grouped(torch, probe, rng)
         hier = main_path(torch, os.path.join(work, "hier"), rng,
                          args.hier_genomes, args.hier_reads, "auto")
         hier_report(torch, hier)
@@ -1199,15 +1274,19 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for row in kernels:  # launches on both main paths, both engines
-        key = {"syncmer_extract": "K1", "probe_count": "K2",
-               "probe_count_narrow": "K2n", "syncmer_track": "track",
-               "dedup": "K3", "sort_pairs": "K4"}[row["name"]]
+        key = {"syncmer_extract": "K1", "probe_count": "K2 slab",
+               "probe_count_rows": "K2 rows", "probe_count_narrow": "K2n",
+               "syncmer_track": "track", "dedup": "K3",
+               "sort_pairs": "K4"}[row["name"]]
         row["launches"] = sum(run[key] for path in (flat, hier)
                               for run in (path["launches"], path["split"]))
         row["launches_in"] = "main paths"
         if key == "K4":  # as in the JAX package, no search path sorts pairs
             row["launches_in"] = "not on a main path"
             row["check_launches"] = flat["k4_check"]  # sort.dedup_pairs
+        if key == "K2 rows" and row["launches"] == 0:  # no table too tall
+            row["launches_in"] = "not on a main path"
+            row["check_launches"] = k2_rows_checks  # phases 3 and 6
 
     # ---- phases 11 and 12: the diagnostic kernels and the tooling path
     from taxor_tpu_torch.device import diag
@@ -1232,7 +1311,8 @@ def main() -> int:
                    tool_launches=tools[row["name"]],
                    check_launches=checks[row["name"]])
         kernels.append(row)
-    if any(r["launches"] <= 0 for r in kernels if r["name"] != "sort_pairs"):
+    if any(r["launches"] <= 0 for r in kernels
+           if r["launches_in"] != "not on a main path"):
         raise AssertionError(f"a kernel never launched on its path: "
                              f"{kernels}")
     print(json.dumps({"kernels": kernels}))

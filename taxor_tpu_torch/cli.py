@@ -42,9 +42,26 @@ def _add_build(sub):
     p.add_argument("--layout", default="auto", choices=["auto", "flat"],
                    help="layout algorithm (auto = hierarchical DP, flat = "
                         "one IXF)")
+    p.add_argument("--layout-cost", default="cpu",
+                   choices=["cpu", "device"],
+                   help="layout scoring model: cpu = reference-style "
+                        "expected query cost; device = the JAX package's "
+                        "TPU probe-pass model (hixf/binning.py), which may "
+                        "choose a flat layout")
     p.add_argument("--tmax", type=int, default=4096)
+    p.add_argument("--spill-dir", default="",
+                   help="spill per-genome hash sets to this directory to "
+                        "bound peak RAM (GTDB-scale builds)")
     p.add_argument("--output-verbose-statistics", action="store_true",
                    help="Enable verbose statistics to be printed")
+    p.add_argument("--count-output-prefix", default="chopper",
+                   help="prefix for the counting-stage artifacts "
+                        "(<prefix>.count + <prefix>_sketches/); '' "
+                        "disables them")
+    p.add_argument("--resume", action="store_true",
+                   help="reuse an existing layout file (binning.out) "
+                        "instead of recounting and re-running the layout "
+                        "DP")
     return p
 
 
@@ -179,8 +196,12 @@ def _run(args) -> None:
             threads=args.threads,
             use_syncmer=args.use_syncmer,
             layout_mode=args.layout,
+            layout_cost=args.layout_cost,
             tmax=args.tmax,
+            spill_dir=args.spill_dir,
             verbose_stats=args.output_verbose_statistics,
+            count_output_prefix=args.count_output_prefix,
+            resume=args.resume,
         ))
     elif args.command == "search":
         from .search.pipeline import SearchConfig, run_search
@@ -223,6 +244,9 @@ def main(argv: list[str] | None = None) -> int:
     _add_search(sub)
     _add_profile(sub)
     _add_prewarm(sub)
+    parser.add_argument("--verbose", "-v", action="store_true",
+                        help="accepted for parity with the JAX CLI; no "
+                             "module of this package logs at debug level")
     args = parser.parse_args(argv)
 
     t0 = time.process_time()

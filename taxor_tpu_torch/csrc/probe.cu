@@ -8,16 +8,20 @@
 // differ only in how the TPU's SMEM/VMEM were fed: _kernel_p10x2
 // (_probe_call_p10x2 via _probe_call_chunked_p10), _kernel_p16
 // (_probe_call_p16), _kernel_wide_p16 (_probe_call_wide_p16), _kernel
-// (_probe_call) and _kernel_wide (_probe_call_wide).  One kernel serves
-// every geometry: any S addressable with int32 positions, any B.  The
-// group axis replaces the lax.scan over the stacked subgroups of one
-// descent level (taxor_tpu/device/e2e.py make_hixf_e2e_grouped_fn), and
-// the activity mask the zero trip counts of inactive reads
-// (pallas_probe._body_counts): a read inactive in table g writes zeros
-// and stages no hash.  Tables of at most 512 bins take K2n instead
-// (probe_narrow.cu).
+// (_probe_call) and _kernel_wide (_probe_call_wide).  The group axis
+// replaces the lax.scan over the stacked subgroups of one descent level
+// (taxor_tpu/device/e2e.py make_hixf_e2e_grouped_fn), and the activity
+// mask the zero trip counts of inactive reads (pallas_probe._body_counts):
+// a read inactive in table g writes zeros and stages no hash.  Tables of
+// at most 512 bins take K2n instead (probe_narrow.cu).
 //
-// The kernel computes each hash's probe slots and fingerprint itself
+// Two routes, chosen by shape alone (probe_slab_bins in probe_slab.cu):
+// where an [S, 16]-byte slab of the table fits one block's shared memory
+// the slab route (probe_slab.cu) holds the table on chip one bin slab at a
+// time, the Hopper form of the TPU kernels' VMEM bin tile; elsewhere (S
+// above ~14,500 slots) this file's rows route reads the rows from L2.
+//
+// The rows route computes each hash's probe slots and fingerprint itself
 // (probe_stage.cuh).  Invalid slots are dropped when a tile is staged, so
 // there is no sentinel row, no poison fingerprint and no packed positions.
 //
@@ -28,11 +32,9 @@
 // shared memory; then every thread XORs 3 table words per hash and counts
 // zero bytes.
 //
-// What bounds it on the H100: fingerprint-row bytes, 3 rows x Bpad bytes
-// per valid hash, from L2 (a flat table of a few tens of MB stays in the
-// 50 MB L2) or HBM.  Left for later: 16-byte loads with 16 bins per
-// thread, shared-memory table tiles reused across several reads of a
-// block, cp.async/TMA prefetch of the rows of the next hashes.
+// What bounds the rows route on the H100: fingerprint-row bytes, 3 rows x
+// Bpad bytes per valid hash, from L2 (a flat table of a few tens of MB
+// stays in the 50 MB L2) or HBM, with no reuse on chip.
 
 #include <cuda_runtime.h>
 
@@ -88,15 +90,31 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(
 
 }  // namespace
 
+extern "C" int launch_probe_slab(const void* hi, const void* lo,
+                                 const void* valid, int R, int H,
+                                 const void* table, int G, int S, int Bpad,
+                                 const void* active, uint64_t seed,
+                                 uint32_t block_length, int slab_bins,
+                                 void* rec, void* nrec, void* out,
+                                 void* stream);
+
 // tables: G contiguous uint8 [S, Bpad] tables; active: uint8 [G, R] or
-// null (every read active); out: int32 [G, R, Bpad].
+// null (every read active); out: int32 [G, R, Bpad].  slab_bins 0 takes
+// the rows route, else the slab route with slabs of slab_bins bins
+// (probe_slab_bins) and the scratch rec (uint64 [R, H]) and nrec (int32
+// [R]).
 extern "C" int launch_probe_count(const void* hi, const void* lo,
                                   const void* valid, int R, int H,
                                   const void* table, int G, int S, int Bpad,
                                   const void* active, uint64_t seed,
-                                  uint32_t block_length, void* out,
+                                  uint32_t block_length, int slab_bins,
+                                  void* rec, void* nrec, void* out,
                                   void* stream) {
   if (R == 0 || G == 0) return 0;
+  if (slab_bins != 0)
+    return launch_probe_slab(hi, lo, valid, R, H, table, G, S, Bpad, active,
+                             seed, block_length, slab_bins, rec, nrec, out,
+                             stream);
   const int B4 = Bpad / 4;
   const dim3 grid(R, (B4 + kThreads - 1) / kThreads, G);
   probe_count_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(

@@ -1,7 +1,8 @@
-// Hash staging shared by the probe kernels K2 (probe.cu) and K2n
-// (probe_narrow.cu): a block computes the probe slots and fingerprints of
-// the valid hash slots of one read into shared memory, compacted in slot
-// order with warp ballots, exactly as ixf/xor_filter.compute_probes does:
+// Hash staging shared by the probe kernels K2 (probe.cu; probe_slab.cu
+// uses probe_slots for its records) and K2n (probe_narrow.cu): a block
+// computes the probe slots and fingerprints of the valid hash slots of one
+// read into shared memory, compacted in slot order with warp ballots,
+// exactly as ixf/xor_filter.compute_probes does:
 // m = murmur64(h + seed), p_i = reduce32(uint32(rotl64(m, 21 i)), bl) +
 // i bl, fprint = uint8(m ^ m >> 32), replicated into the 4 bytes of f4.
 #pragma once
@@ -10,6 +11,19 @@
 #include "u64.cuh"
 
 namespace taxor {
+
+// The probe slots and the fingerprint byte of one key, as
+// ixf/xor_filter.compute_probes computes them.
+__device__ __forceinline__ void probe_slots(uint64_t key, uint64_t seed,
+                                            uint32_t bl, uint32_t& p0,
+                                            uint32_t& p1, uint32_t& p2,
+                                            uint32_t& fp) {
+  const uint64_t m = murmur64(key + seed);
+  p0 = reduce32(m, bl);
+  p1 = reduce32(rotl64(m, 21), bl) + bl;
+  p2 = reduce32(rotl64(m, 42), bl) + 2 * bl;
+  fp = (uint32_t)((m ^ (m >> 32)) & 0xFFu);
+}
 
 // Stages the valid slots of [h, H) of row `row0` until the next round of
 // kThreads slots would overflow kTile; advances h and returns how many
@@ -36,11 +50,12 @@ __device__ __forceinline__ int stage_probes(
       const int e = off + __popc(ballot & ((1u << lane) - 1));
       const uint64_t key = ((uint64_t)(uint32_t)hi[row0 + j] << 32) |
                            (uint32_t)lo[row0 + j];
-      const uint64_t m = murmur64(key + seed);
-      p0[e] = (int)reduce32(m, bl);
-      p1[e] = (int)(reduce32(rotl64(m, 21), bl) + bl);
-      p2[e] = (int)(reduce32(rotl64(m, 42), bl) + 2 * bl);
-      f4[e] = (uint32_t)((m ^ (m >> 32)) & 0xFFu) * 0x01010101u;
+      uint32_t q0, q1, q2, fp;
+      probe_slots(key, seed, bl, q0, q1, q2, fp);
+      p0[e] = (int)q0;
+      p1[e] = (int)q1;
+      p2[e] = (int)q2;
+      f4[e] = fp * 0x01010101u;
     }
     n += total;
     h += kThreads;

@@ -12,9 +12,10 @@ first use (never at import) into ``taxor_tpu_torch/_build/``, which
 .gitignore lists; a library's name carries a hash of its sources, so an
 edited source rebuilds.  Each C launcher enqueues on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
-into an exception.  ``syncmer_extract_smem`` is no launcher: it returns
-the shared memory K1 takes, so that its wrapper never repeats the
-kernel's layout.
+into an exception.  ``syncmer_extract_smem`` and ``probe_slab_bins`` are
+no launchers: they return the shared memory K1 takes and the slab width
+of K2's slab route (0 for its rows route), so that the wrappers never
+repeat a kernel's layout.
 """
 
 from __future__ import annotations
@@ -47,9 +48,12 @@ _SIGNATURES = {
     # (L, W, in_smem) -> K1's dynamic shared-memory bytes
     "syncmer_extract_smem": [_I, _I, _I],
     # (hi, lo, valid, R, H, tables, G, S, Bpad, active, seed,
-    #  block_length, out, stream)
+    #  block_length, slab_bins, rec, nrec, out, stream)
     "launch_probe_count": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
-                           ctypes.c_uint64, ctypes.c_uint32, _P, _P],
+                           ctypes.c_uint64, ctypes.c_uint32, _I, _P, _P, _P,
+                           _P],
+    # (S, Bpad, device) -> K2's slab width in bins, 0: the rows route
+    "probe_slab_bins": [_I, _I, _I],
     "launch_probe_count_narrow": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                                   ctypes.c_uint64, ctypes.c_uint32, _P, _P],
     # (packed, lengths, R, L, k, s, t, out_kmer, out_emit, stream)
@@ -176,10 +180,14 @@ def stream_of(t) -> int:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, route: str | None = None) -> None:
-    """wrapper.LAUNCHES += 1, and wrapper.ROUTES[route] += 1 for a named
-    route, under a lock: pipeline workers launch from several threads."""
+def count_launch(wrapper, route: str | None = None,
+                 variant: str | None = None) -> None:
+    """wrapper.LAUNCHES += 1, wrapper.ROUTES[route] += 1 for a named
+    route and wrapper.VARIANTS[variant] += 1 for a named kernel variant,
+    under a lock: pipeline workers launch from several threads."""
     with _COUNT_LOCK:
         wrapper.LAUNCHES += 1
         if route is not None:
             wrapper.ROUTES[route] = wrapper.ROUTES.get(route, 0) + 1
+        if variant is not None:
+            wrapper.VARIANTS[variant] = wrapper.VARIANTS.get(variant, 0) + 1

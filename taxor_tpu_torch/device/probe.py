@@ -20,9 +20,12 @@ replaces the TPU's ``lax.scan`` over stacked subgroups and its zero trip
 counts (``pallas_probe._body_counts``).  ``probe_counts`` is its G = 1,
 all-active case.  On a CUDA tensor a table of at most ``NARROW_MAX_BINS``
 bins goes to K2n (``csrc/probe_narrow.cu``, the port of
-``pallas_probe._kernel_repl``) and a wider one to K2
-(``csrc/probe.cu``, the port of the other five probe kernels); on a CPU
-tensor both take the gather twin.
+``pallas_probe._kernel_repl``) and a wider one to K2, the port of the
+other five probe kernels; on a CPU tensor both take the gather twin.  K2
+has two variants, chosen by the shape (``slab_bins``): the slab route
+(``csrc/probe_slab.cu``) holds the table in shared memory one bin slab
+at a time, as the TPU kernels held a bin tile in VMEM, where a slab fits
+one block; the rows route (``csrc/probe.cu``) reads the rows from L2.
 """
 
 from __future__ import annotations
@@ -104,9 +107,11 @@ def probe_counts_plain(hi, lo, valid, table, seed: int, block_length: int):
 
 
 def _launch(name: str, hi, lo, valid, tables, active, seed: int,
-            block_length: int) -> torch.Tensor:
+            block_length: int, slab: int | None = None) -> torch.Tensor:
     """Check the inputs of kernel ``name`` (launch_probe_count or
-    launch_probe_count_narrow) and launch it; int32 [G, R, Bpad]."""
+    launch_probe_count_narrow) and launch it; int32 [G, R, Bpad].  ``slab``:
+    launch_probe_count's slab width (0: the rows route); the scratch of the
+    slab route's records is allocated here."""
     if tables.dtype != torch.uint8 or tables.dim() != 3:
         raise ValueError(f"{name}: tables must be uint8 [G, S, Bpad]")
     G, S, Bp = tables.shape
@@ -131,26 +136,65 @@ def _launch(name: str, hi, lo, valid, tables, active, seed: int,
         raise ValueError(f"{name}: block_length {block_length} does not "
                          f"fit {S} slots")
     out = torch.empty((G, R, Bp), dtype=torch.int32, device=tables.device)
+    extra = ()  # launch_probe_count's (slab_bins, rec, nrec)
+    if slab is not None:
+        rec = nrec = None
+        if slab:
+            if Bp % 16 or tables.data_ptr() % 16:
+                raise ValueError(f"{name}: the slab route takes a Bpad that "
+                                 "is a multiple of 16 on 16-byte aligned "
+                                 "rows")
+            rec = torch.empty((R, H), dtype=torch.int64, device=out.device)
+            nrec = torch.empty(R, dtype=torch.int32, device=out.device)
+        extra = (slab, *(None if x is None else x.data_ptr()
+                         for x in (rec, nrec)))
     err = getattr(cuda_build.lib(), name)(
         hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, H,
         tables.data_ptr(), G, S, Bp,
         None if active is None else active.data_ptr(),
-        int(seed) & (2**64 - 1), int(block_length), out.data_ptr(),
+        int(seed) & (2**64 - 1), int(block_length), *extra, out.data_ptr(),
         cuda_build.stream_of(tables))
     cuda_build.check(err, name)
     return out
 
 
+def slab_bins(S: int, Bpad: int, device: torch.device) -> int:
+    """Slab width in bins of K2's slab route for tables [S, Bpad] on CUDA
+    ``device`` (probe_slab_bins of csrc/probe_slab.cu: the widest of 128,
+    64, 32 and 16 bins whose [S, b] slab fits one block's shared memory);
+    0 where none fits, the rows route.  A function of the shape and of the
+    card's shared memory a block, never of a launch's outcome."""
+    idx = torch.device(device).index
+    b = cuda_build.lib().probe_slab_bins(
+        S, Bpad, torch.cuda.current_device() if idx is None else idx)
+    if b < 0:
+        raise RuntimeError("probe_slab_bins: CUDA error")
+    return b
+
+
 def k2_counts(hi, lo, valid, tables, active, seed: int, block_length: int,
-              route: str | None = None) -> torch.Tensor:
-    """K2 (csrc/probe.cu) on CUDA tensors: int32 [G, R, Bpad] counts of a
-    stack of tables uint8 [G, S, Bpad] of any width; active bool [G, R]
-    or None (every read active).  route: the caller's route, counted in
-    k2_counts.ROUTES beside k2_counts.LAUNCHES."""
+              route: str | None = None,
+              variant: str | None = None) -> torch.Tensor:
+    """K2 on CUDA tensors: int32 [G, R, Bpad] counts of a stack of tables
+    uint8 [G, S, Bpad] of any width; active bool [G, R] or None (every
+    read active).  The shape picks the variant: "slab" (csrc/probe_slab.cu,
+    the table in shared memory one bin slab at a time) where slab_bins
+    finds a slab that fits, else "rows" (csrc/probe.cu, rows from L2).
+    ``variant`` forces one ("slab" raises where no slab fits).  route: the
+    caller's route, counted in k2_counts.ROUTES; the variant in
+    k2_counts.VARIANTS, both beside k2_counts.LAUNCHES."""
+    if variant not in (None, "slab", "rows"):
+        raise ValueError(f"k2_counts: unknown variant {variant!r}")
+    b = 0
+    if variant != "rows" and tables.dim() == 3:
+        b = slab_bins(tables.shape[1], tables.shape[2], tables.device)
+        if variant == "slab" and not b:
+            raise ValueError(f"k2_counts: no slab of tables "
+                             f"{list(tables.shape)} fits shared memory")
     out = _launch("launch_probe_count", hi, lo, valid, tables, active, seed,
-                  block_length)
+                  block_length, b)
     if out.numel():
-        cuda_build.count_launch(k2_counts, route)
+        cuda_build.count_launch(k2_counts, route, "slab" if b else "rows")
     return out
 
 
@@ -170,6 +214,7 @@ def k2n_counts(hi, lo, valid, tables, active, seed: int, block_length: int,
 
 k2_counts.LAUNCHES = k2n_counts.LAUNCHES = 0
 k2_counts.ROUTES, k2n_counts.ROUTES = {}, {}
+k2_counts.VARIANTS = {}
 
 
 def probe_counts_grouped(hi: torch.Tensor, lo: torch.Tensor,

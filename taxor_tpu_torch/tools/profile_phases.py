@@ -11,7 +11,10 @@ timed by ``tools/timing.rolled_ms`` on device-resident inputs:
   B   syncmer_track + K3 dedup_fused
   F   K1 syncmer_hashes (extraction, dedup and wyhash: the production
       extraction)
-  C   K2 probe_counts on K1's hashes
+  C   the probe (probe_counts) on K1's hashes: K2n for a table of at
+      most 512 bins (this problem's [2418, 256]), K2 for a wider one;
+      ``C_kernel`` names the kernel that launched (and K2's variant), read
+      from the wrappers' launch counts, "plain twin" on the CPU
   C2  wyhash + probe positions of the sorted k-mers as tensor ops
   D   the full flat fused step (device/e2e.fused_e2e_step)
 
@@ -19,7 +22,7 @@ and unaccounted = D - F - C - C2.  K1 hashes and K2 computes the probe
 positions inside the kernels, so C2 is work that F and C already hold:
 the line D - F - C beside it is what the step spends outside its two
 kernels (run sums, top-k, launches).  One line per phase goes to stderr,
-then one JSON object of the milliseconds to stdout.
+then one JSON object of the milliseconds (and ``C_kernel``) to stdout.
 """
 
 from __future__ import annotations
@@ -40,6 +43,20 @@ from ..utils.u64 import probe_positions_and_fprint4, wyhash64
 from . import synth
 from .bench import build_index, log
 from .timing import rolled_ms
+
+
+def probe_kernel(fn) -> str:
+    """Call fn() and name the probe kernel it launched, from the launch
+    counts of k2_counts and k2n_counts before and after."""
+    k2, k2n = probe.k2_counts, probe.k2n_counts
+    before = k2.LAUNCHES, k2n.LAUNCHES, dict(k2.VARIANTS)
+    fn()
+    if k2n.LAUNCHES > before[1]:
+        return "K2n"
+    if k2.LAUNCHES > before[0]:
+        grew = [v for v, n in k2.VARIANTS.items() if n > before[2].get(v, 0)]
+        return f"K2 ({'+'.join(sorted(grew))})"
+    return "plain twin"
 
 
 def profile(device="cuda", problem: dict | None = None) -> dict:
@@ -75,10 +92,12 @@ def profile(device="cuda", problem: dict | None = None) -> dict:
 
     hi, lo, valid, _, _ = extract.syncmer_hashes(pr, ln, k, s, t, hcap)
     nvalid = int(valid.sum())
+    ms["C_kernel"] = probe_kernel(lambda: probe.probe_counts(
+        hi, lo, valid, dh.table, dh.seed, dh.block_length))
     ms["C"] = rolled_ms(lambda h, l, v: probe.probe_counts(
         h, l, v, dh.table, dh.seed, dh.block_length), hi, lo, valid)
     row_bytes = nvalid * 3 * dh.table.shape[1]
-    log(f"C K2 probe               {ms['C']:9.4f} ms/pass ({nvalid} valid "
+    log(f"C {ms['C_kernel']:22s}{ms['C']:9.4f} ms/pass ({nvalid} valid "
         f"hashes, {nvalid / R:.0f}/read; {row_bytes / ms['C'] / 1e6:.1f} "
         f"GB/s of table rows)")
     srt, _, _, _ = sort.dedup_fused(*extract.syncmer_track(pr, ln, k, s, t),

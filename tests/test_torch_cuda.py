@@ -209,6 +209,60 @@ def test_grouped_probe_matches_twin(cuda, bins, G):
         assert torch.equal(probe.k2_counts(*args, seed, bl), want)
 
 
+@pytest.mark.parametrize("variant", ["slab", "rows"])
+@pytest.mark.parametrize("bl,bins,G", [(1203, 4096, 1), (1000, 1000, 8),
+                                       (300, 1000, 8), (3000, 4096, 8),
+                                       (2000, 5000, 1), (134, 16384, 1)])
+def test_k2_routes_match_twin(cuda, variant, bl, bins, G):
+    """Both K2 routes over G stacked tables: a read of 2,048 valid
+    fingerprint-0 hashes (counts above 256 in the zero columns, several
+    flushes of the slab route's byte counters), invalid fingerprint-0
+    slots, a mixed activity mask and a read inactive everywhere."""
+    from taxor_tpu_torch.utils.u64np import fingerprint8, mix_split
+
+    rng = np.random.default_rng(bins + G)
+    R, H = 40, 2048
+    Bp = probe.pad_bins(bins)
+    tables = rng.integers(0, 256, (G, 3 * bl, Bp), dtype=np.uint8)
+    tables[:, :, ::7] = 0
+    seed = int(rng.integers(0, 2**63))
+    pool = rng.integers(0, 2**64, 1 << 21, dtype=np.uint64)
+    zero = pool[fingerprint8(mix_split(pool, seed)) == 0]
+    keys = rng.integers(0, 2**64, (R, H), dtype=np.uint64)
+    keys[0], keys[1] = zero[:H], zero[H:2 * H]
+    valid = rng.random((R, H)) < 0.3
+    valid[0], valid[1] = True, False  # read 1: fingerprint 0, all invalid
+    active = rng.random((G, R)) < 0.6
+    active[:, :2], active[:, R - 1] = True, False
+    hi = (keys >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in (hi, lo, valid, tables, active)]
+    b = probe.slab_bins(3 * bl, Bp, cuda)
+    assert b == {1203: 64, 1000: 64, 300: 128, 3000: 16, 2000: 32,
+                 134: 128}[bl]
+    before = dict(probe.k2_counts.VARIANTS)
+    got = probe.k2_counts(*args, seed, bl, variant=variant)
+    want = probe.probe_counts_grouped_plain(*args, seed, bl)
+    torch.cuda.synchronize()
+    assert probe.k2_counts.VARIANTS[variant] == before.get(variant, 0) + 1
+    assert torch.equal(got, want)
+    assert int(got[:, 0].max()) > 256 and int(got[:, 1:].max()) < 256
+    assert int(got[:, R - 1].abs().sum()) == 0
+
+
+def test_k2_takes_the_rows_route_where_no_slab_fits(cuda):
+    z = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    table = torch.zeros((1, 15000, 2000), dtype=torch.uint8, device=cuda)
+    assert probe.slab_bins(15000, 2000, cuda) == 0
+    before = probe.k2_counts.VARIANTS.get("rows", 0)
+    out = probe.probe_counts_grouped(z, z, z.bool(), table, None, 1, 5000)
+    assert probe.k2_counts.VARIANTS["rows"] == before + 1
+    assert int(out.abs().sum()) == 0
+    with pytest.raises(ValueError, match="no slab"):
+        probe.k2_counts(z, z, z.bool(), table, None, 1, 5000, variant="slab")
+
+
 def test_fused_step_matches_cpu_twins(cuda):
     rng = np.random.default_rng(5)
     L, k, s, t, topk = 2048, 22, 12, 5, 16

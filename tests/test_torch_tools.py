@@ -24,13 +24,14 @@ from taxor_tpu.native.baseline import baseline_search as jax_baseline
 from taxor_tpu.search.thresholds import Thresholder as JaxThresholder
 from taxor_tpu_torch import cli
 from taxor_tpu_torch.apps import build
-from taxor_tpu_torch.device import diag, extract
+from taxor_tpu_torch.device import diag, extract, probe
 from taxor_tpu_torch.hash import device_syncmer as dsync
 from taxor_tpu_torch.hash.schemes import search_hashes
 from taxor_tpu_torch.io.fastx import read_all
 from taxor_tpu_torch.native.baseline import baseline_search
 from taxor_tpu_torch.search.thresholds import Thresholder
-from taxor_tpu_torch.tools import (bench, debug_extract, debug_min,
+from taxor_tpu_torch.tools import (bench, bench_probe, debug_extract,
+                                   debug_min,
                                    probe_bounds, probe_experiments,
                                    profile_phases, synth, time_extract,
                                    timing)
@@ -428,6 +429,24 @@ def test_profile_phases_on_the_twins():
         assert ms[p] > 0
     assert ms["unaccounted"] == ms["D"] - ms["F"] - ms["C"] - ms["C2"]
     assert ms["reads"] == 8 and ms["L"] == 512
+    assert ms["C_kernel"] == "plain twin"  # no kernel launches on the CPU
+
+
+def test_profile_phases_names_the_probe_kernel(monkeypatch):
+    monkeypatch.setattr(probe.k2n_counts, "LAUNCHES", 3)
+    monkeypatch.setattr(probe.k2_counts, "LAUNCHES", 5)
+    monkeypatch.setattr(probe.k2_counts, "VARIANTS", {"rows": 1})
+
+    def k2_slab():
+        probe.k2_counts.LAUNCHES += 1
+        probe.k2_counts.VARIANTS["slab"] = 1
+
+    def k2n():
+        probe.k2n_counts.LAUNCHES += 1
+
+    assert profile_phases.probe_kernel(k2_slab) == "K2 (slab)"
+    assert profile_phases.probe_kernel(k2n) == "K2n"
+    assert profile_phases.probe_kernel(lambda: None) == "plain twin"
 
 
 @pytest.mark.parametrize("layout", ["flat", "auto"])
@@ -502,3 +521,15 @@ def test_search_profile_trace_writes_a_trace(small_index):
     assert any("syncmer" in str(e.get("name", "")) or e.get("ph") == "X"
                for e in events)
     assert open(out).read().count("GCF_") >= 8
+
+
+@pytest.mark.parametrize("preset", sorted(bench_probe.PRESETS))
+def test_bench_probe_runs_on_the_twin(capsys, preset):
+    assert bench_probe.main(["--preset", preset, "--reads", "6", "--hashes",
+                             "64", "--valid", "20", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    R, H, _, S, bins = bench_probe.PRESETS[preset]
+    assert out["device"] == "cpu" and out["table"] == [S, bins]
+    assert out["valid_hashes"] == 6 * 20 and out["equal"]
+    assert out["row_bytes"] == 3 * 6 * 20 * bins
+    assert list(out["routes"]) == ["twin"] and out["routes"]["twin"]["ms"] > 0

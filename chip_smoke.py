@@ -39,18 +39,39 @@ Phases (any failure exits non-zero):
      through both variants, with its valid hashes, row bytes and GB/s of
      rows), and K1 on a batch tied in every window (its worst case);
   6. K2n and K2 over stacked tables (G = 1 and 8) with a mixed activity
-     mask against their twin, bit-exact, at 16..512 bins (K2n) and 4,096
-     bins (K2, through both variants), with fingerprint-0 slots, counts
-     above 256 and a read inactive everywhere;
+     mask against their twin, bit-exact, at 16..512 bins (K2n, in both
+     modes where its smem mode fits) and 4,096 bins (K2, through both
+     variants), with fingerprint-0 slots, counts above 256 and a read
+     inactive everywhere; then K2n's run sums (probe_run_sums_grouped)
+     against their twin, bit-exact, in both modes, at G = 1, 8 and 72
+     (tables of 216 slots like the widest descent group's), 16, 100 and
+     512 bins, activity 0%, ~0.5%, 60% and 100%, one-bin runs, runs over
+     many bins, a run over a whole subgroup, a subgroup without runs and
+     run sums above 256, each call one K2n launch; and the run sums of
+     1,000- and 4,096-bin groups, one K2 launch each (dense counts and
+     their segment sums: a group past K2n's 512 bins);
   7. the hierarchical main path: the same recipe on an index built with
      ``--layout auto --tmax 64`` (a 64-bin root); K1, the grouped probe
-     and the per-IXF traversal of the reads over L_CAP must have
-     launched, the TSV must equal ``--engine host`` on a subset, and 99%
-     of the classified reads must name their source genome; then the
-     split engine on the same reads, as in phase 4;
-  8. K2n and K2 (the variant each shape picks) timed against their twin
-     on the root group and on one stacked level at the hierarchical
-     path's L=8192 bucket;
+     (K2n in both modes: smem on stacked groups, rows on the root) and
+     the per-IXF traversal of the reads over L_CAP must have launched,
+     the TSV must equal ``--engine host`` on a subset, and 99% of the
+     classified reads must name their source genome; then the split
+     engine on the same reads, as in phase 4; then (7b) an index whose
+     root has 529 technical bins (a hand-written layout, as the default
+     --tmax gives roots past 512 bins), whose root group must take K2 and
+     whose grouped step and per-IXF traversal on the card must equal the
+     CPU twins;
+  8. every group of one descent batch at the hierarchical path's L=8192
+     (R=512) and L=4096 (R=1,024) buckets, with the descent's own
+     activity masks: (a) the dense K2n counts [G, R, Bpad] and their
+     int64 segment sums, what the descent took before K2n summed the
+     runs, against (b) the run-sum launch, each as the descent calls it
+     (cuda_ms) and on the device alone (device_ms: the launches queued
+     behind a sleep kernel, so the host's gaps are not timed), each
+     group's shape, active pairs, runs and mode logged; K2n's run sums
+     timed against their
+     twin on the root and the widest group, K2 (the variant each shape
+     picks) on the root and the first stacked level;
   9. K4 (pair sort) against its twin, bit-exact, at W = 100, 128, 8192
      and 32768 (global scratch) with duplicated keys and keys equal to
      the sentinel; K3 on a row that breaks min_gap (n_emit = 2**30); and,
@@ -117,6 +138,7 @@ TMAX = 64  # technical bins per IXF of the hierarchical index
 CHECK_READS = 1024  # first reads held byte-equal to --engine host
 SEED = 20261016
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
+HEAD_START_CYCLES = 40_000_000  # device_ms's sleep: ~20 ms at 1.98 GHz
 PEAK_SCALAR = 67e12  # fp32 outside the tensor cores: integer/compare work
 PEAK_INT8 = 1979e12  # int8 (fingerprint bytes)
 
@@ -141,6 +163,26 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps calls whose launches
+    all queue behind a sleep kernel before the first of them starts, so
+    that the host's gaps between calls (Python, the launch) are not
+    timed: the kernels' own time where cuda_ms is bound by the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HEAD_START_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
@@ -338,12 +380,24 @@ def check_grouped(torch, probe, rng) -> int:
                                     variant="rows"), want):
                 raise AssertionError(f"grouped K2 (rows) Bpad={Bp} G={G}: "
                                      "kernel differs from the twin")
+            k2n_modes = []
+            if kernel is probe.k2n_counts:  # each mode that fits
+                k2n_modes = ["rows"] + (
+                    ["smem"] if probe.narrow_mode(3 * bl, Bp, dev) == "smem"
+                    else [])
+                for mode in k2n_modes:
+                    if not torch.equal(probe.k2n_counts(
+                            *args, tb, act, seed, bl, mode=mode), want):
+                        raise AssertionError(
+                            f"grouped K2n ({mode}) Bpad={Bp} G={G}: kernel "
+                            "differs from the twin")
             if (int(got[:, 0].max()) <= 256
                     or int(got[:, R - 1].abs().sum()) != 0):
                 raise AssertionError(f"grouped probe Bpad={Bp} G={G}: case "
                                      "did not exercise counts > 256 / "
                                      "inactive reads")
-            name = ("K2n" if kernel is probe.k2n_counts else
+            name = (f"K2n ({' and '.join(k2n_modes)})"
+                    if kernel is probe.k2n_counts else
                     f"K2 (slab of {probe.slab_bins(3 * bl, Bp, dev)} bins, "
                     "and rows)")
             log(f"{name} grouped Bpad={Bp} G={G} (S={3 * bl}, R={R}, H={H}, "
@@ -354,6 +408,136 @@ def check_grouped(torch, probe, rng) -> int:
         raise AssertionError(f"phase 6 did not run both K2 variants: {ran}")
     log(f"phase 6: K2 launches by variant {ran}")
     return ran["rows"]
+
+
+def run_csr(rng, G: int, bins: int):
+    """int64 (run_off [G + 1], run_s, run_e): one-bin runs and runs over
+    many bins with unused columns between them; subgroup 0 one run over
+    all of its bins, subgroup 1 (where there is one) no run."""
+    offs, starts, ends = [0], [], []
+    for g in range(G):
+        if g == 0:
+            starts.append(0)
+            ends.append(bins)
+        elif g != 1:
+            col = 0
+            while col < bins:
+                e = min(bins, col + int(rng.choice([1, 1, 2, 5, 16, 60])))
+                starts.append(col)
+                ends.append(e)
+                col = e + int(rng.integers(0, 3))
+        offs.append(len(starts))
+    return tuple(np.array(x, dtype=np.int64) for x in (offs, starts, ends))
+
+
+def check_run_sums(torch, probe, rng) -> None:
+    """Phase 6, K2n's run sums: probe_run_sums_grouped against its twin,
+    bit-exact, in both modes (and the mode the shape picks), each call
+    one K2n launch."""
+    from taxor_tpu_torch.utils.u64np import fingerprint8, mix_split
+
+    dev = torch.device("cuda")
+    seed = int(rng.integers(0, 2**63))
+    # S = 216 slots, the widest group's; read 0's 2,304 valid slots
+    # make each warp of the smem mode flush its byte counters mid-read at
+    # 512 bins
+    bl, R, H = 72, 64, 2304
+    pool = rng.integers(0, 2**64, 1 << 20, dtype=np.uint64)
+    zero_fp = pool[fingerprint8(mix_split(pool, seed)) == 0]
+    keys = rng.integers(0, 2**64, (R, H), dtype=np.uint64)
+    keys[0] = zero_fp[:H]  # read 0: run sums above 256 in zero columns
+    valid = rng.random((R, H)) < 0.7
+    valid[0], valid[1] = True, False  # read 1: no valid slot
+    hi = (keys >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (hi, lo, valid)]
+    kern = probe.k2n_counts
+    start = dict(kern.MODES)
+    n_calls = 0
+    t0 = time.perf_counter()
+    for G in (1, 8, 72):
+        for bins in (16, 100, 512):
+            Bp = probe.pad_bins(bins)
+            tables = np.zeros((G, 3 * bl, Bp), dtype=np.uint8)
+            tables[:, :, :bins] = rng.integers(0, 256, (G, 3 * bl, bins))
+            tables[:, :, ::7] = 0
+            tb = torch.from_numpy(tables).to(dev)
+            runs = [torch.from_numpy(x).to(dev) for x in run_csr(rng, G, bins)]
+            picked = probe.narrow_mode(3 * bl, Bp, dev)
+            if picked != "smem":
+                raise AssertionError(f"K2n run sums: [{3 * bl}, {Bp}] "
+                                     f"tables take {picked}, not smem")
+            for share in (0.0, 0.005, 0.6, 1.0):
+                active = rng.random((G, R)) < share
+                if share:
+                    active[0, 0] = True  # read 0 in the run over all bins
+                act = torch.from_numpy(active).to(dev)
+                want = probe.probe_run_sums_grouped_plain(
+                    *args, tb, act, *runs, seed, bl)
+                for mode in ("smem", "rows", None):
+                    n, before = kern.LAUNCHES, dict(kern.MODES)
+                    got = (probe.probe_run_sums_grouped(
+                        *args, tb, act, *runs, seed, bl) if mode is None
+                        else probe.k2n_run_sums(*args, tb, act, *runs,
+                                                seed, bl, mode=mode))
+                    torch.cuda.synchronize()
+                    grew = {m: c - before.get(m, 0)
+                            for m, c in kern.MODES.items()
+                            if c != before.get(m, 0)}
+                    if kern.LAUNCHES != n + 1 or grew != {mode or picked: 1}:
+                        raise AssertionError(
+                            f"K2n run sums G={G} bins={bins} share={share} "
+                            f"mode={mode}: {kern.LAUNCHES - n} launches, "
+                            f"modes {grew}; expected one launch")
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K2n run sums ({mode or picked}) G={G} "
+                            f"bins={bins} activity {share}: kernel differs "
+                            "from the twin")
+                    n_calls += 1
+                big = int(want[0, 0])  # run 0: all of subgroup 0's bins
+                if (share and big <= 256) or int(want[:, 1].abs().sum()) \
+                        or (not share and int(want.abs().sum())):
+                    raise AssertionError(
+                        f"K2n run sums G={G} bins={bins} share={share}: "
+                        "case did not exercise sums > 256 / an invalid read "
+                        "/ zeros")
+            log(f"K2n run sums G={G}, [{3 * bl}, {Bp}] ({bins} bins), "
+                f"{runs[1].shape[0]} runs, R={R}, H={H}: bit-exact vs twin "
+                f"in smem and rows mode at activity 0, 0.5%, 60% and 100% "
+                f"(run over all bins {big})")
+    ran = {m: c - start.get(m, 0) for m, c in kern.MODES.items()}
+    # a group wider than NARROW_MAX_BINS (an IXF of more than 512 bins,
+    # in a group of its own): K2's dense counts and their segment sums;
+    # its own generator, so that the indexes drawn later stay as they were
+    wrng = np.random.default_rng(SEED + 6)
+    for G, bins in ((1, 1000), (2, 4096)):
+        Bp = probe.pad_bins(bins)
+        tables = np.zeros((G, 3 * bl, Bp), dtype=np.uint8)
+        tables[:, :, :bins] = wrng.integers(0, 256, (G, 3 * bl, bins))
+        tables[:, :, ::7] = 0
+        tb = torch.from_numpy(tables).to(dev)
+        runs = [torch.from_numpy(x).to(dev) for x in run_csr(wrng, G, bins)]
+        active = wrng.random((G, R)) < 0.6
+        active[0, 0] = True
+        act = torch.from_numpy(active).to(dev)
+        want = probe.probe_run_sums_grouped_plain(*args, tb, act, *runs, seed,
+                                                  bl)
+        n2, n = probe.k2_counts.LAUNCHES, kern.LAUNCHES
+        got = probe.probe_run_sums_grouped(*args, tb, act, *runs, seed, bl)
+        torch.cuda.synchronize()
+        if probe.k2_counts.LAUNCHES != n2 + 1 or kern.LAUNCHES != n:
+            raise AssertionError(
+                f"run sums of a {bins}-bin group: {probe.k2_counts.LAUNCHES - n2}"
+                f" K2 and {kern.LAUNCHES - n} K2n launches; expected one K2")
+        if not torch.equal(got, want) or int(want[0, 0]) <= 256:
+            raise AssertionError(f"run sums of a {bins}-bin group (K2 + "
+                                 "segment sums) differ from the twin")
+    log("phase 6: run sums of 1,000- and 4,096-bin groups (K2's dense "
+        "counts + segment sums, one K2 launch each) bit-exact vs twin")
+    log(f"phase 6: K2n run sums, {n_calls} calls of one launch each, "
+        f"launches by mode {ran}, {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------- K3, K4 --
@@ -465,6 +649,7 @@ def reset_counts(extract, probe, sort, pipeline) -> None:
         k.LAUNCHES = 0
         k.ROUTES = {}
     probe.k2_counts.VARIANTS = {}
+    probe.k2n_counts.MODES = {}
     pipeline.ROUTES.reset()
 
 
@@ -473,6 +658,8 @@ def read_counts(extract, probe, sort) -> dict:
             "K2": probe.k2_counts.LAUNCHES, "K2n": probe.k2n_counts.LAUNCHES,
             "K2 slab": probe.k2_counts.VARIANTS.get("slab", 0),
             "K2 rows": probe.k2_counts.VARIANTS.get("rows", 0),
+            "K2n smem": probe.k2n_counts.MODES.get("smem", 0),
+            "K2n rows": probe.k2n_counts.MODES.get("rows", 0),
             "track": extract.syncmer_track.LAUNCHES,
             "K3": sort.dedup_fused.LAUNCHES, "K4": sort.sort_pairs.LAUNCHES,
             "K2 routes": dict(probe.k2_counts.ROUTES),
@@ -541,6 +728,10 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     if layout == "flat" and launches["K2 slab"] <= 0:
         raise AssertionError(f"the flat path did not take K2's slab route: "
                              f"{launches}")
+    if layout == "auto" and (launches["K2n smem"] <= 0
+                             or launches["K2n rows"] <= 0):
+        raise AssertionError(f"the hierarchical path did not run both K2n "
+                             f"modes: {launches}")
     with open(out_dev + ".time") as fh:
         phases = fh.read().strip().replace("\n", " | ")
     n_total = len(recs)
@@ -587,6 +778,7 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
         e2e.USE_FUSED_EXTRACT = True
     wall_split = time.perf_counter() - t0
     split = read_counts(extract, probe, sort)
+    split_peak = torch.cuda.max_memory_allocated() / 2**20
     split_routes = dict(pipeline.ROUTES.counts)
     if rc != 0:
         raise RuntimeError(f"split-engine search failed ({rc})")
@@ -600,8 +792,7 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     log(f"[{layout}] split engine: {n_total} reads in {wall_split:.2f} s "
         f"wall = {n_total / wall_split:.1f} reads/s; TSV == K1 TSV on every "
         f"read and == host on {len(sub)}; launches {split}; routes "
-        f"{split_routes}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        f"{split_routes}; peak device memory {split_peak:.1f} MiB")
 
     # ---- the result is right: a classified read names its source genome
     first = {}
@@ -616,7 +807,8 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     log(f"[{layout}] accuracy: {len(hits)}/{n_total} reads classified, "
         f"{right} of them to their source genome")
     return {"index": index, "recs": recs, "launches": launches,
-            "split": split, "routes": routes, "peak_mib": peak}
+            "split": split, "routes": routes, "peak_mib": peak,
+            "split_peak_mib": split_peak}
 
 
 def hier_report(torch, state) -> None:
@@ -640,11 +832,80 @@ def hier_report(torch, state) -> None:
     if len(dh.ixfs) <= 1 or max(Gs) < 2:
         raise AssertionError("the hierarchical cell has no hierarchy or no "
                              "stacked group")
+    from taxor_tpu_torch.device import probe
+
+    modes = [probe.narrow_mode(*g["tables"].shape[1:], "cuda")
+             for g in dh.groups]
+    log(f"[auto] K2n mode of each group: "
+        f"{[(tuple(g['tables'].shape), int(g['run_s'].shape[0]), m) for g, m in zip(dh.groups, modes)]}"
+        f" (shape, runs, mode); main-path launches by mode: smem "
+        f"{launches['K2n smem']}, rows {launches['K2n rows']}")
+    if modes[0] != "rows" or not any(
+            m == "smem" for G, m in zip(Gs, modes) if G > 1):
+        raise AssertionError(f"K2n modes: root {modes[0]}, stacked groups "
+                             f"{modes[1:]}; expected rows on the root and "
+                             "smem on a stacked group")
     fused = (launches["K2 routes"].get("fused", 0)
              + launches["K2n routes"].get("fused", 0))
     if fused <= 0 or counts_route <= 0 or state["routes"]["host_hashes"] <= 0:
         raise AssertionError(f"a route skipped the probe: {launches}")
     state["dh"] = dh
+
+
+def check_wide_root(torch, work: str) -> None:
+    """Phase 7b: a hierarchical index whose root has 529 technical bins
+    (a hand-written layout over 540 genomes of 600 b, as a build at the
+    default --tmax gives roots past 512 bins): its descent group takes
+    K2's dense counts and their segment sums on the card, in the grouped
+    step and in the per-IXF traversal, equal to the CPU twins."""
+    from taxor_tpu_torch.apps.build import BuildConfig, run_build
+    from taxor_tpu_torch.device import probe
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.hash.schemes import search_hashes
+    from taxor_tpu_torch.search.thresholds import Thresholder
+    from taxor_tpu_torch.tools import synth
+
+    rng = np.random.default_rng(SEED + 7)
+    os.makedirs(work)
+    tsv, gdir, genomes = synth.make_ref_set(work, rng, n_species=540,
+                                            genome_len=600)
+    files = [os.path.join(gdir, f"{acc}_genomic.fna") for acc in genomes]
+    layout = os.path.join(work, "wide.out")
+    root_bins = synth.write_wide_root_layout(files, layout)
+    index = run_build(BuildConfig(
+        input_file=tsv, input_sequence_dir=gdir, output_filename="",
+        kmer_size=K, syncmer_size=S, use_syncmer=True, layout_file=layout,
+        resume=True))
+    seqs = list(genomes.values())
+    reads = [synth.simulate_read(rng, seqs[i], 400, 0.02)
+             for i in [0, 1, *range(520, 540), *rng.integers(1, 520, 100)]]
+    packed, lengths = dsync.pack_reads(reads, 512)
+    th = Thresholder.make(K, K, 0.04, -1.0, True)
+    dhs = [DeviceHIXF.from_hixf(index.hixf, d) for d in ("cpu", "cuda")]
+    shapes = [tuple(g["tables"].shape) for g in dhs[1].groups]
+    if shapes[0][2] <= probe.NARROW_MAX_BINS:
+        raise AssertionError(f"wide root: groups {shapes}")
+    before = dict(probe.k2_counts.ROUTES)
+    out = [dh.e2e_async(packed, lengths, index.scheme, th)() for dh in dhs]
+    for a, b in zip(out[0][:4], out[1][:4]):
+        if not np.array_equal(a, b):
+            raise AssertionError("wide root: the grouped step on the card "
+                                 "differs from the CPU twins")
+    hl = search_hashes(reads, index.scheme)
+    thr = np.array([th.get(h.shape[0], 0.0) for h in hl], dtype=np.int64)
+    hi, lo, valid = probe.pack_hash_lists(hl, max(h.shape[0] for h in hl))
+    dense = [dh.counts(hi, lo, valid, thr) for dh in dhs]
+    if not all(np.array_equal(a, b) for a, b in zip(*dense)):
+        raise AssertionError("wide root: the per-IXF traversal on the card "
+                             "differs from the CPU twins")
+    grew = {r: n - before.get(r, 0) for r, n in probe.k2_counts.ROUTES.items()}
+    if grew.get("fused") != 1 or grew.get("host_hashes") != 1 \
+            or not (out[1][0][:, 0] > 0).all():
+        raise AssertionError(f"wide root: K2 launches by route {grew}")
+    log(f"phase 7b: a {root_bins}-bin root (groups {shapes}): {len(reads)} "
+        f"reads, grouped step and per-IXF traversal on K2 + segment sums "
+        f"equal to the CPU twins")
 
 
 def time_pair(torch, fn, plain, reps: int):
@@ -893,10 +1154,30 @@ def time_split(torch, state) -> list[dict]:
     return rows
 
 
+def narrow_bound(hi, valid, tables, act, n_runs: int) -> dict:
+    """K2n's least time for one run-sum launch: the hashes (9 bytes a
+    slot) of the reads with an active pair and the mask read once, the
+    tables of the subgroups with an active read, the [n_runs, R] sums
+    written once; one fingerprint-byte compare per valid hash of an
+    active (subgroup, read) pair and bin."""
+    G, S_, Bp = tables.shape
+    R, H = hi.shape
+    active_hashes = float((act.long() * valid.sum(1)[None]).sum())
+    reads = int(act.any(0).sum())
+    loaded = int(act.any(1).sum())
+    return bound(9 * reads * H + G * R + loaded * S_ * Bp + 4 * n_runs * R,
+                 active_hashes * Bp, PEAK_INT8)
+
+
 def time_hier(torch, state) -> list[dict]:
-    """K2n and K2 against their twin on the root group and on the first
-    stacked level, at the hierarchical path's L=8192 bucket, with the
-    descent's own activity masks."""
+    """Phase 8: every group of one descent batch at the hierarchical
+    path's L=8192 and L=4096 buckets, with the descent's own activity
+    masks: (a) the dense K2n counts and their int64 segment sums against
+    (b) the run-sum launch, timed a, b, b, a by cuda_ms and again by
+    device_ms, both bit-exact to the twin;
+    K2n's record (the root and the widest group at L=8192, against the
+    twin) and K2 (the variant each shape picks) on the root and the first
+    stacked level."""
     from taxor_tpu_torch.search.thresholds import Thresholder
     from taxor_tpu_torch.device import extract, probe
     from taxor_tpu_torch.device.e2e import descend
@@ -904,52 +1185,95 @@ def time_hier(torch, state) -> list[dict]:
 
     dev = torch.device("cuda")
     dh = state["dh"]
-    L = 8192
-    seqs = bucket_reads(state["recs"], L)
-    packed, lengths = dsync.pack_reads(seqs, L)
-    hcap = dsync.hash_cap(L)
-    hi, lo, valid, n_unique, _ = extract.syncmer_hashes(
-        torch.from_numpy(packed).to(dev), torch.from_numpy(lengths).to(dev),
-        K, S, (K - S + 1) // 2, hcap)
     th = Thresholder.make(K, K, 0.04, -1.0, True)
-    thr = torch.from_numpy(dh._thr_table(th, hcap)).to(dev)[
-        n_unique.clamp(0, hcap).long()]
     stacked = next(i for i, g in enumerate(dh.groups)
                    if g["tables"].shape[0] > 1)
-    rows = []
-    for label, gi in (("root", 0), ("stacked level", stacked)):
-        g = dh.groups[gi]
-        act = descend(dh.groups, len(dh.bfs_order), hi, lo, valid, thr,
-                      upto=gi)
-        a = (hi, lo, valid, g["tables"], act, g["seed"], g["bl"])
-        plain = lambda: probe.probe_counts_grouped_plain(*a)  # noqa: E731
-        for name, kern in (("probe_count_narrow", probe.k2n_counts),
-                           ("probe_count", probe.k2_counts)):
-            ms, plain_ms, err, each = time_pair(
-                torch, lambda: kern(*a), plain, 20)  # noqa: B023
-            if kern is probe.k2_counts:
-                b = probe.slab_bins(*g["tables"].shape[1:], dev)
-                name += f" ({f'slab of {b} bins' if b else 'rows'})"
-            log(f"time {name} on the {label} group at R={len(seqs)}, "
-                f"L={L}, H={hcap}, tables {tuple(g['tables'].shape)}, "
-                f"{int(act.sum())}/{act.numel()} (subgroup, read) pairs "
-                f"active: kernel {each[0]:.4f}/{each[1]:.4f} ms, plain "
-                f"{each[2]:.3f}/{each[3]:.3f} ms")
-            if label == "root" and name == "probe_count_narrow":
-                G, S_, Bp = g["tables"].shape
-                R, H = hi.shape
-                active_hashes = float((act[:, :, None] & valid[None])
-                                      .sum())
-                rows.append({
-                    "name": name, "route": "cuda",
-                    "source": "taxor_tpu_torch/csrc/probe_narrow.cu",
-                    "replaces": "taxor_tpu/device/pallas_probe.py:578",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    **bound(9 * R * H + G * S_ * Bp + G * R
-                            + 4 * G * R * Bp, active_hashes * Bp,
-                            PEAK_INT8),
-                    "library_ms": None})
-    return rows
+    widest = max(range(len(dh.groups)),
+                 key=lambda i: dh.groups[i]["tables"].shape[0])
+    per_group, record = [], None
+    for L in (8192, 4096):
+        seqs = bucket_reads(state["recs"], L)
+        packed, lengths = dsync.pack_reads(seqs, L)
+        hcap = dsync.hash_cap(L)
+        hi, lo, valid, n_unique, _ = extract.syncmer_hashes(
+            torch.from_numpy(packed).to(dev),
+            torch.from_numpy(lengths).to(dev), K, S, (K - S + 1) // 2, hcap)
+        thr = torch.from_numpy(dh._thr_table(th, hcap)).to(dev)[
+            n_unique.clamp(0, hcap).long()]
+        R = hi.shape[0]
+        for gi, g in enumerate(dh.groups):
+            act = descend(dh.groups, len(dh.bfs_order), hi, lo, valid, thr,
+                          upto=gi)
+            tables = g["tables"]
+            runs = (g["run_off"], g["run_s"], g["run_e"])
+            run_g = probe.run_groups(g["run_off"])
+            a = (hi, lo, valid, tables, act)
+            sk = (g["seed"], g["bl"])
+            dense = lambda: probe.segment_sums(  # noqa: E731
+                probe.k2n_counts(*a, *sk), run_g, g["run_s"], g["run_e"])
+            fused = lambda: probe.probe_run_sums_grouped(  # noqa: E731
+                *a, *runs, *sk)
+            plain = lambda: probe.probe_run_sums_grouped_plain(  # noqa: E731
+                *a, *runs, *sk)
+            want = plain()
+            assert_equal(torch, f"group {gi} at L={L}", ("dense", "fused"),
+                         (dense(), fused()), (want, want))
+            a1, b1 = cuda_ms(dense, 10), cuda_ms(fused, 20)
+            b2, a2 = cuda_ms(fused, 20), cuda_ms(dense, 10)
+            da1, db1 = device_ms(dense, 10), device_ms(fused, 20)
+            db2, da2 = device_ms(fused, 20), device_ms(dense, 10)
+            n_runs = int(g["run_s"].shape[0])
+            row = {"L": L, "R": R, "shape": list(tables.shape),
+                   "active_pairs": int(act.sum()), "pairs": act.numel(),
+                   "n_runs": n_runs,
+                   "mode": probe.narrow_mode(*tables.shape[1:], dev),
+                   "dense_ms": min(a1, a2), "ms": min(b1, b2),
+                   "dense_device_ms": min(da1, da2),
+                   "device_ms": min(db1, db2),
+                   **narrow_bound(hi, valid, tables, act, n_runs)}
+            per_group.append(row)
+            log(f"time group {gi} at L={L}, R={R}: tables "
+                f"{tuple(tables.shape)}, {row['active_pairs']}/"
+                f"{row['pairs']} (subgroup, read) pairs active, {n_runs} "
+                f"runs, K2n mode {row['mode']}: (a) dense counts + segment "
+                f"sums {a1:.4f}/{a2:.4f} ms, (b) run sums {b1:.4f}/{b2:.4f} "
+                f"ms; on the device alone (a) {da1:.4f}/{da2:.4f} ms, (b) "
+                f"{db1:.4f}/{db2:.4f} ms; bound of (b) {row['bound_ms']:.4f} "
+                f"ms ({row['bound_by']})")
+            if L != 8192:
+                continue
+            if gi in (0, widest):
+                ms, plain_ms, err, each = time_pair(torch, fused, plain, 20)
+                log(f"time probe_count_narrow (run sums) on group {gi} at "
+                    f"L={L}: kernel {each[0]:.4f}/{each[1]:.4f} ms, plain "
+                    f"{each[2]:.3f}/{each[3]:.3f} ms")
+                if gi == 0:
+                    record = {
+                        "name": "probe_count_narrow", "route": "cuda",
+                        "source": "taxor_tpu_torch/csrc/probe_narrow.cu",
+                        "replaces": "taxor_tpu/device/pallas_probe.py:578",
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        **narrow_bound(hi, valid, tables, act, n_runs),
+                        "library_ms": None, "shape": list(tables.shape),
+                        "mode": row["mode"]}
+                else:
+                    record.update(
+                        widest_shape=list(tables.shape), widest_ms=ms,
+                        widest_plain_ms=plain_ms, widest_mode=row["mode"],
+                        widest_bound_ms=row["bound_ms"],
+                        widest_bound_by=row["bound_by"],
+                        max_abs_err=max(record["max_abs_err"], err))
+            if gi in (0, stacked):
+                b = probe.slab_bins(*tables.shape[1:], dev)
+                ms, _, _, each = time_pair(
+                    torch, lambda: probe.k2_counts(*a, *sk),  # noqa: B023
+                    lambda: probe.probe_counts_grouped_plain(  # noqa: B023
+                        *a, *sk), 20)
+                log(f"time probe_count ({f'slab of {b} bins' if b else 'rows'}"
+                    f") dense counts on group {gi} at L={L}: kernel "
+                    f"{each[0]:.4f}/{each[1]:.4f} ms")
+    record["groups"] = per_group
+    return [record]
 
 
 # -------------------------------------------------- diagnostic kernels --
@@ -1267,9 +1591,11 @@ def main() -> int:
         kernels += time_split(torch, flat)
         shutil.rmtree(os.path.join(work, "flat"), ignore_errors=True)
         k2_rows_checks += check_grouped(torch, probe, rng)
+        check_run_sums(torch, probe, rng)
         hier = main_path(torch, os.path.join(work, "hier"), rng,
                          args.hier_genomes, args.hier_reads, "auto")
         hier_report(torch, hier)
+        check_wide_root(torch, os.path.join(work, "wide"))
         kernels += time_hier(torch, hier)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1281,6 +1607,13 @@ def main() -> int:
         row["launches"] = sum(run[key] for path in (flat, hier)
                               for run in (path["launches"], path["split"]))
         row["launches_in"] = "main paths"
+        if key == "K2n":
+            row["modes"] = {m: sum(run[f"K2n {m}"] for path in (flat, hier)
+                                   for run in (path["launches"],
+                                               path["split"]))
+                            for m in ("smem", "rows")}
+            row["peak_mib"] = {"hierarchical": hier["peak_mib"],
+                               "hierarchical split": hier["split_peak_mib"]}
         if key == "K4":  # as in the JAX package, no search path sorts pairs
             row["launches_in"] = "not on a main path"
             row["check_launches"] = flat["k4_check"]  # sort.dedup_pairs

@@ -9,8 +9,9 @@ the TPU: the 64-bit hash math on device tensors, syncmer extraction
 (CUDA kernel K1, ``csrc/extract.cu``, or the split engine: the tracker
 ``syncmer_track`` and the dedup kernel K3 ``csrc/dedup.cu``), the
 pair sort K4 (``csrc/sort_pairs.cu``), the interleaved XOR filter
-probe/count (K2 ``csrc/probe.cu``, K2n ``csrc/probe_narrow.cu``), the
-fused search steps, the device index and the search pipeline and CLI.
+probe/count (K2 ``csrc/probe_slab.cu`` and ``csrc/probe.cu``; K2n
+``csrc/probe_narrow.cu``, which also sums the descent's runs), the fused
+search steps, the device index and the search pipeline and CLI.
 
 Every kernel has a plain PyTorch twin in the same module, taken only for
 tensors on the CPU.  This package never imports JAX.

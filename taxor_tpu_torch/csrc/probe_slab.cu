@@ -101,26 +101,9 @@ __global__ void __launch_bounds__(kRecThreads) probe_records_kernel(
   if (threadIdx.x == 0) nrec[blockIdx.x] = n;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// 1 in each byte of x that is zero: bit 7 of (x & 0x7F) + 0x7F | x is
-// set unless the byte is 0 (no carry crosses a byte), as the TPU kernels'
-// _LOW7 / _SIGN test of pallas_probe.py
-__device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
-  return (~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u) >> 7;
-}
-
-// counts[4 w + j] += byte j of the packed counter k
-__device__ __forceinline__ void flush(int* cnt, uint32_t k) {
-  cnt[0] += k & 0xFFu;
-  cnt[1] += (k >> 8) & 0xFFu;
-  cnt[2] += (k >> 16) & 0xFFu;
-  cnt[3] += k >> 24;
-}
+using taxor::cp_async16;
+using taxor::flush_bytes;
+using taxor::zero_bytes;
 
 template <int CH>
 __global__ void __launch_bounds__(kSlabThreads) probe_slab_kernel(
@@ -177,10 +160,10 @@ __global__ void __launch_bounds__(kSlabThreads) probe_slab_kernel(
           k2 += zero_bytes(a.z ^ b.z ^ d.z ^ f4);
           k3 += zero_bytes(a.w ^ b.w ^ d.w ^ f4);
         }
-        flush(cnt, k0);
-        flush(cnt + 4, k1);
-        flush(cnt + 8, k2);
-        flush(cnt + 12, k3);
+        flush_bytes(cnt, k0);
+        flush_bytes(cnt + 4, k1);
+        flush_bytes(cnt + 8, k2);
+        flush_bytes(cnt + 12, k3);
       }
 #pragma unroll
       for (int off = CH; off < 32; off <<= 1)

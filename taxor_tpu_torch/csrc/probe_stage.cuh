@@ -1,10 +1,12 @@
-// Hash staging shared by the probe kernels K2 (probe.cu; probe_slab.cu
-// uses probe_slots for its records) and K2n (probe_narrow.cu): a block
-// computes the probe slots and fingerprints of the valid hash slots of one
-// read into shared memory, compacted in slot order with warp ballots,
-// exactly as ixf/xor_filter.compute_probes does:
+// Shared by the probe kernels K2 (probe.cu, probe_slab.cu) and K2n
+// (probe_narrow.cu).  probe_slots: the probe slots and fingerprint of one
+// key, exactly as ixf/xor_filter.compute_probes computes them:
 // m = murmur64(h + seed), p_i = reduce32(uint32(rotl64(m, 21 i)), bl) +
-// i bl, fprint = uint8(m ^ m >> 32), replicated into the 4 bytes of f4.
+// i bl, fprint = uint8(m ^ m >> 32).  stage_probes: a block computes those
+// of the valid hash slots of one read into shared memory, compacted in
+// slot order with warp ballots, the fingerprint replicated into the 4
+// bytes of f4.  cp_async16, zero_bytes and flush_bytes serve the kernels
+// that hold a table in shared memory (probe_slab.cu, probe_narrow.cu).
 #pragma once
 #include <cstdint>
 
@@ -23,6 +25,29 @@ __device__ __forceinline__ void probe_slots(uint64_t key, uint64_t seed,
   p1 = reduce32(rotl64(m, 21), bl) + bl;
   p2 = reduce32(rotl64(m, 42), bl) + 2 * bl;
   fp = (uint32_t)((m ^ (m >> 32)) & 0xFFu);
+}
+
+// One 16-byte cp.async from global to shared memory (both 16-byte
+// aligned); the caller commits and waits.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// 1 in each byte of x that is zero: bit 7 of (x & 0x7F) + 0x7F | x is
+// set unless the byte is 0 (no carry crosses a byte), as the TPU kernels'
+// _LOW7 / _SIGN test of pallas_probe.py
+__device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
+  return (~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u) >> 7;
+}
+
+// cnt[j] += byte j of the packed byte counter k, j < 4
+__device__ __forceinline__ void flush_bytes(int* cnt, uint32_t k) {
+  cnt[0] += k & 0xFFu;
+  cnt[1] += (k >> 8) & 0xFFu;
+  cnt[2] += (k >> 16) & 0xFFu;
+  cnt[3] += k >> 24;
 }
 
 // Stages the valid slots of [h, H) of row `row0` until the next round of

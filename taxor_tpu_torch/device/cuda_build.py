@@ -12,10 +12,11 @@ first use (never at import) into ``taxor_tpu_torch/_build/``, which
 .gitignore lists; a library's name carries a hash of its sources, so an
 edited source rebuilds.  Each C launcher enqueues on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
-into an exception.  ``syncmer_extract_smem`` and ``probe_slab_bins`` are
-no launchers: they return the shared memory K1 takes and the slab width
-of K2's slab route (0 for its rows route), so that the wrappers never
-repeat a kernel's layout.
+into an exception.  ``syncmer_extract_smem``, ``probe_slab_bins`` and
+``probe_narrow_mode`` are no launchers: they return the shared memory K1
+takes, the slab width of K2's slab route (0 for its rows route) and
+K2n's mode (1 smem, 0 rows), so that the wrappers never repeat a
+kernel's layout.
 """
 
 from __future__ import annotations
@@ -54,8 +55,13 @@ _SIGNATURES = {
                            _P],
     # (S, Bpad, device) -> K2's slab width in bins, 0: the rows route
     "probe_slab_bins": [_I, _I, _I],
-    "launch_probe_count_narrow": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
-                                  ctypes.c_uint64, ctypes.c_uint32, _P, _P],
+    # (hi, lo, valid, R, H, tables, G, S, Bpad, active, seed,
+    #  block_length, run_off, run_s, run_e, n_runs, mode, out, stream)
+    "launch_probe_narrow": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
+                            ctypes.c_uint64, ctypes.c_uint32, _P, _P, _P, _I,
+                            _I, _P, _P],
+    # (S, Bpad, device) -> K2n's mode: 1 smem, 0 rows
+    "probe_narrow_mode": [_I, _I, _I],
     # (packed, lengths, R, L, k, s, t, out_kmer, out_emit, stream)
     "launch_syncmer_track": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # (kmer, emit, R, L, hcap, Wb, scratch, out_kmer, out_valid, n_unique,
@@ -181,13 +187,15 @@ _COUNT_LOCK = threading.Lock()
 
 
 def count_launch(wrapper, route: str | None = None,
+                 tally: dict | None = None,
                  variant: str | None = None) -> None:
     """wrapper.LAUNCHES += 1, wrapper.ROUTES[route] += 1 for a named
-    route and wrapper.VARIANTS[variant] += 1 for a named kernel variant,
-    under a lock: pipeline workers launch from several threads."""
+    route and tally[variant] += 1 for a kernel's tally of its variants
+    (K2's VARIANTS, K2n's MODES), under a lock: pipeline workers launch
+    from several threads."""
     with _COUNT_LOCK:
         wrapper.LAUNCHES += 1
         if route is not None:
             wrapper.ROUTES[route] = wrapper.ROUTES.get(route, 0) + 1
-        if variant is not None:
-            wrapper.VARIANTS[variant] = wrapper.VARIANTS.get(variant, 0) + 1
+        if tally is not None:
+            tally[variant] = tally.get(variant, 0) + 1

@@ -16,9 +16,13 @@ the pre-dedup emission count.  Thresholds and the exact float64 0.8*max
 rule stay on the host (search/pipeline._pairs_from_e2e).
 
 Three replacements against the JAX step:
-  - run sums: an exact int64 segment sum over run offsets, where the TPU
-    needed a HIGHEST-precision float one-hot matmul to stay exact above
-    256; a flat index whose runs are single bins keeps the column slice;
+  - run sums: exact integer sums over run offsets, where the TPU needed a
+    HIGHEST-precision float one-hot matmul to stay exact above 256: on a
+    descent group K2n sums each subgroup's runs in the kernel
+    (probe_run_sums_grouped; a group wider than 512 bins takes K2's
+    counts and an int64 segment sum); on a flat index an int64 segment
+    sum of the counts, or the column slice where its runs are single
+    bins;
   - top-k: a stable descending sort sliced to k, which keeps
     ``lax.top_k``'s lower-index-first order among ties (``torch.topk``
     does not promise it);
@@ -36,7 +40,7 @@ import torch
 
 from ..hash.device_syncmer import emission_min_gap
 from .extract import hashes_of_kmers, syncmer_hashes, syncmer_track
-from .probe import probe_counts, probe_counts_grouped
+from .probe import probe_counts, probe_run_sums_grouped, segment_sums
 from .sort import dedup_fused
 
 # Extraction engine of both steps, as in the JAX package: True runs K1
@@ -57,18 +61,6 @@ def _syncmer_hashes(packed, lengths, k: int, s: int, t: int, hcap: int):
     srt, valid, n_unique, n_emit = dedup_fused(kmer, emit, hcap,
                                                emission_min_gap(k, s, t))
     return (*hashes_of_kmers(srt, valid), valid, n_unique, n_emit)
-
-
-def segment_sums(counts: torch.Tensor, run_g: torch.Tensor,
-                 run_s: torch.Tensor, run_e: torch.Tensor) -> torch.Tensor:
-    """int32 [n_runs, R]: run j sums columns [run_s[j], run_e[j]) of table
-    run_g[j] of counts [G, R, Bpad] — exact int64 segment sums of the
-    cumulative sum along the bins (runs are never empty)."""
-    cs = torch.cumsum(counts, dim=2, dtype=torch.int64)
-    end = cs[run_g, :, run_e - 1]
-    start = torch.where((run_s > 0)[:, None],
-                        cs[run_g, :, (run_s - 1).clamp(min=0)], 0)
-    return (end - start).to(torch.int32)
 
 
 def run_sums(counts: torch.Tensor, run_offsets: torch.Tensor,
@@ -185,9 +177,9 @@ def descend(groups, n_nodes: int, hi, lo, valid, thr,
             return act_mat
         if stats is not None:
             stats.add(act_mat)
-        counts = probe_counts_grouped(hi, lo, valid, g["tables"], act_mat,
+        sums = probe_run_sums_grouped(hi, lo, valid, g["tables"], act_mat,
+                                      g["run_off"], g["run_s"], g["run_e"],
                                       g["seed"], g["bl"], route="fused")
-        sums = segment_sums(counts, g["run_g"], g["run_s"], g["run_e"])
         if g["child_bfs"].numel():
             active[g["child_bfs"]] = active[g["child_parent"]] & (
                 sums[g["child_run"]] >= thr[None, :])
@@ -214,18 +206,20 @@ def make_hixf_e2e_grouped_fn(groups, leaf_users: torch.Tensor, k: int,
 
     K1 (or the split engine) extracts the hashes once.  Then, per group
     in order (ancestors before descendants, ``descend``): the group's G
-    subgroup tables [G, S, Bpad] probe as one launch
-    (probe_counts_grouped), each subgroup with the OR of its members'
-    descent masks; the counts
-    [G, R, Bpad] sum into the group's runs; each merged run activates its
-    child where ``active & (sum >= thr_table[n_unique])``; the leaf runs
-    give the leaf values.  Top-k runs over the leaf columns concatenated
+    subgroup tables [G, S, Bpad] probe as one launch that sums each
+    subgroup's runs (probe_run_sums_grouped: K2n probes only the active
+    pairs, each subgroup with the OR of its members' descent masks, and
+    writes [n_runs, R] sums, no dense counts; a group wider than 512 bins
+    takes K2's counts and their segment sums); each merged run activates
+    its child where ``active & (sum >= thr_table[n_unique])``; the leaf
+    runs give the leaf values.  Top-k runs over the leaf columns concatenated
     in group, member, run order, with the stable sort of ``topk_desc``,
     which breaks ties as ``lax.top_k`` does.
 
     groups: DeviceHIXF.upload_groups dicts: tables uint8 [G, S, Bpad],
-      seed, bl, and int64 index tensors: run_g/run_s/run_e (each run's
-      subgroup and column range), member_bfs/member_sub (each member's
+      seed, bl, and int64 index tensors: run_off (the CSR [G + 1] of each
+      subgroup's runs), run_s/run_e (each run's column range in its
+      subgroup's table), member_bfs/member_sub (each member's
       BFS position and subgroup), child_bfs/child_parent/child_run (each
       merged run's child, its parent member and the run), leaf_bfs/
       leaf_run (each leaf run's member and the run); members, the host

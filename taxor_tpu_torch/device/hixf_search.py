@@ -18,7 +18,8 @@ table that one kernel launch probes (``_stack_host_groups``).  Members
 pack column-wise at 4-bin boundaries, as the JAX package packs 4-bin
 words; each run of a member is a column range [run_s, run_e) of its
 subgroup's table run_g, int64 offsets in place of the JAX one-hot
-matrices.  Reads over L_CAP take ``counts``: one
+matrices; a stack's runs are contiguous per subgroup, a CSR (run_off)
+that K2n sums in the kernel.  Reads over L_CAP take ``counts``: one
 activity-masked probe launch per IXF in BFS order, the descent decided on
 the host.
 
@@ -47,9 +48,9 @@ from ..hash.device_syncmer import hash_cap
 from ..hash.schemes import scaling_threshold_u64
 from ..hixf.container import HIXF
 from .e2e import (ActivityStats, fused_e2e_step, make_hixf_e2e_grouped_fn,
-                  run_sums, segment_sums, topk_desc)
+                  run_sums, topk_desc)
 from .probe import (pad_bins, pad_fingerprints, probe_counts,
-                    probe_counts_grouped)
+                    probe_run_sums_grouped)
 
 # threshold models that depend on the hash count only, which the
 # count-indexed descent table covers (the JAX COUNT_ONLY_KINDS)
@@ -107,8 +108,8 @@ class DeviceHIXF:
         self._thr_tables: dict = {}
         self._e2e_fns: dict = {}
         # per IXF of a hierarchy: (its subgroup's table as a stack of one
-        # [1, S, Bpad] and its runs: table 0, column starts, ends) for
-        # ``counts``
+        # [1, S, Bpad] and its runs: the CSR [0, n_runs], column starts,
+        # ends) for ``counts``
         self._ixf_probe: dict[int, tuple] = {}
         dev = self.device
         if len(self.ixfs) == 1:
@@ -317,7 +318,14 @@ class DeviceHIXF:
         groups = []
         for g in stacked:
             tables = torch.from_numpy(g["tables"]).to(dev)
-            run_g, run_s, run_e = t(g["run_g"]), t(g["run_s"]), t(g["run_e"])
+            # the runs of one subgroup are contiguous (_stack_host_groups
+            # concatenates them subgroup by subgroup): a CSR over G
+            G = g["tables"].shape[0]
+            if np.any(np.diff(g["run_g"]) < 0):
+                raise AssertionError("a subgroup's runs are not contiguous")
+            run_off = t(np.concatenate(
+                [[0], np.cumsum(np.bincount(g["run_g"], minlength=G))]))
+            run_s, run_e = t(g["run_s"]), t(g["run_e"])
             sub_of = {b: gi for gi, sub in enumerate(g["sub_members"])
                       for b in sub}
             members = g["members"]
@@ -325,7 +333,7 @@ class DeviceHIXF:
                     for r, c in ks]
             leaves = [(b, int(x)) for b, _, _, _, ls in members for x in ls]
             groups.append(dict(
-                tables=tables, seed=g["seed"], bl=g["bl"], run_g=run_g,
+                tables=tables, seed=g["seed"], bl=g["bl"], run_off=run_off,
                 run_s=run_s, run_e=run_e,
                 member_bfs=t([m[0] for m in members]),
                 member_sub=t([sub_of[m[0]] for m in members]),
@@ -337,8 +345,8 @@ class DeviceHIXF:
             for b, ro, n, _, _ in members:
                 gi = sub_of[b]
                 self._ixf_probe[self.bfs_order[b]] = (
-                    tables[gi:gi + 1], torch.zeros_like(run_s[ro:ro + n]),
-                    run_s[ro:ro + n], run_e[ro:ro + n])
+                    tables[gi:gi + 1], t([0, n]), run_s[ro:ro + n],
+                    run_e[ro:ro + n])
         return groups
 
     # --------------------------------------------------------- dispatch --
@@ -437,7 +445,9 @@ class DeviceHIXF:
         (pack_hash_lists) and int64 thresholds [R].
 
         One activity-masked probe launch per IXF in BFS order, each on
-        its subgroup's table; an IXF no read descends into is skipped.
+        its subgroup's table and summed into the IXF's runs in the kernel
+        (probe_run_sums_grouped); an IXF no read descends into is
+        skipped.
         ``emitted[r, u]`` replicates the reference's emission rule: the
         user bin's split-run sum reached the threshold AND every merged
         bin on the path down was descended."""
@@ -453,12 +463,12 @@ class DeviceHIXF:
             act = active.get(i)
             if act is None or not act.any():
                 continue
-            tables, run_g, run_s, run_e = self._ixf_probe[i]
-            c = probe_counts_grouped(
+            tables, run_off, run_s, run_e = self._ixf_probe[i]
+            sums = probe_run_sums_grouped(
                 hi_t, lo_t, valid_t, tables,
-                torch.from_numpy(act[None]).to(dev), info.seed,
-                info.block_length, route="host_hashes")
-            sums = segment_sums(c, run_g, run_s, run_e).T.cpu().numpy()
+                torch.from_numpy(act[None]).to(dev), run_off, run_s, run_e,
+                info.seed, info.block_length,
+                route="host_hashes").T.cpu().numpy()
             run_sums_h[i] = sums.astype(np.int64)
             for r, child in enumerate(info.run_children):
                 if child >= 0:

@@ -1,4 +1,4 @@
-"""IXF probe/count: CUDA kernels K2 and K2n and their plain twin.
+"""IXF probe/count: CUDA kernels K2 and K2n and their plain twins.
 
 Counterpart of ``taxor_tpu/device/probe.py`` (the XLA gather
 ``count_xla`` and ``pad_fingerprints``) and of the Pallas probe family
@@ -13,22 +13,37 @@ validity mask, as K1 returns them, and the IXF's seed and block length;
 the probe slots and fingerprints come from ``mix_split`` as in
 ``ixf/xor_filter.compute_probes``.
 
-``probe_counts_grouped`` probes a stack of G tables of one geometry (the
-subgroups of a descent level, device/hixf_search.py) with a per-(g, r)
-activity mask; an inactive read gets zero counts and costs no probe.  It
-replaces the TPU's ``lax.scan`` over stacked subgroups and its zero trip
-counts (``pallas_probe._body_counts``).  ``probe_counts`` is its G = 1,
-all-active case.  On a CUDA tensor a table of at most ``NARROW_MAX_BINS``
-bins goes to K2n (``csrc/probe_narrow.cu``, the port of
-``pallas_probe._kernel_repl``) and a wider one to K2, the port of the
-other five probe kernels; on a CPU tensor both take the gather twin.  K2
-has two variants, chosen by the shape (``slab_bins``): the slab route
+``probe_counts_grouped`` probes a stack of G tables of one geometry with
+a per-(g, r) activity mask into dense int32 [G, R, Bpad] counts (an
+inactive read gets zeros); ``probe_counts`` is its G = 1, all-active
+case, which the flat fused step takes.  ``probe_run_sums_grouped`` is
+what the hierarchical descent takes (device/e2e.descend,
+device/hixf_search.DeviceHIXF.counts): the same probe of a descent
+group's subgroups, summed into each subgroup's runs of bins, int32
+[n_runs, R].  On a group of at most ``NARROW_MAX_BINS`` bins (every
+stacked group, and every IXF of a layout built with tmax <= 512) K2n
+sums the runs in the kernel, with no dense counts in between; a wider
+group (an IXF of more than 512 bins, which ``_stack_host_groups`` gives
+a group of its own) takes K2's dense counts and their segment sums.  It
+replaces the TPU's ``lax.scan`` over stacked subgroups, its zero trip
+counts (``pallas_probe._body_counts``) and its one-hot run matmul.
+
+On a CUDA tensor a table of at most ``NARROW_MAX_BINS`` bins goes to K2n
+(``csrc/probe_narrow.cu``, the port of ``pallas_probe._kernel_repl``),
+whose dense counts are its case of one-bin runs, and a wider one to K2,
+the port of the other five probe kernels (``_probe_call_chunked``'s
+kernels); on a CPU tensor both take the gather twins.  The shape picks each kernel's variant: K2's slab route
 (``csrc/probe_slab.cu``) holds the table in shared memory one bin slab
 at a time, as the TPU kernels held a bin tile in VMEM, where a slab fits
-one block; the rows route (``csrc/probe.cu``) reads the rows from L2.
+one block (``slab_bins``), else its rows route (``csrc/probe.cu``) reads
+the rows from L2; K2n's smem mode holds a whole subgroup table in a
+block's shared memory where it fits (``narrow_mode``), else its rows
+mode reads the rows from L2.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -106,12 +121,38 @@ def probe_counts_plain(hi, lo, valid, table, seed: int, block_length: int):
                                       seed, block_length)[0]
 
 
-def _launch(name: str, hi, lo, valid, tables, active, seed: int,
-            block_length: int, slab: int | None = None) -> torch.Tensor:
-    """Check the inputs of kernel ``name`` (launch_probe_count or
-    launch_probe_count_narrow) and launch it; int32 [G, R, Bpad].  ``slab``:
-    launch_probe_count's slab width (0: the rows route); the scratch of the
-    slab route's records is allocated here."""
+def segment_sums(counts: torch.Tensor, run_g: torch.Tensor,
+                 run_s: torch.Tensor, run_e: torch.Tensor) -> torch.Tensor:
+    """int32 [n_runs, R]: run j sums columns [run_s[j], run_e[j]) of table
+    run_g[j] of counts [G, R, Bpad] — exact int64 segment sums of the
+    cumulative sum along the bins (runs are never empty)."""
+    cs = torch.cumsum(counts, dim=2, dtype=torch.int64)
+    end = cs[run_g, :, run_e - 1]
+    start = torch.where((run_s > 0)[:, None],
+                        cs[run_g, :, (run_s - 1).clamp(min=0)], 0)
+    return (end - start).to(torch.int32)
+
+
+def run_groups(run_off: torch.Tensor) -> torch.Tensor:
+    """int64 [n_runs]: the subgroup of each run of the CSR run_off."""
+    G = run_off.shape[0] - 1
+    return torch.repeat_interleave(torch.arange(G, device=run_off.device),
+                                   run_off[1:] - run_off[:-1])
+
+
+def probe_run_sums_grouped_plain(hi, lo, valid, tables, active, run_off,
+                                 run_s, run_e, seed: int,
+                                 block_length: int) -> torch.Tensor:
+    """Plain PyTorch twin of probe_run_sums_grouped: the dense counts of
+    probe_counts_grouped_plain, then their segment sums."""
+    counts = probe_counts_grouped_plain(hi, lo, valid, tables, active, seed,
+                                        block_length)
+    return segment_sums(counts, run_groups(run_off), run_s, run_e)
+
+
+def _check(name: str, hi, lo, valid, tables, active,
+           block_length: int) -> tuple[int, int, int, int, int]:
+    """Check the inputs of probe kernel ``name``; (G, S, Bpad, R, H)."""
     if tables.dtype != torch.uint8 or tables.dim() != 3:
         raise ValueError(f"{name}: tables must be uint8 [G, S, Bpad]")
     G, S, Bp = tables.shape
@@ -135,25 +176,32 @@ def _launch(name: str, hi, lo, valid, tables, active, seed: int,
     if not (0 < block_length and 3 * block_length <= S < 2**31):
         raise ValueError(f"{name}: block_length {block_length} does not "
                          f"fit {S} slots")
+    return G, S, Bp, R, H
+
+
+def _launch(hi, lo, valid, tables, active, seed: int, block_length: int,
+            slab: int) -> torch.Tensor:
+    """Launch K2 (launch_probe_count) after the checks; int32 [G, R,
+    Bpad].  ``slab``: the slab width (0: the rows route); the scratch of
+    the slab route's records is allocated here."""
+    name = "launch_probe_count"
+    G, S, Bp, R, H = _check(name, hi, lo, valid, tables, active,
+                            block_length)
     out = torch.empty((G, R, Bp), dtype=torch.int32, device=tables.device)
-    extra = ()  # launch_probe_count's (slab_bins, rec, nrec)
-    if slab is not None:
-        rec = nrec = None
-        if slab:
-            if Bp % 16 or tables.data_ptr() % 16:
-                raise ValueError(f"{name}: the slab route takes a Bpad that "
-                                 "is a multiple of 16 on 16-byte aligned "
-                                 "rows")
-            rec = torch.empty((R, H), dtype=torch.int64, device=out.device)
-            nrec = torch.empty(R, dtype=torch.int32, device=out.device)
-        extra = (slab, *(None if x is None else x.data_ptr()
-                         for x in (rec, nrec)))
-    err = getattr(cuda_build.lib(), name)(
+    rec = nrec = None
+    if slab:
+        if Bp % 16 or tables.data_ptr() % 16:
+            raise ValueError(f"{name}: the slab route takes a Bpad that is "
+                             "a multiple of 16 on 16-byte aligned rows")
+        rec = torch.empty((R, H), dtype=torch.int64, device=out.device)
+        nrec = torch.empty(R, dtype=torch.int32, device=out.device)
+    err = cuda_build.lib().launch_probe_count(
         hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, H,
         tables.data_ptr(), G, S, Bp,
         None if active is None else active.data_ptr(),
-        int(seed) & (2**64 - 1), int(block_length), *extra, out.data_ptr(),
-        cuda_build.stream_of(tables))
+        int(seed) & (2**64 - 1), int(block_length), slab,
+        *(None if x is None else x.data_ptr() for x in (rec, nrec)),
+        out.data_ptr(), cuda_build.stream_of(tables))
     cuda_build.check(err, name)
     return out
 
@@ -191,30 +239,107 @@ def k2_counts(hi, lo, valid, tables, active, seed: int, block_length: int,
         if variant == "slab" and not b:
             raise ValueError(f"k2_counts: no slab of tables "
                              f"{list(tables.shape)} fits shared memory")
-    out = _launch("launch_probe_count", hi, lo, valid, tables, active, seed,
-                  block_length, b)
+    out = _launch(hi, lo, valid, tables, active, seed, block_length, b)
     if out.numel():
-        cuda_build.count_launch(k2_counts, route, "slab" if b else "rows")
+        cuda_build.count_launch(k2_counts, route, k2_counts.VARIANTS,
+                                "slab" if b else "rows")
+    return out
+
+
+def narrow_mode(S: int, Bpad: int, device: torch.device) -> str:
+    """K2n's mode for tables [S, Bpad] on CUDA ``device``
+    (probe_narrow_mode of csrc/probe_narrow.cu): "smem" where a whole
+    table and the block's scratch fit one block's shared memory, else
+    "rows".  A function of the shape and of the card's shared memory a
+    block, never of a launch's outcome."""
+    idx = torch.device(device).index
+    return _narrow_mode(S, Bpad,
+                        torch.cuda.current_device() if idx is None else idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_mode(S: int, Bpad: int, index: int) -> str:
+    m = cuda_build.lib().probe_narrow_mode(S, Bpad, index)
+    if m < 0:
+        raise RuntimeError("probe_narrow_mode: CUDA error")
+    return "smem" if m else "rows"
+
+
+def _launch_narrow(hi, lo, valid, tables, active, runs, seed: int,
+                   block_length: int, route: str | None,
+                   mode: str | None) -> torch.Tensor:
+    """Launch K2n after the checks: int32 [n_runs, R] run sums for runs
+    = (run_off, run_s, run_e), int32 [G, R, Bpad] counts for runs None.
+    The shape picks the mode (narrow_mode) unless ``mode`` forces one
+    ("smem" raises where a table does not fit); the launch is counted in
+    k2n_counts.LAUNCHES, .ROUTES and .MODES."""
+    name = "launch_probe_narrow"
+    G, S, Bp, R, H = _check(name, hi, lo, valid, tables, active,
+                            block_length)
+    if Bp > NARROW_MAX_BINS or Bp % 16 or tables.data_ptr() % 16:
+        raise ValueError(f"{name}: Bpad {Bp} exceeds {NARROW_MAX_BINS} "
+                         "bins or is no multiple of 16 on 16-byte aligned "
+                         "tables")
+    if mode not in (None, "smem", "rows"):
+        raise ValueError(f"{name}: unknown mode {mode!r}")
+    fits = narrow_mode(S, Bp, tables.device)
+    if mode == "smem" and fits != "smem":
+        raise ValueError(f"{name}: tables {list(tables.shape)} do not fit "
+                         "shared memory")
+    mode = mode or fits
+    if runs is None:
+        out = torch.empty((G, R, Bp), dtype=torch.int32,
+                          device=tables.device)
+        ptrs, n_runs = (None, None, None), 0
+    else:
+        run_off, run_s, run_e = runs
+        n_runs = run_s.shape[0]
+        for arg, x, n in (("run_off", run_off, G + 1), ("run_s", run_s, n_runs),
+                          ("run_e", run_e, n_runs)):
+            if (x.dtype != torch.int64 or x.shape != (n,)
+                    or x.device != tables.device or not x.is_contiguous()):
+                raise ValueError(f"{name}: {arg} must be int64 [{n}] on the "
+                                 "tables' device")
+        out = torch.empty((n_runs, R), dtype=torch.int32,
+                          device=tables.device)
+        ptrs = tuple(x.data_ptr() for x in runs)
+    err = cuda_build.lib().launch_probe_narrow(
+        hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, H,
+        tables.data_ptr(), G, S, Bp,
+        None if active is None else active.data_ptr(),
+        int(seed) & (2**64 - 1), int(block_length), *ptrs, n_runs,
+        1 if mode == "smem" else 0, out.data_ptr(),
+        cuda_build.stream_of(tables))
+    cuda_build.check(err, name)
+    if out.numel():
+        cuda_build.count_launch(k2n_counts, route, k2n_counts.MODES, mode)
     return out
 
 
 def k2n_counts(hi, lo, valid, tables, active, seed: int, block_length: int,
-               route: str | None = None) -> torch.Tensor:
+               route: str | None = None,
+               mode: str | None = None) -> torch.Tensor:
     """K2n (csrc/probe_narrow.cu): the contract of k2_counts for tables
-    of at most NARROW_MAX_BINS bins."""
-    if tables.dim() == 3 and tables.shape[2] > NARROW_MAX_BINS:
-        raise ValueError(f"k2n_counts: Bpad {tables.shape[2]} exceeds "
-                         f"{NARROW_MAX_BINS} bins")
-    out = _launch("launch_probe_count_narrow", hi, lo, valid, tables,
-                  active, seed, block_length)
-    if out.numel():
-        cuda_build.count_launch(k2n_counts, route)
-    return out
+    of at most NARROW_MAX_BINS bins, its case of one-bin runs.  mode:
+    "smem" or "rows" forces one (see _launch_narrow)."""
+    return _launch_narrow(hi, lo, valid, tables, active, None, seed,
+                          block_length, route, mode)
+
+
+def k2n_run_sums(hi, lo, valid, tables, active, run_off, run_s, run_e,
+                 seed: int, block_length: int, route: str | None = None,
+                 mode: str | None = None) -> torch.Tensor:
+    """K2n on CUDA tensors: int32 [n_runs, R] run sums (the contract of
+    probe_run_sums_grouped) of tables of at most NARROW_MAX_BINS bins."""
+    return _launch_narrow(hi, lo, valid, tables, active,
+                          (run_off, run_s, run_e), seed, block_length, route,
+                          mode)
 
 
 k2_counts.LAUNCHES = k2n_counts.LAUNCHES = 0
 k2_counts.ROUTES, k2n_counts.ROUTES = {}, {}
 k2_counts.VARIANTS = {}
+k2n_counts.MODES = {}
 
 
 def probe_counts_grouped(hi: torch.Tensor, lo: torch.Tensor,
@@ -244,6 +369,35 @@ def probe_counts(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
         raise ValueError("probe_counts: table must be uint8 [S, Bpad]")
     return probe_counts_grouped(hi, lo, valid, table[None], None, seed,
                                 block_length, route)[0]
+
+
+def probe_run_sums_grouped(hi: torch.Tensor, lo: torch.Tensor,
+                           valid: torch.Tensor, tables: torch.Tensor,
+                           active: torch.Tensor | None,
+                           run_off: torch.Tensor, run_s: torch.Tensor,
+                           run_e: torch.Tensor, seed: int, block_length: int,
+                           route: str | None = None) -> torch.Tensor:
+    """int32 [n_runs, R] run sums of reads [R, H] against the subgroup
+    tables uint8 [G, S, Bpad]: run j of subgroup g (run_off[g] <= j <
+    run_off[g + 1], int64 CSR [G + 1]) sums g's per-bin counts over
+    columns [run_s[j], run_e[j]), 0 where active[g, r] is False; exactly
+    segment_sums(probe_counts_grouped(...), run_groups(run_off), run_s,
+    run_e).  On a CUDA tensor K2n's run sums for tables of at most
+    NARROW_MAX_BINS bins, K2's dense counts and their segment sums for a
+    wider group; the plain twin on a CPU tensor."""
+    if tables.device.type == "cpu":
+        return probe_run_sums_grouped_plain(hi, lo, valid, tables, active,
+                                            run_off, run_s, run_e, seed,
+                                            block_length)
+    if tables.device.type != "cuda":
+        raise ValueError(f"probe_run_sums: unsupported device "
+                         f"{tables.device}")
+    if tables.dim() == 3 and tables.shape[2] > NARROW_MAX_BINS:
+        counts = k2_counts(hi, lo, valid, tables, active, seed, block_length,
+                           route)
+        return segment_sums(counts, run_groups(run_off), run_s, run_e)
+    return k2n_run_sums(hi, lo, valid, tables, active, run_off, run_s, run_e,
+                        seed, block_length, route)
 
 
 def pack_hash_lists(hash_lists, Hpad: int):

@@ -5,7 +5,10 @@ The port's copy of the JAX package's test helpers (tests/util.py:
 the benchmark's problems (bench.py: ``build_problem``,
 ``_mixed_length_reads``).  The random draws come in the same order, so
 one seed writes the same taxonomy TSV, genome FASTAs and reads, byte for
-byte (tests/test_torch_tools.py holds them equal).
+byte (tests/test_torch_tools.py holds them equal).  Beside them,
+``write_wide_root_layout`` writes a hierarchical layout whose root is
+wider than 512 bins, which the layout's own search does not give at a
+size the tests can build.
 """
 
 from __future__ import annotations
@@ -139,3 +142,33 @@ def mixed_length_reads(tmp: str, seed: int = 17, n_reads: int = 192):
                 seq[p] = b"ACGT"[int(rng.integers(0, 4))]
             fh.write(f"@r{i}_{acc}\n{seq.decode()}\n+\n{'I' * ln}\n")
     return tsv, gdir, out
+
+
+def write_wide_root_layout(files: list[str], path: str, split: int = 8,
+                           child: int = 10) -> int:
+    """Write a layout file (the build's binning.out format, for
+    ``BuildConfig(resume=True, layout_file=path)``) whose root is wider
+    than most: files[0] split over ``split`` technical bins, then one bin
+    for each file but the last 2 * ``child``, which fill two merged bins
+    of ``child`` bins each.  Returns the root's technical bins: past 512
+    (544 bins padded) at 540 files, so that its descent group is a
+    single IXF wider than K2n's domain."""
+    from ..hixf.layout import LayoutNode, LayoutRecord, write_layout
+
+    n_root = len(files) - 2 * child
+    if n_root < 1 or child < 1:
+        raise ValueError("write_wide_root_layout: too few files")
+    root = LayoutNode(max_bin_index=0)
+    root.records.append(LayoutRecord([files[0]], 0, split))
+    for i, f in enumerate(files[1:n_root]):
+        root.records.append(LayoutRecord([f], split + i, 1))
+    nb = split + n_root - 1
+    for m in range(2):
+        kid = LayoutNode(max_bin_index=0, num_technical_bins=child)
+        for j in range(child):
+            kid.records.append(
+                LayoutRecord([files[n_root + m * child + j]], j, 1))
+        root.children[nb + m] = kid
+    root.num_technical_bins = nb + 2
+    write_layout(root, path)
+    return root.num_technical_bins

@@ -251,6 +251,106 @@ def test_k2_routes_match_twin(cuda, variant, bl, bins, G):
     assert int(got[:, R - 1].abs().sum()) == 0
 
 
+def run_csr(rng, G, bins):
+    """int64 CSR (run_off, run_s, run_e): one-bin runs, runs over many
+    bins with unused columns between them, subgroup 0 one run over all
+    of its bins, subgroup 1 none."""
+    offs, starts, ends = [0], [], []
+    for g in range(G):
+        if g == 0:
+            starts.append(0)
+            ends.append(bins)
+        elif g != 1:
+            col = 0
+            while col < bins:
+                e = min(bins, col + int(rng.choice([1, 1, 3, 16, 60])))
+                starts.append(col)
+                ends.append(e)
+                col = e + int(rng.integers(0, 3))
+        offs.append(len(starts))
+    return [np.array(x, dtype=np.int64) for x in (offs, starts, ends)]
+
+
+def narrow_inputs(rng, G, bins, R=48, H=2304, bl=72):
+    """Hashes (read 0 all fingerprint 0: sums above 256; read 1 all
+    invalid) and G tables of 3 bl slots with zero columns."""
+    from taxor_tpu_torch.utils.u64np import fingerprint8, mix_split
+
+    Bp = probe.pad_bins(bins)
+    tables = np.zeros((G, 3 * bl, Bp), dtype=np.uint8)
+    tables[:, :, :bins] = rng.integers(0, 256, (G, 3 * bl, bins))
+    tables[:, :, ::7] = 0
+    seed = int(rng.integers(0, 2**63))
+    pool = rng.integers(0, 2**64, 1 << 20, dtype=np.uint64)
+    keys = rng.integers(0, 2**64, (R, H), dtype=np.uint64)
+    keys[0] = pool[fingerprint8(mix_split(pool, seed)) == 0][:H]
+    valid = rng.random((R, H)) < 0.7
+    valid[0], valid[1] = True, False
+    hi = (keys >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return [np.ascontiguousarray(x) for x in (hi, lo, valid)], tables, seed
+
+
+@pytest.mark.parametrize("mode", ["smem", "rows"])
+@pytest.mark.parametrize("share", [0.0, 0.005, 0.6, 1.0])
+@pytest.mark.parametrize("G,bins", [(1, 16), (8, 100), (72, 512)])
+def test_k2n_run_sums_match_twin(cuda, G, bins, share, mode):
+    """K2n's run sums in both modes: tables of 216 slots (the widest
+    descent group's; 100 bins: B4 = 25), activity 0 to 100%, one launch
+    a call."""
+    rng = np.random.default_rng(G + bins)
+    keys, tables, seed = narrow_inputs(rng, G, bins)
+    active = rng.random((G, keys[0].shape[0])) < share
+    if share:
+        active[0, 0] = True
+    runs = run_csr(rng, G, bins)
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (*keys, tables, active, *runs)]
+    assert probe.narrow_mode(216, tables.shape[2], cuda) == "smem"
+    before = probe.k2n_counts.LAUNCHES, probe.k2n_counts.MODES.get(mode, 0)
+    got = probe.k2n_run_sums(*args, seed, 72, mode=mode)
+    want = probe.probe_run_sums_grouped_plain(*args, seed, 72)
+    torch.cuda.synchronize()
+    assert probe.k2n_counts.LAUNCHES == before[0] + 1
+    assert probe.k2n_counts.MODES[mode] == before[1] + 1
+    assert got.shape == (runs[1].shape[0], 48) and torch.equal(got, want)
+    assert int(got[:, 1].abs().sum()) == 0
+    assert (int(got[0, 0]) > 256) if share else int(got.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("bins", [16, 100, 512])
+def test_k2n_dense_counts_in_both_modes(cuda, bins):
+    """K2n's dense counts (one-bin runs) in both modes equal the twin."""
+    rng = np.random.default_rng(bins)
+    keys, tables, seed = narrow_inputs(rng, 5, bins)
+    active = rng.random((5, 48)) < 0.5
+    active[:, 0] = True
+    args = [torch.from_numpy(x).to(cuda) for x in (*keys, tables, active)]
+    want = probe.probe_counts_grouped_plain(*args, seed, 72)
+    for mode in ("smem", "rows"):
+        got = probe.k2n_counts(*args, seed, 72, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert int(want[:, 0].max()) > 256
+
+
+def test_k2n_run_sums_check_inputs(cuda):
+    z = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    tall = torch.zeros((1, 3000, 512), dtype=torch.uint8, device=cuda)
+    off = torch.tensor([0, 1], dtype=torch.int64, device=cuda)
+    s, e = off[:1], off[1:]
+    assert probe.narrow_mode(3000, 512, cuda) == "rows"
+    with pytest.raises(ValueError, match="do not fit"):
+        probe.k2n_run_sums(z, z, z.bool(), tall, None, off, s, e, 1, 1000,
+                           mode="smem")
+    with pytest.raises(ValueError, match="run_off"):
+        probe.k2n_run_sums(z, z, z.bool(), tall, None, off[:1], s, e, 1,
+                           1000)
+    out = probe.probe_run_sums_grouped(z, z, z.bool(), tall, None, off, s, e,
+                                       1, 1000)
+    assert out.shape == (1, 2) and int(out.abs().sum()) == 0
+
+
 def test_k2_takes_the_rows_route_where_no_slab_fits(cuda):
     z = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
     table = torch.zeros((1, 15000, 2000), dtype=torch.uint8, device=cuda)
@@ -314,9 +414,59 @@ def test_hier_grouped_step_matches_cpu_twins(cuda, tmp_path):
     before = probe.k2n_counts.ROUTES.get("host_hashes", 0)
     dense = [dh.counts(hi, lo, valid, thr) for dh in dhs]
     assert probe.k2n_counts.ROUTES["host_hashes"] > before + 1  # descended
+    assert probe.k2n_counts.MODES.get("smem", 0) > 0
     for a, b in zip(*dense):
         np.testing.assert_array_equal(a, b)
     assert dense[1][1].any(axis=1).all()
+
+
+def test_wide_root_descent_matches_cpu_twins(cuda, tmp_path):
+    """A hierarchical index whose root is wider than 512 bins: on the card
+    its descent group takes K2's dense counts and their segment sums (K2n
+    on the 32-bin group below), in the grouped step and in the per-IXF
+    traversal, and both equal the CPU twins."""
+    import os
+
+    from taxor_tpu_torch.apps.build import BuildConfig, run_build
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.hash.schemes import search_hashes
+    from taxor_tpu_torch.search.thresholds import Thresholder
+    from taxor_tpu_torch.tools.synth import write_wide_root_layout
+
+    from .util import make_ref_set, simulate_read
+
+    rng = np.random.default_rng(29)
+    tsv, gdir, genomes = make_ref_set(str(tmp_path), rng, n_species=540,
+                                      genome_len=600)
+    files = [os.path.join(gdir, f"{acc}_genomic.fna") for acc in genomes]
+    layout = str(tmp_path / "wide.out")
+    assert write_wide_root_layout(files, layout) == 529
+    index = run_build(BuildConfig(
+        input_file=tsv, input_sequence_dir=gdir, output_filename="",
+        kmer_size=22, syncmer_size=12, use_syncmer=True, layout_file=layout,
+        resume=True))
+    seqs = list(genomes.values())
+    reads = [simulate_read(rng, seqs[i], 400, 0.02)
+             for i in [0, 1, *range(520, 540), *rng.integers(1, 520, 40)]]
+    packed, lengths = dsync.pack_reads(reads, 512)
+    th = Thresholder.make(22, 22, 0.04, -1.0, True)
+    dhs = [DeviceHIXF.from_hixf(index.hixf, dev) for dev in ("cpu", cuda)]
+    assert dhs[1].groups[0]["tables"].shape[2] > probe.NARROW_MAX_BINS
+    before = dict(probe.k2_counts.ROUTES), probe.k2n_counts.LAUNCHES
+    out = [dh.e2e_async(packed, lengths, index.scheme, th)() for dh in dhs]
+    for a, b in zip(out[0][:4], out[1][:4]):
+        np.testing.assert_array_equal(a, b)
+    assert (out[1][0][:, 0] > 0).all()
+    hl = search_hashes(reads, index.scheme)
+    thr = np.array([th.get(h.shape[0], 0.0) for h in hl], dtype=np.int64)
+    hi, lo, valid = probe.pack_hash_lists(hl, max(h.shape[0] for h in hl))
+    dense = [dh.counts(hi, lo, valid, thr) for dh in dhs]
+    for a, b in zip(*dense):
+        np.testing.assert_array_equal(a, b)
+    routes = probe.k2_counts.ROUTES
+    for route in ("fused", "host_hashes"):
+        assert routes.get(route, 0) == before[0].get(route, 0) + 1
+    assert probe.k2n_counts.LAUNCHES > before[1]  # the group below
 
 
 def test_wrappers_check_inputs(cuda):

@@ -18,6 +18,7 @@ from taxor_tpu.device import e2e as jax_e2e
 from taxor_tpu.device import pallas_probe
 from taxor_tpu.device.hixf_search import DeviceHIXF as JaxDeviceHIXF
 from taxor_tpu.device.probe import count_xla
+from taxor_tpu.device.probe import pad_fingerprints as jax_pad_fingerprints
 from taxor_tpu.hash.schemes import search_hashes
 from taxor_tpu.hixf.index import save_index
 from taxor_tpu.io.fastx import read_all
@@ -25,14 +26,15 @@ from taxor_tpu.ixf.xor_filter import compute_probes
 from taxor_tpu.search import pipeline as jax_pipeline
 from taxor_tpu.search.thresholds import Thresholder
 from taxor_tpu.utils.u64np import fingerprint8, mix_split
-from taxor_tpu_torch.device import e2e, probe
+from taxor_tpu_torch.device import e2e, hixf_search, probe
 from taxor_tpu_torch.device.e2e import make_hixf_e2e_grouped_fn
 from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 from taxor_tpu_torch.hash import device_syncmer as dsync
 from taxor_tpu_torch.search import pipeline
+from taxor_tpu_torch.tools.synth import write_wide_root_layout
 from taxor_tpu_torch.utils.u64 import split32
 
-from .util import make_reads, make_ref_set, write_fasta
+from .util import make_reads, make_ref_set, simulate_read, write_fasta
 
 
 def build_hier_index(tmp: str):
@@ -335,3 +337,162 @@ def test_k2n_twin_matches_kernel_repl(monkeypatch, bins):
         torch.from_numpy(act)[None], ixf_seed, bl)[0].numpy()
     np.testing.assert_array_equal(got[:, :bins], want[:, :bins])
     assert got[0].max() > 256 and (got[2] == 0).all()
+
+
+def descent_inputs(index, seqs):
+    """K1-twin hashes (hi, lo, valid) and the count-indexed thresholds of
+    the fused reads of seqs, as the grouped step computes them."""
+    dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
+    packed, lengths = fused_reads(seqs)
+    sch = index.scheme
+    hcap = dsync.hash_cap(packed.shape[1] * 4)
+    hi, lo, valid, n_unique, _ = e2e._syncmer_hashes(
+        torch.from_numpy(packed), torch.from_numpy(lengths), sch.kmer_size,
+        sch.syncmer_size, sch.t_syncmer, hcap)
+    thr = torch.from_numpy(dh._thr_table(thresholder_of(index), hcap))[
+        n_unique.clamp(0, hcap).long()]
+    return dh, hi, lo, valid, thr
+
+
+def test_run_sums_twin_matches_jax_onehot(hier_setup):
+    """Every descent group's run sums (probe_run_sums_grouped's twin, the
+    contract K2n computes), with the descent's own activity, against the
+    JAX composite member by member: count_xla on the member IXF's own
+    table under its subgroup's mask, times the JAX DeviceHIXF's one-hot
+    run matrix of that IXF."""
+    index, _, _, seqs = hier_setup
+    dh, hi, lo, valid, thr = descent_inputs(index, seqs)
+    ref = JaxDeviceHIXF(index.hixf, engine="xla")
+    keys = ((hi.numpy().view(np.uint32).astype(np.uint64) << np.uint64(32))
+            | lo.numpy().view(np.uint32).astype(np.uint64))
+    R, H = keys.shape
+    n_nodes = len(dh.bfs_order)
+    partial = 0
+    for gi, g in enumerate(dh.groups):
+        act = e2e.descend(dh.groups, n_nodes, hi, lo, valid, thr, upto=gi)
+        got = probe.probe_run_sums_grouped(
+            hi, lo, valid, g["tables"], act, g["run_off"], g["run_s"],
+            g["run_e"], g["seed"], g["bl"]).numpy()
+        assert got.shape == (g["run_s"].shape[0], R)
+        partial += 0 < int(act.sum()) < act.numel()
+        for (b, ro, n, _, _), sub in zip(g["members"],
+                                         g["member_sub"].tolist()):
+            i = dh.bfs_order[b]
+            jx = ref.ixfs[i]
+            fp = index.hixf.ixfs[i].fingerprints
+            pos, fpr, _ = compute_probes(keys.reshape(-1), jx.seed,
+                                         jx.block_length)
+            mask = valid.numpy() & act[sub].numpy()[:, None]
+            counts = np.asarray(count_xla(
+                jnp.asarray(jax_pad_fingerprints(fp)),
+                jnp.asarray(pos.reshape(R, H, 3).astype(np.int32)),
+                jnp.asarray(fpr.reshape(R, H)), jnp.asarray(mask)))
+            B = fp.shape[1]
+            want = counts[:, :B].astype(np.float64) @ jx.onehot_host[:B]
+            np.testing.assert_array_equal(got[ro:ro + n].T,
+                                          want.astype(np.int32))
+    assert partial >= 1  # a group probed with a mixed activity mask
+
+
+def test_descent_takes_run_sums_not_dense_counts(hier_setup, monkeypatch):
+    """descend and DeviceHIXF.counts reach probe_run_sums_grouped, once a
+    group and once an IXF descended into, and never the dense counts
+    (probe_counts_grouped) or their segment sums."""
+    index, _, _, seqs = hier_setup
+    calls = []
+    real = probe.probe_run_sums_grouped
+
+    def spy(*args, **kw):
+        calls.append(kw["route"])
+        return real(*args, **kw)
+
+    def sentinel(*args, **kw):
+        raise AssertionError("a descent group took dense counts")
+
+    for mod in (e2e, hixf_search):
+        monkeypatch.setattr(mod, "probe_run_sums_grouped", spy)
+    monkeypatch.setattr(e2e, "segment_sums", sentinel)
+    monkeypatch.setattr(probe, "probe_counts_grouped", sentinel)
+    dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
+    packed, lengths = fused_reads(seqs)
+    out = dh.e2e_async(packed, lengths, index.scheme,
+                       thresholder_of(index))()
+    assert calls == ["fused"] * len(dh.groups)
+    assert (out[0][:, 0] > 0).any()
+    calls.clear()
+    hl = search_hashes(seqs[:20], index.scheme)
+    th = thresholder_of(index)
+    thr = np.array([th.get(h.shape[0], 0.0) for h in hl], dtype=np.int64)
+    hi, lo, valid = probe.pack_hash_lists(hl, max(h.shape[0] for h in hl))
+    counts, emitted = dh.counts(hi, lo, valid, thr)
+    assert len(calls) > 1 and set(calls) == {"host_hashes"}
+    assert emitted.any()
+
+
+# -------------------------------------------- a root wider than 512 bins --
+@pytest.fixture(scope="module")
+def wide_setup(tmp_path_factory):
+    """A hierarchical index whose root has 529 technical bins (544
+    padded, past K2n's domain: the root is a descent group of its own on
+    K2's route), built from a hand-written layout (write_wide_root_layout)
+    over 540 genomes of 600 b; 48 reads of 400 b, 2% errors, from the
+    split genome, root genomes and both children, then one read over
+    L_CAP.  Returns (index, sequences)."""
+    tmp = str(tmp_path_factory.mktemp("torch_wide"))
+    rng = np.random.default_rng(29)
+    tsv, gdir, genomes = make_ref_set(tmp, rng, n_species=540,
+                                      genome_len=600)
+    files = [os.path.join(gdir, f"{acc}_genomic.fna") for acc in genomes]
+    layout = os.path.join(tmp, "wide.out")
+    assert write_wide_root_layout(files, layout) == 529
+    index = run_build(BuildConfig(
+        input_file=tsv, input_sequence_dir=gdir, output_filename="",
+        kmer_size=22, syncmer_size=12, use_syncmer=True, layout_file=layout,
+        resume=True))
+    seqs = list(genomes.values())
+    picks = [0, 0, 1, 7, 300, 519, *range(520, 540, 2),
+             *rng.integers(1, 520, 28)]
+    reads = [simulate_read(rng, seqs[i], 400, 0.02) for i in picks]
+    return index, reads + [b"".join(seqs[:60])]
+
+
+def test_wide_root_grouped_step_matches_jax(wide_setup):
+    """The grouped step on an index whose root is wider than 512 bins (its
+    group on K2's route, summed by segment sums) equals the JAX grouped
+    step (Pallas in interpret mode, its chunked wide probe) element for
+    element."""
+    index, seqs = wide_setup
+    dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
+    assert dh.groups[0]["tables"].shape[2] > probe.NARROW_MAX_BINS
+    th = thresholder_of(index)
+    packed, lengths = fused_reads(seqs)
+    ref = JaxDeviceHIXF(index.hixf, engine="pallas")
+    ref._interpret = True
+    assert ref.e2e_capable(th) and dh.e2e_capable(th)
+    want = ref.e2e_async(packed, lengths, index.scheme, th)()
+    got = dh.e2e_async(packed, lengths, index.scheme, th)()
+    for a, b in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(a, b)
+    assert (got[0][:, 0] > 0).all()  # every read reached a leaf
+    assert len(set(got[1][:, 0].tolist())) > 20  # many leaves, both levels
+
+
+def test_wide_root_counts_traversal_matches_jax(wide_setup):
+    """The per-IXF traversal on the wide-root index: (counts, emitted)
+    equal the JAX traversal's (XLA engine), the children descended."""
+    index, seqs = wide_setup
+    th = thresholder_of(index)
+    hl = search_hashes(seqs, index.scheme)
+    thr = np.array([th.get(h.shape[0], 0.0) for h in hl], dtype=np.int64)
+    H = max(h.shape[0] for h in hl)
+    hashes = np.zeros((len(hl), H), dtype=np.uint64)
+    mask = np.zeros((len(hl), H), dtype=bool)
+    for r, h in enumerate(hl):
+        hashes[r, :h.shape[0]] = h
+        mask[r, :h.shape[0]] = True
+    want = JaxDeviceHIXF(index.hixf, engine="xla").counts(hashes, mask, thr)
+    hi, lo, valid = probe.pack_hash_lists(hl, H)
+    got = DeviceHIXF.from_hixf(index.hixf, "cpu").counts(hi, lo, valid, thr)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[1][:, 520:].any()  # reads reached both children

@@ -66,23 +66,30 @@ Phases (any failure exits non-zero):
      activity masks: (a) the dense K2n counts [G, R, Bpad] and their
      int64 segment sums, what the descent took before K2n summed the
      runs, against (b) the run-sum launch, each as the descent calls it
-     (cuda_ms) and on the device alone (device_ms: the launches queued
-     behind a sleep kernel, so the host's gaps are not timed), each
-     group's shape, active pairs, runs and mode logged; K2n's run sums
-     timed against their
-     twin on the root and the widest group, K2 (the variant each shape
+     (cuda_ms) and on the device alone (tools/time_sort.device_ms: the
+     launches queued behind a sleep kernel, so the host's gaps are not
+     timed), each group's shape, active pairs, runs and mode logged;
+     K2n's run sums timed against their twin on the root and the widest
+     group, K2 (the variant each shape
      picks) on the root and the first stacked level;
-  9. K4 (pair sort) against its twin, bit-exact, at W = 100, 128, 8192
-     and 32768 (global scratch) with duplicated keys and keys equal to
-     the sentinel; K3 on a row that breaks min_gap (n_emit = 2**30); and,
+  9. K4 (pair sort) against its twin, bit-exact, at W = 1, 2, 31, 100,
+     128, 1024, 8192, 16384 (the register network at E = 16 and 32) and
+     32768 (global scratch), with duplicated keys, keys equal to the
+     sentinel, a row of equal keys and a row of sentinels; K3 against its
+     twin at every buffer of its register route (Wb = 256-16,384; rows
+     of L = 1,000, no multiple of 16 bytes, take byte loads) and the
+     global-scratch route (gap 1 at L = 32,768), on rows of 0, 1,
+     31-33, 32E +- 1, Wb and Wb + 1 emissions (n_emit = 2**30), of
+     all-equal k-mers and of k-mers equal to the sentinel; and,
      after phase 4, K3 against ``sort.dedup_pairs`` (K4) on the flat
      path's L=8192 reads.  No search path reaches K4 (in the JAX package
      only ``sort_impl="pallas"`` does): its record counts 0 main-path
      launches and, apart, the launches of that one check;
  10. syncmer_track, K3 and K4 timed against their twins, K4 against
      ``torch.sort`` of the combined key, and the split engine's
-     extraction against K1, at the flat path's L=8192 bucket;
-     syncmer_track also on phase 5's batch tied in every window;
+     extraction against K1, at the flat path's L=8192 bucket; K3 and K4
+     also on the device alone (device_ms); syncmer_track also on phase
+     5's batch tied in every window;
  11. the tools' four diagnostic kernels (csrc/diag/) against their plain
      twins, bit-exact: probe_bounds in its five modes and
      probe_experiment in both position layouts, 1, 2 and 4 reads a
@@ -138,7 +145,6 @@ TMAX = 64  # technical bins per IXF of the hierarchical index
 CHECK_READS = 1024  # first reads held byte-equal to --engine host
 SEED = 20261016
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
-HEAD_START_CYCLES = 40_000_000  # device_ms's sleep: ~20 ms at 1.98 GHz
 PEAK_SCALAR = 67e12  # fp32 outside the tensor cores: integer/compare work
 PEAK_INT8 = 1979e12  # int8 (fingerprint bytes)
 
@@ -163,26 +169,6 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps calls whose launches
-    all queue behind a sleep kernel before the first of them starts, so
-    that the host's gaps between calls (Python, the launch) are not
-    timed: the kernels' own time where cuda_ms is bound by the host."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HEAD_START_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
@@ -260,8 +246,8 @@ def check_k1(torch, dsync, extract, sort, rng) -> None:
                          sort.dedup_fused(kmer, emit, hc, gap),
                          sort.dedup_fused_plain(kmer, emit, hc, gap))
         Wb = sort.dedup_width(L, gap)
-        where = ("global scratch" if 64 + 8 * Wb > extract.SMEM_LIMIT
-                 else "shared memory")
+        where = ("global scratch" if Wb > sort.REG_SORT_MAX
+                 else "registers")
         log(f"syncmer_track + K3 L={L} k={k} s={s} t={t}: bit-exact vs "
             f"twins ({int(emit.sum())} emissions; K3 at hcap {hcap} and "
             f"{hcap // 8}, buffer {Wb} in {where})")
@@ -542,7 +528,14 @@ def check_run_sums(torch, probe, rng) -> None:
 
 # ------------------------------------------------------------- K3, K4 --
 def check_sorts(torch, sort, rng) -> None:
-    """K4 at four widths, and K3 on a row that breaks min_gap."""
+    """K4 at four widths, and K3 on a row that breaks min_gap, from the
+    main rng (the draws of the main paths that follow stay as they
+    were); then, from a generator of their own, K4 at every width of
+    time_sort.PAIR_WIDTHS and K3 at every emission count of
+    time_sort.emission_counts, through every branch of their register
+    network and both global-scratch routes."""
+    from taxor_tpu_torch.tools import time_sort
+
     dev = torch.device("cuda")
     R = 64
     for W in (100, 128, 8192, 32768):
@@ -555,8 +548,6 @@ def check_sorts(torch, sort, rng) -> None:
         args = [torch.from_numpy(x).to(dev) for x in (hi, lo)]
         assert_equal(torch, f"K4 W={W}", ("hi", "lo"),
                      sort.sort_pairs(*args), sort.sort_pairs_plain(*args))
-        log(f"K4 [{R}, {W}]: bit-exact vs twin (duplicated and sentinel "
-            f"keys, {'global scratch' if W > 16384 else 'shared memory'})")
     L, gap = 8192, 5
     kmer = torch.from_numpy(rng.integers(0, 2**62, (4, L))).to(dev)
     emit = torch.zeros((4, L), dtype=torch.bool, device=dev)
@@ -571,6 +562,37 @@ def check_sorts(torch, sort, rng) -> None:
         raise AssertionError(f"K3 min_gap overflow: n_emit {got[3]}")
     log(f"K3 min_gap overflow: n_emit {got[3].tolist()} (2**30 on the row "
         "that breaks the gap)")
+
+    own = np.random.default_rng(SEED + 9)
+    for W in time_sort.PAIR_WIDTHS:
+        args = [torch.from_numpy(x.view(np.int32)).to(dev)
+                for x in time_sort.pair_rows(own, R, W)]
+        assert_equal(torch, f"K4 W={W}", ("hi", "lo"),
+                     sort.sort_pairs(*args), sort.sort_pairs_plain(*args))
+    log(f"K4 [{R}, W] at W = {list(time_sort.PAIR_WIDTHS)}: bit-exact vs "
+        f"twin (duplicated keys, sentinel keys, a row of equal keys, a row "
+        f"of sentinels; W > {sort.REG_SORT_MAX} in global scratch)")
+    for L, gap in ((1000, 5), (2048, 1), (8192, 5), (16384, 5),
+                   (32768, 5), (32768, 2), (32768, 1)):
+        counts = time_sort.emission_counts(L, gap)
+        km, em = time_sort.emission_rows(own, L, counts, gap)
+        kmer = torch.from_numpy(km.view(np.int64)).to(dev)
+        emit = torch.from_numpy(em).to(dev)
+        for hcap in (2048, 100):
+            got = sort.dedup_fused(kmer, emit, hcap, gap)
+            assert_equal(torch, f"K3 L={L} min_gap={gap} hcap={hcap}",
+                         ("kmer", "valid", "n_unique", "n_emit"), got,
+                         sort.dedup_fused_plain(kmer, emit, hcap, gap))
+        Wb = sort.dedup_width(L, gap)
+        n_over = int((got[3] == sort.OVERFLOW).sum())
+        if n_over != (Wb < L) or int(got[2][-2]) != 1:
+            raise AssertionError(f"K3 L={L} min_gap={gap}: n_emit "
+                                 f"{got[3].tolist()}, n_unique "
+                                 f"{got[2].tolist()}")
+        log(f"K3 L={L} min_gap={gap} (buffer {Wb}, "
+            f"{'global scratch' if Wb > sort.REG_SORT_MAX else 'registers'}"
+            f"): bit-exact vs twin at {counts} emissions, all-equal and "
+            f"sentinel k-mers, hcap 2048 and 100")
 
 
 # ------------------------------------------------------- main path data --
@@ -1068,6 +1090,7 @@ def time_split(torch, state) -> list[dict]:
     extraction against K1 (phase 10)."""
     from taxor_tpu_torch.device import extract, sort
     from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools.time_sort import device_ms
     from taxor_tpu_torch.utils.u64 import INT64_MIN, join32, split32
 
     dev = torch.device("cuda")
@@ -1096,6 +1119,12 @@ def time_split(torch, state) -> list[dict]:
     hi, lo = split32(torch.where(emit, kmer, torch.full_like(kmer, -1)))
     keys = join32(hi, lo) ^ INT64_MIN
     n_emit = fused[3]
+    Wb = sort.dedup_width(L, gap)
+    # the k-mers K3 needs: the first Wb emissions of a row, as the
+    # 32-byte sectors (the memory's least transfer) that hold one,
+    # counted from this batch
+    needed = emit & (emit.cumsum(1) <= Wb)
+    sectors = float(needed.view(R, L // 4, 4).any(2).sum())
     Wp = L
     cases = (
         ("syncmer_track", "taxor_tpu_torch/csrc/extract.cu",
@@ -1111,10 +1140,12 @@ def time_split(torch, state) -> list[dict]:
          "taxor_tpu/device/pallas_sort.py:68",
          lambda: sort.dedup_fused(kmer, emit, hcap, gap),
          lambda: sort.dedup_fused_plain(kmer, emit, hcap, gap), None, 20,
-         # kmer + emit in; kmer, valid, counts out; a scan of the row and
-         # the sort network over the emissions
-         bound(9 * R * L + 9 * R * hcap + 8 * R,
-               R * L + sort_ops(n_emit.tolist()), PEAK_SCALAR)),
+         # emit read whole and the needed k-mers' sectors in; kmer,
+         # valid, counts out; a scan of the row and the sort network over
+         # the emissions
+         bound(R * L + 32 * sectors + 9 * R * hcap + 8 * R,
+               R * L + sort_ops(n_emit.clamp(max=Wb).tolist()),
+               PEAK_SCALAR)),
         ("sort_pairs", "taxor_tpu_torch/csrc/sort_pairs.cu",
          "taxor_tpu/device/pallas_sort.py:62",
          lambda: sort.sort_pairs(hi, lo),
@@ -1132,6 +1163,10 @@ def time_split(torch, state) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, **bnd, "library_ms": lib_ms})
+        if name != "syncmer_track":  # K3, K4: the kernel alone, host gaps out
+            rows[-1]["device_ms"] = device_ms(fn, reps, rounds=1)
+            log(f"time {name} on the device alone: "
+                f"{rows[-1]['device_ms']:.4f} ms")
 
     tpk, tln = state["all_tied"]
     assert_equal(torch, "syncmer_track on reads tied everywhere",
@@ -1182,6 +1217,7 @@ def time_hier(torch, state) -> list[dict]:
     from taxor_tpu_torch.device import extract, probe
     from taxor_tpu_torch.device.e2e import descend
     from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools.time_sort import device_ms
 
     dev = torch.device("cuda")
     dh = state["dh"]
@@ -1220,8 +1256,8 @@ def time_hier(torch, state) -> list[dict]:
                          (dense(), fused()), (want, want))
             a1, b1 = cuda_ms(dense, 10), cuda_ms(fused, 20)
             b2, a2 = cuda_ms(fused, 20), cuda_ms(dense, 10)
-            da1, db1 = device_ms(dense, 10), device_ms(fused, 20)
-            db2, da2 = device_ms(fused, 20), device_ms(dense, 10)
+            da1, db1 = device_ms(dense, 10, 1), device_ms(fused, 20, 1)
+            db2, da2 = device_ms(fused, 20, 1), device_ms(dense, 10, 1)
             n_runs = int(g["run_s"].shape[0])
             row = {"L": L, "R": R, "shape": list(tables.shape),
                    "active_pairs": int(act.sum()), "pairs": act.numel(),

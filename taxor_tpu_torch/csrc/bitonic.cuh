@@ -1,5 +1,7 @@
-// Block-wide bitonic sort of 64-bit keys, shared by K1 (extract.cu), K3
-// (dedup.cu) and K4 (sort_pairs.cu).
+// Block-wide bitonic sort of 64-bit keys in shared or global memory: the
+// network of K1 (extract.cu) and of the global-scratch routes of K3
+// (dedup.cu) and K4 (sort_pairs.cu), for rows wider than 16,384 keys.
+// K3 and K4 sort narrower rows in registers (regsort.cuh).
 //
 // The counterpart of taxor_tpu/device/pallas_sort.py _bitonic_body, the
 // network the TPU kernels ran over lane rotations of a VMEM tile.  Here

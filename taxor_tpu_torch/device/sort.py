@@ -20,6 +20,12 @@ Counterpart of ``taxor_tpu/device/pallas_sort.py``:
     dedups through it, the JAX package's ``sort_impl="pallas"`` route;
     like that route, no search path reaches it.
 
+Both kernels sort a row of up to ``REG_SORT_MAX`` keys in registers, on
+the network of ``csrc/regsort.cuh`` (E keys a thread; warp shuffles; a
+shared-memory transpose there and back a merge for the strides across
+warps), and a wider row in a global scratch row the wrapper allocates,
+on the shared-memory network of ``csrc/bitonic.cuh``.
+
 A CUDA tensor goes to the kernel, a CPU tensor to the twin; any other
 device raises.
 """
@@ -31,10 +37,12 @@ import torch
 from ..hash.device_syncmer import dedup_kmers
 from ..utils.u64 import join32, split32, usort_rows
 from . import cuda_build
-from .extract import SMEM_LIMIT
 
 # n_emit of a row with more emissions than the dedup buffer holds
 OVERFLOW = 2**30
+# the widest row K3 and K4 sort in registers (csrc/regsort.cuh); a wider
+# one sorts in a global scratch row the wrapper allocates
+REG_SORT_MAX = 16384
 
 
 def _pow2(n: int) -> int:
@@ -85,7 +93,7 @@ def dedup_fused(kmer: torch.Tensor, emit: torch.Tensor, hcap: int,
     n_unique = torch.empty(R, dtype=torch.int32, device=dev)
     n_emit = torch.empty_like(n_unique)
     scratch = None
-    if 64 + 8 * Wb > SMEM_LIMIT:  # csrc/dedup.cu kHeader
+    if Wb > REG_SORT_MAX:
         scratch = torch.empty((R, Wb), dtype=torch.int64, device=dev)
     err = cuda_build.lib().launch_dedup(
         kmer.data_ptr(), emit.data_ptr(), R, L, hcap, Wb,
@@ -124,7 +132,7 @@ def sort_pairs(hi: torch.Tensor, lo: torch.Tensor):
     out_hi = torch.empty_like(hi)
     out_lo = torch.empty_like(lo)
     scratch = None
-    if 8 * Wp > SMEM_LIMIT:
+    if Wp > REG_SORT_MAX:
         scratch = torch.empty((R, Wp), dtype=torch.int64, device=hi.device)
     err = cuda_build.lib().launch_sort_pairs(
         hi.data_ptr(), lo.data_ptr(), R, W, Wp,

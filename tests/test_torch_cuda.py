@@ -14,6 +14,7 @@ import torch
 from taxor_tpu_torch.device import e2e, extract, probe, sort
 from taxor_tpu_torch.device.e2e import fused_e2e_step
 from taxor_tpu_torch.hash import device_syncmer as dsync
+from taxor_tpu_torch.tools import time_sort
 
 pytestmark = pytest.mark.gpu
 
@@ -98,18 +99,13 @@ def test_dedup_reports_min_gap_overflow(cuda):
     assert got[3].tolist() == [52, sort.OVERFLOW, 52, 52]
 
 
-@pytest.mark.parametrize("W", [100, 128, 8192, 32768])
+@pytest.mark.parametrize("W", time_sort.PAIR_WIDTHS)
 def test_sort_pairs_matches_twin(cuda, W):
-    """Duplicated keys and keys equal to the all-ones sentinel; W = 32768
-    sorts in global scratch."""
-    rng = np.random.default_rng(W)
-    hi = rng.integers(-4, 4, (6, W), dtype=np.int32)
-    lo = rng.integers(-2**31, 2**31, (6, W), dtype=np.int32)
-    hi[:, 1::2] = hi[:, ::2][:, :W // 2]  # every key twice
-    lo[:, 1::2] = lo[:, ::2][:, :W // 2]
-    hi[:, ::7] = -1
-    lo[:, ::7] = -1
-    args = [torch.from_numpy(x).to(cuda) for x in (hi, lo)]
+    """Duplicated keys, keys equal to the all-ones sentinel, a row of
+    equal keys and a row of sentinels; below a warp, odd widths, E = 16
+    and 32 of the register network, and W = 32768 in global scratch."""
+    hi, lo = time_sort.pair_rows(np.random.default_rng(W), 6, W)
+    args = [torch.from_numpy(x.view(np.int32)).to(cuda) for x in (hi, lo)]
     before = sort.sort_pairs.LAUNCHES
     got = sort.sort_pairs(*args)
     want = sort.sort_pairs_plain(*args)
@@ -117,6 +113,31 @@ def test_sort_pairs_matches_twin(cuda, W):
     assert sort.sort_pairs.LAUNCHES == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L,min_gap", [(1000, 5), (2048, 1), (8192, 5),
+                                       (16384, 5), (32768, 5), (32768, 2),
+                                       (32768, 1)])
+def test_dedup_emission_counts_match_twin(cuda, L, min_gap):
+    """K3 on rows of 0, 1, 31-33, 32E +- 1, Wb and Wb + 1 (overflow)
+    emissions, all-equal k-mers and k-mers equal to the sentinel, at
+    every buffer of the register route (Wb 256 to 16,384; L = 1,000 rows
+    are no multiple of 16 bytes: byte loads) and the global-scratch route
+    (gap 1 at L = 32,768)."""
+    rng = np.random.default_rng(L + min_gap)
+    counts = time_sort.emission_counts(L, min_gap)
+    kmer, emit = time_sort.emission_rows(rng, L, counts, min_gap)
+    kmer = torch.from_numpy(kmer.view(np.int64)).to(cuda)
+    emit = torch.from_numpy(emit).to(cuda)
+    for hcap in (2048, 100):
+        got = sort.dedup_fused(kmer, emit, hcap, min_gap)
+        want = sort.dedup_fused_plain(kmer, emit, hcap, min_gap)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    Wb = sort.dedup_width(L, min_gap)
+    assert (got[3] == sort.OVERFLOW).sum() == (Wb < L)
+    assert int(got[2][-2]) == 1 and int(got[2][-1]) > 0
 
 
 def test_dedup_pairs_equals_dedup_fused(cuda):

@@ -35,7 +35,7 @@ from taxor_tpu_torch.tools import (bench, bench_probe, debug_extract,
                                    debug_min,
                                    probe_bounds, probe_experiments,
                                    profile_phases, synth, time_extract,
-                                   timing)
+                                   time_sort, timing)
 
 from .test_torch_extract import reads as extract_reads
 from .util import make_reads, make_ref_set
@@ -443,6 +443,18 @@ def test_time_extract_runs_on_the_twins(capsys):
         assert out[batch]["equal"] and out[batch]["reads"] == 3
         assert out[batch]["emissions"] > 0
         assert out[batch]["syncmer_extract_ms"] > 0
+
+
+def test_time_sort_runs_on_the_twins(capsys):
+    assert time_sort.main(["--L", "256", "--reads", "3", "--device",
+                           "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and (out["L"], out["reads"]) == (256, 3)
+    assert out["equal"] == {"dedup": True, "dedup_no_emit": True,
+                            "sort_pairs": True}
+    assert out["emissions"]["min"] > 0 and out["dedup_width"] == 64
+    for name in ("dedup", "dedup_no_emit", "sort_pairs", "torch_sort"):
+        assert out[f"{name}_ms"] > 0 and out[f"{name}_device_ms"] > 0
 
 
 def test_profile_phases_on_the_twins():

@@ -94,8 +94,16 @@ Phases (any failure exits non-zero):
      twins, bit-exact: probe_bounds in its five modes and
      probe_experiment in both position layouts, 1, 2 and 4 reads a
      thread, 4, 8 and 16 ALU rounds and the position-word flood (K = 2,
-     4, 8), at R=256 on the TPU tools' geometry (2,419 slots x 512 bins)
-     and on the flat cell's table; extract_stage in all ten stages at
+     4, 8), at R=256 with reads of no hash and past their row of words,
+     on the TPU tools' geometry (2,419 slots x 512 bins), the flat
+     cell's table, a ragged last slab (100 bins), slabs of 16 bins
+     (10,000 slots), a table past the shared memory (20,000 slots) and
+     rows of words that 16-byte loads
+     cannot take; each through the route its shape
+     picks (ROUTES checked) and, where that is the slab route, through
+     the rows route too; on tables where every hash hits every bin
+     (counts up to 512 a read, and 2,048 on slabs of 128 bins); then
+     extract_stage in all ten stages at
      every length bucket 256..32768 on phase 2's kinds of reads; and
      window_shift for all 16 phases on the same reads' stream words;
  12. the tooling path, with every launch count set to 0 just before it:
@@ -106,10 +114,15 @@ Phases (any failure exits non-zero):
      sizes (R=8192, H=512, nvalid=173; build_problem's 8,192 reads), and
      ``tools.debug_extract --stage all`` and ``tools.debug_min``, and
      ``cli prewarm`` and ``cli search --profile-trace`` on a small flat
-     index (the trace's kernels on the card are counted); then the four
-     diagnostic kernels timed against their twins.  Their
+     index (the trace's kernels on the card are counted); both probe
+     tools must stay on their slab routes; then the four
+     diagnostic kernels timed against their twins, the two probe
+     diagnostics also on the device alone and through their rows route
+     at the same shape.  Their
      records count the tooling path's launches (``launches_in``:
-     "tools"), with phase 11's apart as ``check_launches``.
+     "tools"), with phase 11's apart as ``check_launches``, and the two
+     probe diagnostics' launches by route (``routes``,
+     ``check_routes``).
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -147,6 +160,7 @@ SEED = 20261016
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
 PEAK_SCALAR = 67e12  # fp32 outside the tensor cores: integer/compare work
 PEAK_INT8 = 1979e12  # int8 (fingerprint bytes)
+SMEM_BPS = 128 * 132 * 1.98e9  # H100 shared memory: 128 B a clock an SM
 
 
 def log(msg: str) -> None:
@@ -1329,14 +1343,70 @@ DIAG = {  # record name -> (wrapper name in device/diag.py, source, TPU kernel)
 
 
 def diag_counts(diag, zero: bool = False) -> dict:
-    """{record name: launches} of the diagnostic wrappers (set to 0)."""
+    """{record name: launches} of the diagnostic wrappers (set to 0, and
+    their ROUTES emptied)."""
     out = {}
     for name, (fn, _, _) in DIAG.items():
         wrapper = getattr(diag, fn)
         out[name] = wrapper.LAUNCHES
         if zero:
             wrapper.LAUNCHES = 0
+            getattr(wrapper, "ROUTES", {}).clear()
     return out
+
+
+def diag_routes(diag) -> dict:
+    """{record name: {route: launches}} of the wrappers with routes."""
+    return {name: dict(getattr(diag, fn).ROUTES)
+            for name, (fn, _, _) in DIAG.items()
+            if hasattr(getattr(diag, fn), "ROUTES")}
+
+
+def check_probe_diags(torch, diag, label: str, table, bl: int, rand16, w16,
+                      w10, n_hash, runs, modes=None) -> int:
+    """probe_bounds (each of ``modes``, all by default) and
+    probe_experiment (``runs``) on one table against their twins,
+    bit-exact, through the route the shape picks and, where that is the
+    slab route, through the rows route too; each launch's route is
+    asserted from ROUTES, and the counts must agree in every layout.
+    Returns the largest count."""
+    S1, B = table.shape
+    b = diag.slab_bins(S1, B, diag.smem_per_block(table.device))
+    routes = [(False, "slab" if b else "rows")] + (
+        [(True, "rows")] if b else [])
+    top, first = 0, None
+    for mode in modes or diag.PROBE_BOUNDS_MODES:
+        want = diag.probe_bounds_plain(table, rand16, n_hash, mode)
+        for rows, took in routes:
+            before = diag.probe_bounds.ROUTES.get(took, 0)
+            got = diag.probe_bounds(table, rand16, n_hash, mode, _rows=rows)
+            assert diag.probe_bounds.ROUTES[took] == before + 1, took
+            assert_equal(torch, f"probe_bounds {mode} ({label}, {took})",
+                         ("counts",), (got,), (want,))
+    for kw in runs:
+        w = w10 if kw.get("layout") == "p10" else w16
+        want = diag.probe_experiment_plain(table, w, n_hash, block_length=bl,
+                                           **kw)
+        for rows, took in routes if "flood_k" not in kw else [(False,
+                                                               "flood")]:
+            before = diag.probe_experiment.ROUTES.get(took, 0)
+            got = diag.probe_experiment(table, w, n_hash, block_length=bl,
+                                        _rows=rows, **kw)
+            assert diag.probe_experiment.ROUTES[took] == before + 1, took
+            assert_equal(torch, f"probe_experiment {kw} ({label}, {took})",
+                         ("counts", "extra"), got, want)
+        if "flood_k" not in kw:  # the same counts in every layout
+            first = want[0] if first is None else first
+            top = max(top, int(want[0].max()))
+            assert_equal(torch, f"twin vs twin: probe_experiment_plain {kw} "
+                         f"== its first run", ("counts",), (want[0],),
+                         (first,))
+    log(f"probe_bounds ({len(modes or diag.PROBE_BOUNDS_MODES)} modes) and "
+        f"probe_experiment ({len(runs)} runs) on the {label} [{S1}, {B}] "
+        f"(bl {bl}), R={n_hash.shape[0]}, n_hash 0..{int(n_hash.max())}: "
+        f"routes {[t for _, t in routes]} (slab of {b} bins) bit-exact vs "
+        f"twins, every layout alike, max count {top}")
+    return top
 
 
 def check_diag(torch, flat_table, flat_bl: int, rng) -> None:
@@ -1350,44 +1420,57 @@ def check_diag(torch, flat_table, flat_bl: int, rng) -> None:
     dev = torch.device("cuda")
     R, H = 256, 512
     t0 = time.perf_counter()
-    tool_table = torch.from_numpy(pb.tool_table(rng)).to(dev)
-    for label, table, bl in (("tool geometry", tool_table, pe.BL_TOOL),
-                             ("flat cell", flat_table, flat_bl)):
+    rand_tool = torch.from_numpy(pb.tool_table(rng)).to(dev)
+    rand_16 = torch.from_numpy(pb.tool_table(rng, 10000, 64)).to(dev)
+    rand_tall = torch.from_numpy(pb.tool_table(rng, 20000, 64)).to(dev)
+    # the tools' geometry and the flat cell's table (slabs of 64 bins), a
+    # ragged last slab of 36 bins (4-byte copies), slabs of 16 bins, and a
+    # table past the shared memory (the rows route, picked by the shape)
+    for label, table, bl in (("tool geometry", rand_tool, pe.BL_TOOL),
+                             ("flat cell", flat_table, flat_bl),
+                             ("ragged slab", rand_tool[:, :100].contiguous(),
+                              pe.BL_TOOL),
+                             ("16-bin slabs", rand_16, 3333),
+                             ("tall table", rand_tall, 6666)):
         S1, B = table.shape
         n_np = rng.integers(0, H + 1, R).astype(np.int32)
-        n_np[:8] = H  # full reads, and one with no hash
+        n_np[:8] = H  # full reads, one with no hash, one past its row
         n_np[8] = 0
+        n_np[9] = H + 100
         n_hash = torch.from_numpy(n_np).to(dev)
         rand16 = torch.from_numpy(pb.make_inputs(rng, R, H, S1)).to(dev)
         w16, w10 = (torch.from_numpy(x).to(dev)
                     for x in pe.make_inputs(rng, R, H, S1, bl))
-        for mode in diag.PROBE_BOUNDS_MODES:
-            assert_equal(torch, f"probe_bounds {mode} ({label})", ("counts",),
-                         (diag.probe_bounds(table, rand16, n_hash, mode),),
-                         (diag.probe_bounds_plain(table, rand16, n_hash,
-                                                  mode),))
-        runs = [dict(layout=lay, nr=nr) for lay in ("p16", "p10")
-                for nr in (1, 2, 4)]
-        runs += [dict(layout="p16", rounds=r) for r in (4, 8, 16)]
-        runs += [dict(layout="p10", nr=2, rounds=4)]
-        runs += [dict(flood_k=k) for k in (2, 4, 8)]
-        first = None
-        for kw in runs:
-            w = w10 if kw.get("layout") == "p10" else w16
-            got = diag.probe_experiment(table, w, n_hash, block_length=bl,
-                                        **kw)
-            assert_equal(torch, f"probe_experiment {kw} ({label})",
-                         ("counts", "extra"), got,
-                         diag.probe_experiment_plain(table, w, n_hash,
-                                                     block_length=bl, **kw))
-            if "flood_k" not in kw:  # the same counts in every layout
-                first = got[0] if first is None else first
-                assert_equal(torch, f"probe_experiment {kw} == p16",
-                             ("counts",), (got[0],), (first,))
-        log(f"probe_bounds (5 modes) and probe_experiment ({len(runs)} "
-            f"runs) on the {label} [{S1}, {B}], R={R}, H={H} (bl {bl}): "
-            f"bit-exact vs twins, p10 == p16, max count "
-            f"{int(first.max())}")
+        check_probe_diags(torch, diag, label, table, bl, rand16, w16, w10,
+                          n_hash, pe.CHECK_RUNS)
+    # rows of words that 16-byte loads cannot take: H = 516 (129
+    # fingerprint words), p16 rows of 2H + 2 words 4 bytes past alignment
+    Hu = 516
+    w16, w10 = pe.make_inputs(rng, R, Hu, 2419, pe.BL_TOOL)
+    buf = torch.zeros(R * (2 * Hu + 2) + 1, dtype=torch.int32, device=dev)
+    w16o = buf[1:].view(R, -1)
+    w16o[:, :2 * Hu] = torch.from_numpy(w16).to(dev)
+    n_hash = torch.from_numpy(rng.integers(0, Hu + 1, R).astype(
+        np.int32)).to(dev)
+    check_probe_diags(torch, diag, "unaligned words", rand_tool, pe.BL_TOOL,
+                      w16o, w16o, torch.from_numpy(w10).to(dev), n_hash,
+                      pe.CHECK_RUNS, modes=("p16",))
+    # counts above 255: every hash hits every bin, up to 512 a read (a
+    # read-lane writes its counts after 252 hashes, then adds to them
+    # twice); 2,048 hashes on slabs of 128 bins (4 hash-lanes of 1,020
+    # hashes a flush round)
+    for (S1, B, bl, Hz), n in (((2419, 512, pe.BL_TOOL, 512),
+                                (512, 300, 256, 255, 0)),
+                               ((1500, 256, 499, 2048),
+                                (2048, 1021, 1020, 7))):
+        table, w16, w10 = (torch.from_numpy(x).to(dev) for x in
+                           pe.zero_hit_inputs(rng, S1, B, bl, len(n), Hz))
+        n_hash = torch.tensor(n, dtype=torch.int32, device=dev)
+        top = check_probe_diags(torch, diag, f"zero-hit table, n {n}", table,
+                                bl, w16, w16, w10, n_hash, pe.CHECK_RUNS[:7],
+                                modes=("p16", "load1"))
+        if top != max(n):
+            raise AssertionError(f"zero-hit counts reach {top}, not {max(n)}")
     t = (K - S + 1) // 2
     for L in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768):
         seqs = k1_reads(rng, L)
@@ -1456,9 +1539,10 @@ def cli_tools(torch, work: str) -> dict:
     return secs
 
 
-def tool_path(torch, modules, work: str) -> dict:
+def tool_path(torch, modules, work: str) -> tuple[dict, dict]:
     """Phase 12: the tooling path through its entry points, the launch
-    counts of every kernel set to 0 just before and read just after."""
+    counts of every kernel set to 0 just before and read just after;
+    returns the diagnostic launches, and those by route."""
     from taxor_tpu_torch.device import diag
     from taxor_tpu_torch.tools import (bench, debug_extract, debug_min,
                                        probe_bounds, probe_experiments,
@@ -1499,6 +1583,7 @@ def tool_path(torch, modules, work: str) -> dict:
     secs["debug"] = time.perf_counter() - t0
     secs.update(cli_tools(torch, work))
     counts = diag_counts(diag)
+    routes = diag_routes(diag)
     launches = read_counts(*modules[:3])
     log(f"tool path: probe_bounds ns/hash "
         f"{ {k: round(v['ns_per_hash'], 4) for k, v in bounds.items()} }")
@@ -1507,23 +1592,33 @@ def tool_path(torch, modules, work: str) -> dict:
             f"{[(r['mode'], r['U'], r['nops'], round(r['ms'], 4)) for r in rows]}")
     log(f"tool path: profile_phases ms {json.dumps(phases)}")
     log(f"tool path: seconds {({k: round(v, 1) for k, v in secs.items()})}; "
-        f"diagnostic launches {counts}; search kernel launches {launches}")
+        f"diagnostic launches {counts}, by route {routes}; search kernel "
+        f"launches {launches}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"the tooling path skipped a diagnostic kernel: "
                              f"{counts}")
-    return counts
+    if set(routes["probe_bounds"]) != {"slab"} \
+            or set(routes["probe_experiments"]) != {"slab", "flood"}:
+        raise AssertionError(f"the probe tools left their slab route: "
+                             f"{routes}")
+    return counts, routes
 
 
 def time_diag(torch, state) -> list[dict]:
     """The four diagnostic kernels against their twins: the probe
     variants at the JAX tools' geometry (R=8192, H=512, 176 hashes a
     read, 2,419 slots x 512 bins), the stage dump (stage ``pre``, the
-    tracker) and the window shift at the flat path's L=8192 bucket."""
+    tracker) and the window shift at the flat path's L=8192 bucket.  The
+    two probe diagnostics, which take their slab route there, are also
+    timed on the device alone (device_ms) and through their rows route
+    at the same shape, a call and on the device alone, beside the floor
+    of their shared-memory row reads."""
     from taxor_tpu_torch.device import diag
     from taxor_tpu_torch.hash import device_syncmer as dsync
     from taxor_tpu_torch.tools import probe_bounds as pb
     from taxor_tpu_torch.tools import probe_experiments as pe
     from taxor_tpu_torch.tools.debug_min import stream_words
+    from taxor_tpu_torch.tools.time_sort import device_ms
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 12)
@@ -1568,6 +1663,10 @@ def time_diag(torch, state) -> list[dict]:
          lambda: diag.window_shift_plain(words, range(16)), 50,
          bound(4 * Rs * Wd * 17 + 64, 16.0 * Rs * Wd, PEAK_SCALAR)),
     )
+    # the floor no slab design gets under: 3 rows x B bytes a probed hash
+    # from shared memory, at 128 B a clock an SM, 132 SMs, 1.98 GHz
+    smem_floor_ms = 3 * B * R * n / SMEM_BPS * 1e3
+    slab = diag.slab_bins(S1, B, diag.smem_per_block(dev))
     rows = []
     for name, shape, fn, plain, reps, bnd in cases:
         ms, plain_ms, err, each = time_pair(torch, fn, plain, reps)
@@ -1577,6 +1676,31 @@ def time_diag(torch, state) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": DIAG[name][1],
                      "replaces": DIAG[name][2], "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, **bnd, "library_ms": None})
+        if name not in ("probe_bounds", "probe_experiments"):
+            continue
+        # on the device alone, and the rows route at the same shape, each
+        # held to the same twin: slab, rows, rows, slab
+        rows_fn = {"probe_bounds": lambda: diag.probe_bounds(
+            table, w16, n_hash, "p16", _rows=True),
+            "probe_experiments": lambda: diag.probe_experiment(
+                table, w10, n_hash, "p10", block_length=pe.BL_TOOL,
+                _rows=True)}[name]
+        dev_ms = [device_ms(fn, reps, rounds=1)]
+        rows_ms, _, _, rows_each = time_pair(torch, rows_fn, plain, reps)
+        rows_dev = [device_ms(rows_fn, reps, rounds=1),
+                    device_ms(rows_fn, reps, rounds=1)]
+        dev_ms.append(device_ms(fn, reps, rounds=1))
+        rows[-1].update(
+            slab_bins=slab, device_ms=min(dev_ms), rows_ms=rows_ms,
+            rows_device_ms=min(rows_dev),
+            times={"slab_call": each[:2], "slab_device": dev_ms,
+                   "rows_call": rows_each[:2], "rows_device": rows_dev})
+        log(f"time {name}: slab route ({slab} bins) a call "
+            f"{each[0]:.4f}/{each[1]:.4f} ms, device {dev_ms[0]:.4f}/"
+            f"{dev_ms[1]:.4f} ms; rows route a call {rows_each[0]:.4f}/"
+            f"{rows_each[1]:.4f} ms, device {rows_dev[0]:.4f}/"
+            f"{rows_dev[1]:.4f} ms; shared-memory floor "
+            f"{smem_floor_ms:.4f} ms")
     return rows
 
 
@@ -1667,11 +1791,13 @@ def main() -> int:
     check_diag(torch, dh.table, dh.block_length,
                np.random.default_rng(SEED + 11))
     checks = diag_counts(diag)
+    check_routes = diag_routes(diag)
     del dh
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_tools_", dir=root)
     try:
-        tools = tool_path(torch, (extract, probe, sort, pipeline), work)
+        tools, tool_routes = tool_path(torch, (extract, probe, sort,
+                                               pipeline), work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 12: tooling path in {time.perf_counter() - t0:.1f} s")
@@ -1679,6 +1805,9 @@ def main() -> int:
         row.update(launches=tools[row["name"]], launches_in="tools",
                    tool_launches=tools[row["name"]],
                    check_launches=checks[row["name"]])
+        if row["name"] in tool_routes:  # launches by route
+            row.update(routes=tool_routes[row["name"]],
+                       check_routes=check_routes[row["name"]])
         kernels.append(row)
     if any(r["launches"] <= 0 for r in kernels
            if r["launches_in"] != "not on a main path"):

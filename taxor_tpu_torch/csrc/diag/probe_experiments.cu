@@ -12,8 +12,8 @@
 //               turn): NR independent chains of loads
 //   rounds      `rounds` rounds of two dependent chains per hash and table
 //               word, seeded from the XOR result, d1 = (d1 ^ x) + C1,
-//               d2 = (d2 + x) ^ C2 (4 ALU ops a round); each thread adds
-//               (d1 ^ d2) >> 31 of its words into extra[r], so the chains
+//               d2 = (d2 + x) ^ C2 (4 ALU ops a round); extra[r] gets the
+//               sum over the table words of (d1 ^ d2) >> 31, so the chains
 //               cannot be eliminated
 //   smemflood   per read, the sum of the position words at index (K*h + u)
 //               & 1023 for h < n_hash[r], u < K, into extra[r]: loads and
@@ -22,14 +22,37 @@
 // tool's x modes wrote only bins 0-1 of each word into row 0 and its
 // vpux modes folded the chains into row 3; neither artefact is kept.
 //
-// Layout as K2: a block holds NR reads x 512 bins, each thread 4 adjacent
-// bins of each of its reads.  Position words are staged into shared
-// memory per tile, as the TPU tool read them from SMEM.  What bounds it on
-// the H100: the three table words a hash and thread from L2, plus the
-// rounds' ALU work; smemflood is bound by shared-memory loads.
+// Two routes for the probe modes; the shape picks one
+// (device/diag.slab_bins).  smemflood touches no table and has one form.
+// The slab route (probe_exp_slab_kernel, slab.cuh): where a [S1, b] slab
+// of b = 16-128 bins fits one block's shared memory, a block holds it and
+// streams its reads through it.  A lane walks every hash of its reads in
+// hash order, as the chains of `rounds` need (d1 and d2 of a read and word
+// advance hash by hash; only the sum over the words is free of order):
+// lane = read-lane x CH + chunk, so a warp takes 32 / CH read-lanes of NR
+// reads each a round, and a lane reads its chunk of each row as one
+// 16-byte shared load.  The same layout serves every experiment, with or
+// without rounds, so that they compare like with like; its counts need
+// no shuffles.  A lane takes its reads' hashes 4 at a time (4 of one read,
+// then 4 of the next: NR independent chains of loads) and loads their
+// position words from global memory through the read-only cache in
+// 16-byte loads where the rows allow it: the 32 / CH read-lanes of a warp
+// load from as many rows, so one word a load would take 4 times the L1
+// wavefronts (measured on the H100 at 0.215 against 0.146 ms for K2's
+// schedule, which loads 8 hashes' words of one read together).  Bound on
+// the H100 by the shared-memory row reads, 3 x B bytes a probed hash,
+// plus the rounds' ALU work.
+// The rows route (probe_exp_kernel), where no slab fits: a block holds NR
+// reads x 512 bins, each thread 4 adjacent bins of each of its reads;
+// position words are staged into shared memory per tile, as the TPU tool
+// read them from SMEM.  Bound by the three table words a hash and thread
+// from L2, plus the rounds' ALU work.  smemflood is bound by
+// shared-memory loads.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "slab.cuh"
 
 namespace {
 
@@ -154,20 +177,235 @@ void launch(int R, int B4, cudaStream_t stream, const void* table,
       static_cast<int32_t*>(out), static_cast<int32_t*>(extra));
 }
 
+constexpr int kFlush4 = 252;  // a multiple of the 4 hashes loaded at once
+
+// The position words of hashes e .. e+3 of a read (row: its words; n: the
+// hashes it probes, most: the hashes its row holds): p10: w[q] the word of
+// hash e+q and w[4] the fingerprint word of all four (e is a multiple of
+// 4); p16: w[2q], w[2q+1].  vec: 16-byte loads (aligned rows), taken
+// where all four lie inside the row; words of hashes past n are not read.
+template <bool P10>
+__device__ __forceinline__ void hash_words(const uint32_t* __restrict__ row,
+                                           int e, int n, int most, int H,
+                                           bool vec, uint32_t* w) {
+  if (P10) {
+    const uint32_t* pw = row + H / 4 + e;
+    if (vec && e + 4 <= most) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(pw));
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[q] = e + q < n ? __ldg(pw + q) : 0;
+    }
+    w[4] = __ldg(row + e / 4);
+  } else {
+    const uint32_t* pw = row + 2 * e;
+    if (vec && e + 4 <= most) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(pw));
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(pw) + 1);
+      w[0] = a.x;
+      w[1] = a.y;
+      w[2] = a.z;
+      w[3] = a.w;
+      w[4] = b.x;
+      w[5] = b.y;
+      w[6] = b.z;
+      w[7] = b.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        w[2 * q] = e + q < n ? __ldg(pw + 2 * q) : 0;
+        w[2 * q + 1] = e + q < n ? __ldg(pw + 2 * q + 1) : 0;
+      }
+    }
+  }
+}
+
+// CHAINS: rounds > 0 (without, the chains take no registers: 4 reads of a
+// lane would spill them)
+template <int NR, bool P10, int CH, bool CHAINS>
+__global__ void __launch_bounds__(diag_slab::kThreads, 1)
+    probe_exp_slab_kernel(const uint8_t* __restrict__ table, int S1, int B,
+                          bool copy16, const uint32_t* __restrict__ words,
+                          int W, int H, bool vec,
+                          const int32_t* __restrict__ n_hash, int R,
+                          uint32_t bl, int rounds, int per,
+                          int32_t* __restrict__ out,
+                          int32_t* __restrict__ extra) {
+  using namespace diag_slab;
+  extern __shared__ __align__(16) uint8_t slab[];  // S1 rows of kRow bytes
+  constexpr int RL = 32 / CH;                       // read-lanes of a warp
+  constexpr int kRow = 16 * CH;                     // the slab's bins
+  constexpr int kStep = RL * NR;                    // reads of a warp round
+  const int s0 = blockIdx.x * kRow;
+  load_slab<CH>(slab, table, S1, B, s0, copy16);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane % CH, rl = lane / CH;
+  const int left = B - s0 - 16 * c;  // bins of the lane's chunk below B
+  const uint8_t* mine = slab + 16 * c;
+  const int r1 = min(R, (int)(blockIdx.y + 1) * per);
+  // a read probes at most the hashes its row of words holds
+  const int most = P10 ? H : W / 2;
+  for (int base = blockIdx.y * per + warp * kStep; base < r1;
+       base += kWarps * kStep) {
+    const int r0 = base + rl * NR;  // the lane's reads r0 .. r0 + NR - 1
+    const uint32_t* row0 = words + (size_t)r0 * W;
+    int n[NR];
+    int nmax = 0;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      n[i] = r0 + i < r1 && left > 0 ? min(n_hash[r0 + i], most) : 0;
+      nmax = max(nmax, n[i]);
+    }
+    uint32_t d1[CHAINS ? NR : 1][4], d2[CHAINS ? NR : 1][4];
+#pragma unroll
+    for (int i = 0; i < (CHAINS ? NR : 1); ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d1[i][j] = d2[i][j] = 0;
+    for (int e0 = 0;; e0 += kFlush4) {
+      const int e1 = min(nmax, e0 + kFlush4);
+      uint32_t k[NR][4];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) k[i][0] = k[i][1] = k[i][2] = k[i][3] = 0;
+      for (int e = e0; e < e1; e += 4) {
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          if (e >= n[i]) continue;
+          uint32_t w[P10 ? 5 : 8];
+          hash_words<P10>(row0 + (size_t)i * W, e, n[i], most, H, vec, w);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (e + q >= n[i]) break;
+            uint32_t p0, p1, p2, f4;
+            if (P10) {
+              p0 = w[q] & 1023u;
+              p1 = bl + ((w[q] >> 10) & 1023u);
+              p2 = 2 * bl + (w[q] >> 20);
+              f4 = ((w[4] >> (8 * q)) & 0xFFu) * 0x01010101u;
+            } else {
+              p0 = w[2 * q] & 0xFFFFu;
+              p1 = w[2 * q] >> 16;
+              p2 = w[2 * q + 1] & 0xFFFFu;
+              f4 = (w[2 * q + 1] >> 16) * 0x01010101u;
+            }
+            const uint4 a = *reinterpret_cast<const uint4*>(mine + p0 * kRow);
+            const uint4 b = *reinterpret_cast<const uint4*>(mine + p1 * kRow);
+            const uint4 d = *reinterpret_cast<const uint4*>(mine + p2 * kRow);
+            const uint32_t x[4] = {a.x ^ b.x ^ d.x ^ f4, a.y ^ b.y ^ d.y ^ f4,
+                                   a.z ^ b.z ^ d.z ^ f4,
+                                   a.w ^ b.w ^ d.w ^ f4};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              k[i][j] += zero_bytes(x[j]);
+              if constexpr (CHAINS)
+                for (int t = 0; t < rounds; ++t) {
+                  d1[i][j] = (d1[i][j] ^ x[j]) + kC1;
+                  d2[i][j] = (d2[i][j] + x[j]) ^ kC2;
+                }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        if (r0 + i < r1 && left > 0 && (e0 == 0 || e0 < n[i])) {
+          int cnt[16];
+          unpack16(cnt, k[i]);
+          put16(out + (size_t)(r0 + i) * B + s0 + 16 * c, cnt, left, e0 > 0);
+        }
+      }
+      if (e1 >= nmax) break;
+    }
+    if constexpr (CHAINS) {  // uniform: every lane of the warp reaches it
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        int sum = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (4 * j < left) sum += (int)((d1[i][j] ^ d2[i][j]) >> 31);
+#pragma unroll
+        for (int off = 1; off < CH; off <<= 1)
+          sum += __shfl_xor_sync(0xFFFFFFFFu, sum, off);
+        if (c == 0 && r0 + i < r1 && sum) atomicAdd(&extra[r0 + i], sum);
+      }
+    }
+  }
+}
+
+template <int NR, bool P10, int CH>
+cudaError_t launch_slab(int R, cudaStream_t stream, const void* table,
+                        int S1, int B, const void* words, int W, int H,
+                        const void* n_hash, uint32_t bl, int rounds,
+                        void* out, void* extra) {
+  const auto kern = rounds > 0 ? probe_exp_slab_kernel<NR, P10, CH, true>
+                               : probe_exp_slab_kernel<NR, P10, CH, false>;
+  const int smem = S1 * 16 * CH;
+  const int slabs = (B + 16 * CH - 1) / (16 * CH);
+  int per = 0;  // reads a group: one wave of blocks, none under a warp's
+  const cudaError_t err = taxor::slab_read_groups(
+      kern, diag_slab::kThreads, smem, slabs, R, (32 / CH) * NR, per);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(slabs, (R + per - 1) / per);
+  const bool copy16 =
+      B % 16 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  // 16-byte word loads: every row's words of 4 hashes 16-byte aligned
+  const bool vec = reinterpret_cast<uintptr_t>(words) % 16 == 0 &&
+                   W % 4 == 0 && (!P10 || (H / 4) % 4 == 0);
+  kern<<<grid, diag_slab::kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(table), S1, B, copy16,
+      static_cast<const uint32_t*>(words), W, H, vec,
+      static_cast<const int32_t*>(n_hash), R, bl, rounds, per,
+      static_cast<int32_t*>(out), static_cast<int32_t*>(extra));
+  return cudaGetLastError();
+}
+
+template <int NR, bool P10>
+int launch_form(int slab_bins, int R, cudaStream_t s, const void* table,
+                int S1, int B, const void* words, int W, int H,
+                const void* n_hash, uint32_t bl, int rounds, void* out,
+                void* extra) {
+  switch (slab_bins) {
+    case 0:
+      launch<NR, P10>(R, B / 4, s, table, words, W, H, n_hash, bl, rounds,
+                      out, extra);
+      return (int)cudaGetLastError();
+    case 16:
+      return (int)launch_slab<NR, P10, 1>(R, s, table, S1, B, words, W, H,
+                                          n_hash, bl, rounds, out, extra);
+    case 32:
+      return (int)launch_slab<NR, P10, 2>(R, s, table, S1, B, words, W, H,
+                                          n_hash, bl, rounds, out, extra);
+    case 64:
+      return (int)launch_slab<NR, P10, 4>(R, s, table, S1, B, words, W, H,
+                                          n_hash, bl, rounds, out, extra);
+    case 128:
+      return (int)launch_slab<NR, P10, 8>(R, s, table, S1, B, words, W, H,
+                                          n_hash, bl, rounds, out, extra);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // table: uint8 [S1, B] (B a multiple of 4); words: int32 [R, W] (p16: W >=
 // 2 * max n_hash; p10: W = H + H/4, H >= max n_hash, H a multiple of 4;
-// smemflood: W >= 1024); n_hash: int32 [R]; out: int32 [R, B] and extra:
-// int32 [R], both zeroed by the caller.  layout 0 = p16, 1 = p10; nr 1, 2
-// or 4; flood_k > 0 runs smemflood with K = flood_k (the other arguments
-// but words, W, n_hash and extra unused).
-extern "C" int launch_probe_experiment(const void* table, int B,
+// smemflood: W >= 1024); n_hash: int32 [R]; out: int32 [R, B] (zeroed by
+// the caller for smemflood; the probe modes write all of it) and extra:
+// int32 [R], zeroed by the caller.  layout 0 = p16, 1 = p10; nr 1, 2 or
+// 4; flood_k > 0 runs smemflood with K = flood_k (the other arguments
+// but words, W, n_hash and extra unused); slab_bins: 16, 32, 64 or 128
+// for the slab route (an [S1, slab_bins] slab must fit a block's shared
+// memory), 0 for the rows route.
+extern "C" int launch_probe_experiment(const void* table, int S1, int B,
                                        const void* words, int R, int W, int H,
                                        const void* n_hash, int layout, int nr,
                                        int rounds, int flood_k,
-                                       uint32_t block_length, void* out,
-                                       void* extra, void* stream) {
+                                       uint32_t block_length, int slab_bins,
+                                       void* out, void* extra, void* stream) {
   if (R == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (flood_k > 0) {
@@ -178,16 +416,14 @@ extern "C" int launch_probe_experiment(const void* table, int B,
     return (int)cudaGetLastError();
   }
   if (B == 0) return 0;
-  const int B4 = B / 4;
-  const int key = nr * 2 + (layout == 1);
-  switch (key) {
-    case 2: launch<1, false>(R, B4, s, table, words, W, H, n_hash, block_length, rounds, out, extra); break;
-    case 3: launch<1, true>(R, B4, s, table, words, W, H, n_hash, block_length, rounds, out, extra); break;
-    case 4: launch<2, false>(R, B4, s, table, words, W, H, n_hash, block_length, rounds, out, extra); break;
-    case 5: launch<2, true>(R, B4, s, table, words, W, H, n_hash, block_length, rounds, out, extra); break;
-    case 8: launch<4, false>(R, B4, s, table, words, W, H, n_hash, block_length, rounds, out, extra); break;
-    case 9: launch<4, true>(R, B4, s, table, words, W, H, n_hash, block_length, rounds, out, extra); break;
+  const uint32_t bl = block_length;
+  switch (nr * 2 + (layout == 1)) {
+    case 2: return launch_form<1, false>(slab_bins, R, s, table, S1, B, words, W, H, n_hash, bl, rounds, out, extra);
+    case 3: return launch_form<1, true>(slab_bins, R, s, table, S1, B, words, W, H, n_hash, bl, rounds, out, extra);
+    case 4: return launch_form<2, false>(slab_bins, R, s, table, S1, B, words, W, H, n_hash, bl, rounds, out, extra);
+    case 5: return launch_form<2, true>(slab_bins, R, s, table, S1, B, words, W, H, n_hash, bl, rounds, out, extra);
+    case 8: return launch_form<4, false>(slab_bins, R, s, table, S1, B, words, W, H, n_hash, bl, rounds, out, extra);
+    case 9: return launch_form<4, true>(slab_bins, R, s, table, S1, B, words, W, H, n_hash, bl, rounds, out, extra);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

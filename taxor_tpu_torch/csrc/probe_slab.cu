@@ -187,24 +187,13 @@ cudaError_t launch_slab(const uint2* rec, const int* nrec, int R, int H,
                         cudaStream_t stream) {
   const auto kern = probe_slab_kernel<CH>;
   const int smem = S * 16 * CH;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, occ = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern,
-                                                        kSlabThreads, smem);
-  if (err != cudaSuccess) return err;
   // read groups: as many as fill one wave of blocks, none with fewer reads
   // than warps
   const int slabs = (Bpad + 16 * CH - 1) / (16 * CH);
-  long groups = (long)sms * (occ > 0 ? occ : 1) / ((long)slabs * G);
-  groups = groups < 1 ? 1 : groups;
-  const long most = (R + kSlabWarps - 1) / kSlabWarps;
-  groups = groups > most ? most : groups;
-  const int per = (int)((R + groups - 1) / groups);
+  int per = 0;
+  const cudaError_t err = taxor::slab_read_groups(
+      kern, kSlabThreads, smem, (long)slabs * G, R, kSlabWarps, per);
+  if (err != cudaSuccess) return err;
   const dim3 grid(slabs, (R + per - 1) / per, G);
   kern<<<grid, kSlabThreads, smem, stream>>>(
       rec, nrec, R, H, table, (size_t)S * Bpad, S, Bpad, active, per, out);
@@ -216,7 +205,9 @@ cudaError_t launch_slab(const uint2* rec, const int* nrec, int R, int H,
 // The slab width in bins of the slab route for G tables [S, Bpad] on CUDA
 // device `device`: the widest of 128, 64, 32, 16 bins (no wider than
 // Bpad needs) whose [S, b] slab fits one block's shared memory; 0 where
-// none fits (the rows route, probe.cu), -1 on a CUDA error.
+// none fits (the rows route, probe.cu), -1 on a CUDA error.  The probe
+// diagnostics take the same rule for any B a multiple of 4
+// (device/diag.py, slab_bins): a change here is made there too.
 extern "C" int probe_slab_bins(int S, int Bpad, int device) {
   if (S <= 0 || S >= 65536 || Bpad <= 0 || Bpad % 16) return 0;
   int smem = 0;

@@ -6,8 +6,12 @@
 // of the valid hash slots of one read into shared memory, compacted in
 // slot order with warp ballots, the fingerprint replicated into the 4
 // bytes of f4.  cp_async16, zero_bytes and flush_bytes serve the kernels
-// that hold a table in shared memory (probe_slab.cu, probe_narrow.cu).
+// that hold a table in shared memory (probe_slab.cu, probe_narrow.cu);
+// slab_read_groups sizes the grid of a slab launch (probe_slab.cu and the
+// probe diagnostics' slab route, diag/slab.cuh).
 #pragma once
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 #include "u64.cuh"
@@ -33,6 +37,36 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
+}
+
+// The reads of one read group of a slab launch over R reads, where a
+// read group is `blocks` blocks of `threads` threads (a block for each
+// slab, and table): as many groups as fill one wave of blocks (one block
+// an SM where a slab fills its shared memory; a second wave would double
+// the time of the first), none with fewer than min_reads reads.  The grid
+// then has (R + per - 1) / per groups.  Sets the kernel's dynamic shared
+// memory first: a slab that does not fit fails here.  The slab width
+// itself is picked by probe_slab_bins (probe_slab.cu) for K2 and by
+// device/diag.py's slab_bins for the diagnostics: one rule, kept alike.
+template <typename Kernel>
+cudaError_t slab_read_groups(Kernel kern, int threads, int smem, long blocks,
+                             int R, int min_reads, int& per) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, occ = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  long groups = (long)sms * (occ > 0 ? occ : 1) / blocks;
+  groups = groups < 1 ? 1 : groups;
+  const long most = (R + min_reads - 1) / min_reads;
+  groups = groups > most ? most : groups;
+  per = (int)((R + groups - 1) / groups);
+  return cudaSuccess;
 }
 
 // 1 in each byte of x that is zero: bit 7 of (x & 0x7F) + 0x7F | x is

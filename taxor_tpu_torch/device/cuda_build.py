@@ -12,11 +12,12 @@ first use (never at import) into ``taxor_tpu_torch/_build/``, which
 .gitignore lists; a library's name carries a hash of its sources, so an
 edited source rebuilds.  Each C launcher enqueues on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
-into an exception.  ``syncmer_extract_smem``, ``probe_slab_bins`` and
-``probe_narrow_mode`` are no launchers: they return the shared memory K1
-takes, the slab width of K2's slab route (0 for its rows route) and
-K2n's mode (1 smem, 0 rows), so that the wrappers never repeat a
-kernel's layout.
+into an exception.  ``syncmer_extract_smem``, ``probe_slab_bins``,
+``probe_narrow_mode`` and ``diag_smem_per_block`` are no launchers: they
+return the shared memory K1 takes, the slab width of K2's slab route (0
+for its rows route), K2n's mode (1 smem, 0 rows) and the shared memory a
+block may take (the diagnostics' slab route), so that the wrappers never
+repeat a kernel's layout.
 """
 
 from __future__ import annotations
@@ -71,12 +72,16 @@ _SIGNATURES = {
     "launch_sort_pairs": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 _DIAG_SIGNATURES = {
-    # (table, B, words, R, W, n_hash, mode, U, RT, out, stream)
-    "launch_probe_bounds": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],
-    # (table, B, words, R, W, H, n_hash, layout, nr, rounds, flood_k,
-    #  block_length, out, extra, stream)
-    "launch_probe_experiment": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I,
-                                ctypes.c_uint32, _P, _P, _P],
+    # (device) -> the shared memory a block may opt in to
+    "diag_smem_per_block": [_I],
+    # (table, S1, B, words, R, W, n_hash, mode, U, RT, slab_bins, out,
+    #  stream)
+    "launch_probe_bounds": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P,
+                            _P],
+    # (table, S1, B, words, R, W, H, n_hash, layout, nr, rounds, flood_k,
+    #  block_length, slab_bins, out, extra, stream)
+    "launch_probe_experiment": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I,
+                                _I, ctypes.c_uint32, _I, _P, _P, _P],
     # (packed, lengths, R, L, k, s, t, stage, out, out_emit, stream)
     "launch_extract_stage": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # (x, R, Wd, phases, P, out, stream)

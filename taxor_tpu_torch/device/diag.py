@@ -15,9 +15,14 @@ Counterparts of the four Pallas kernels of the JAX package's tooling:
 Each wrapper launches its kernel on a CUDA tensor (from the diagnostic
 library, ``cuda_build.diag_lib``; a failed build raises) and takes its
 plain PyTorch twin (``*_plain``) only for a CPU tensor; its ``LAUNCHES``
-counts the launches.  Integer arithmetic throughout, so a kernel and its
-twin agree bit for bit.  The diagnostic library is apart from the search
-kernels' (``cuda_build.lib``): no search path calls this module.
+counts the launches.  The two probe diagnostics have two routes each,
+which the shape picks (``slab_bins``) and ``ROUTES`` counts: the slab
+route holds the table in shared memory one bin slab at a time, as the
+TPU tools held their table tile in VMEM and K2's slab route does; the
+rows route, where no slab fits, reads table rows from L2.  Integer
+arithmetic throughout, so a kernel and its twin agree bit for bit.  The
+diagnostic library is apart from the search kernels'
+(``cuda_build.lib``): no search path calls this module.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from . import cuda_build
 from .extract import _check_reads
 
 M32 = 0xFFFFFFFF
+SLAB_WIDTHS = (128, 64, 32, 16)  # bins a slab of the slab route
 PROBE_BOUNDS_MODES = ("p16", "load1", "nosmem", "lcg", "smem1")
 LAYOUTS = ("p16", "p10")
 STAGES = ("sf", "sr", "ys", "kf", "kr", "chi", "clo", "erm", "emit", "pre")
@@ -146,15 +152,55 @@ def _check_table(name: str, table, words, n_hash) -> tuple[int, int, int]:
     return R, W, table.shape[1]
 
 
+def slab_bins(S1: int, B: int, smem_per_block: int) -> int:
+    """Slab width in bins of the probe diagnostics' slab route for a
+    table [S1, B] on a card whose blocks may take ``smem_per_block``
+    bytes of shared memory (the H100: 232,448): the widest of
+    SLAB_WIDTHS, no wider than B needs, whose [S1, b] slab fits; 0 where
+    none fits, the rows route.  K2's rule (csrc/probe_slab.cu,
+    probe_slab_bins; a change to one is made to both), for any B that is
+    a multiple of 4.  A function of the shape and the card alone, never
+    of a launch's outcome."""
+    if S1 <= 0 or B <= 0:
+        return 0
+    widths = [b for b in SLAB_WIDTHS if b == 16 or b // 2 < B]
+    return next((b for b in widths if S1 * b <= smem_per_block), 0)
+
+
+_SMEM: dict[int, int] = {}
+
+
+def smem_per_block(device: torch.device) -> int:
+    """The shared memory a block of CUDA ``device`` may opt in to."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMEM:
+        smem = cuda_build.diag_lib().diag_smem_per_block(idx)
+        if smem < 0:
+            raise RuntimeError("diag_smem_per_block: CUDA error")
+        _SMEM[idx] = smem
+    return _SMEM[idx]
+
+
+def _slab(table: torch.Tensor, rows: bool) -> int:
+    """The slab width a launch on ``table`` takes: slab_bins' pick, or 0
+    (the rows route) where ``rows`` forces it."""
+    return 0 if rows else slab_bins(*table.shape,
+                                    smem_per_block(table.device))
+
+
 def probe_bounds(table: torch.Tensor, words: torch.Tensor,
                  n_hash: torch.Tensor, mode: str, U: int = 8,
-                 RT: int = 16) -> torch.Tensor:
+                 RT: int = 16, _rows: bool = False) -> torch.Tensor:
     """int32 [R, B] counts of the probe variant ``mode`` (one of
     PROBE_BOUNDS_MODES; only p16 counts right) for table uint8 [S1, B],
     p16 position words int32 [R, W] (positions below S1) and hashes per
     read n_hash int32 [R] (at most W / 2 probed in the modes that read
     words); U and RT as the TPU tool's unroll and read tile (nosmem,
-    lcg).  Kernel on CUDA, twin on CPU."""
+    lcg).  Kernel on CUDA, twin on CPU.  The shape picks the kernel's
+    route (slab_bins); ``_rows`` forces the rows route, to hold it against
+    the twin and time it beside the slab route.  probe_bounds.ROUTES
+    counts the routes beside LAUNCHES."""
     if table.device.type == "cpu":
         return probe_bounds_plain(table, words, n_hash, mode, U, RT)
     R, W, B = _check_table("probe_bounds", table, words, n_hash)
@@ -164,18 +210,20 @@ def probe_bounds(table: torch.Tensor, words: torch.Tensor,
     if (mode == "lcg" and S1 < 2048) or (mode == "nosmem"
                                          and not 0 < U < S1 - 3):
         raise ValueError(f"probe_bounds: {S1} slots are too few for {mode}")
+    b = _slab(table, _rows)
     out = torch.empty((R, B), dtype=torch.int32, device=table.device)
     err = cuda_build.diag_lib().launch_probe_bounds(
-        table.data_ptr(), B, words.data_ptr(), R, W, n_hash.data_ptr(),
-        PROBE_BOUNDS_MODES.index(mode), U, RT, out.data_ptr(),
+        table.data_ptr(), S1, B, words.data_ptr(), R, W, n_hash.data_ptr(),
+        PROBE_BOUNDS_MODES.index(mode), U, RT, b, out.data_ptr(),
         cuda_build.stream_of(table))
     cuda_build.check(err, "launch_probe_bounds")
     if R and B:
-        cuda_build.count_launch(probe_bounds)
+        cuda_build.count_launch(probe_bounds, "slab" if b else "rows")
     return out
 
 
 probe_bounds.LAUNCHES = 0
+probe_bounds.ROUTES = {}
 
 
 def probe_experiment_plain(table, words, n_hash, layout: str = "p16",
@@ -221,7 +269,7 @@ def probe_experiment_plain(table, words, n_hash, layout: str = "p16",
 def probe_experiment(table: torch.Tensor, words: torch.Tensor,
                      n_hash: torch.Tensor, layout: str = "p16", nr: int = 1,
                      rounds: int = 0, flood_k: int = 0,
-                     block_length: int = 0):
+                     block_length: int = 0, _rows: bool = False):
     """(counts int32 [R, B], extra int32 [R]) of one probe experiment:
     the real counts of table uint8 [S1, B] from position words int32
     [R, W] in ``layout`` (p16: two words a hash; p10: W = H + H/4 with
@@ -231,7 +279,10 @@ def probe_experiment(table: torch.Tensor, words: torch.Tensor,
     chains per hash whose result lands in extra; or, with flood_k > 0,
     zero counts and extra[r] the sum (mod 2**32) of words[r, (K*h + u) &
     1023] over h < n_hash[r], u < K (W >= 1024).  Kernel on CUDA, twin on
-    CPU."""
+    CPU.  The probe experiments take the route the shape picks
+    (slab_bins), or the rows route where ``_rows`` forces it;
+    probe_experiment.ROUTES counts them, and the flood, which touches no
+    table, as "flood"."""
     if table.device.type == "cpu":
         return probe_experiment_plain(table, words, n_hash, layout, nr,
                                       rounds, flood_k, block_length)
@@ -248,19 +299,25 @@ def probe_experiment(table: torch.Tensor, words: torch.Tensor,
         raise ValueError("probe_experiment: p10 words are [R, H + H/4] "
                          "(H a multiple of 4) over three blocks of "
                          "block_length slots")
-    out = torch.zeros((R, B), dtype=torch.int32, device=table.device)
+    b = 0 if flood_k else _slab(table, _rows)
+    # the probe modes write every count; the flood leaves them 0
+    out = (torch.zeros if flood_k else torch.empty)(
+        (R, B), dtype=torch.int32, device=table.device)
     extra = torch.zeros(R, dtype=torch.int32, device=table.device)
     err = cuda_build.diag_lib().launch_probe_experiment(
-        table.data_ptr(), B, words.data_ptr(), R, W, H, n_hash.data_ptr(),
-        LAYOUTS.index(layout), nr, rounds, flood_k, int(block_length),
-        out.data_ptr(), extra.data_ptr(), cuda_build.stream_of(table))
+        table.data_ptr(), table.shape[0], B, words.data_ptr(), R, W, H,
+        n_hash.data_ptr(), LAYOUTS.index(layout), nr, rounds, flood_k,
+        int(block_length), b, out.data_ptr(), extra.data_ptr(),
+        cuda_build.stream_of(table))
     cuda_build.check(err, "launch_probe_experiment")
-    if R:
-        cuda_build.count_launch(probe_experiment)
+    if R and (flood_k or B):
+        cuda_build.count_launch(probe_experiment, "flood" if flood_k else
+                                "slab" if b else "rows")
     return out, extra
 
 
 probe_experiment.LAUNCHES = 0
+probe_experiment.ROUTES = {}
 
 
 def extract_stages_plain(packed: torch.Tensor, lengths: torch.Tensor,

@@ -15,6 +15,11 @@ read against the same table, so each variant reads as a share of the
 production kernel's time.  Times are tools/timing.rolled_ms; ns/hash
 divides by R x nvalid, as the JAX tool did.  Before timing, every
 variant is held bit-exact against its plain twin on the first 64 reads.
+Each row names the route its timed calls took (``took``: the launches
+by route, from probe_bounds.ROUTES and K2's VARIANTS; none on the CPU).
+At this geometry the variants and K2 both take their slab routes (slabs
+of 64 bins), so each share compares K2's slab route with the same
+schedule less part of its work.
 """
 
 from __future__ import annotations
@@ -75,6 +80,14 @@ def check(table, words, n_hash, modes=diag.PROBE_BOUNDS_MODES) -> None:
                                  "its twin")
 
 
+def took(counter: dict, fn) -> tuple:
+    """(fn(), {route: launches that fn added to counter})."""
+    before = dict(counter)
+    ms = fn()
+    return ms, {k: v - before.get(k, 0) for k, v in counter.items()
+                if v != before.get(k, 0)}
+
+
 def run(device="cuda", R: int = R_TOOL, H: int = H_TOOL,
         nvalid: int = NVALID, seed: int = 0) -> dict:
     """{label: {"ms", "ns_per_hash", "share_of_k2"}} of the variants and
@@ -103,17 +116,20 @@ def run(device="cuda", R: int = R_TOOL, H: int = H_TOOL,
     tables = table[None]
     k2 = (probe.k2_counts if dev.type == "cuda"
           else probe.probe_counts_grouped_plain)
-    out["K2"] = {"ms": rolled_ms(lambda h: k2(h, lo, valid, tables, None,
-                                             seed_k2, bl), hi)}
+    ms, routes = took(probe.k2_counts.VARIANTS, lambda: rolled_ms(
+        lambda h: k2(h, lo, valid, tables, None, seed_k2, bl), hi))
+    out["K2"] = {"ms": ms, "took": routes}
     for mode in diag.PROBE_BOUNDS_MODES:
-        out[mode] = {"ms": rolled_ms(lambda w, m=mode: diag.probe_bounds(
-            table, w, n_hash, m, U, RT), words)}
+        ms, routes = took(diag.probe_bounds.ROUTES, lambda m=mode: rolled_ms(
+            lambda w: diag.probe_bounds(table, w, n_hash, m, U, RT), words))
+        out[mode] = {"ms": ms, "took": routes}
     for label, row in out.items():
         row["ns_per_hash"] = row["ms"] * 1e6 / (R * nvalid)
         row["share_of_k2"] = row["ms"] / out["K2"]["ms"]
         log(f"{label:8s} U={U} RT={RT}  {row['ms']:9.4f} ms "
             f"({row['ns_per_hash']:7.4f} ns/hash, "
-            f"{100 * row['share_of_k2']:6.1f}% of K2)")
+            f"{100 * row['share_of_k2']:6.1f}% of K2; routes "
+            f"{row['took'] or 'plain'})")
     return out
 
 

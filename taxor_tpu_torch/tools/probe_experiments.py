@@ -29,7 +29,9 @@ U (hashes an unrolled body, which sets the hashes probed a read) and RT
 the record).  vpuxN is N rounds-per-4-hashes of ALU work on the p16
 layout with one read a thread: in the JAX tool the mode name's "xN" also
 interleaved N reads.  ns/hash divides by R x nvalid (x K for smemflood:
-ns per load), as the JAX tool did.
+ns per load), as the JAX tool did.  Each row names the route its timed
+calls took (``took``, from probe_experiment.ROUTES: the slab route at
+this geometry, "flood" for smemflood; none on the CPU).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import torch
 from ..device import diag
 from .bench import log
 from .probe_bounds import H_TOOL, NVALID, R_TOOL, S1_TOOL, tool_table
-from .probe_bounds import p16_words
+from .probe_bounds import p16_words, took
 from .timing import rolled_ms
 
 BL_TOOL = 806
@@ -61,6 +63,16 @@ LISTS = {
                 ("p10x2", 16, 16, "p10", 0), ("p10x2", 8, 16, "p10", 2),
                 ("p10x2", 8, 16, "p10", 4), ("p16x2", 8, 16, "p16", 0)],
 }
+
+
+# the runs that chip_smoke.py and the GPU tests hold against the twin:
+# both layouts at 1, 2 and 4 reads a thread, ALU rounds, rounds with
+# interleaved reads, the word flood
+CHECK_RUNS = (
+    [dict(layout=lay, nr=nr) for lay in ("p16", "p10") for nr in (1, 2, 4)]
+    + [dict(layout="p16", rounds=r) for r in (4, 8, 16)]
+    + [dict(layout="p10", nr=2, rounds=4)]
+    + [dict(flood_k=k) for k in (2, 4, 8)])
 
 
 def experiment(mode: str, U: int, layout: str, nops: int,
@@ -89,6 +101,21 @@ def make_inputs(rng, R: int, H: int, S1: int, bl: int):
              << (8 * np.arange(4, dtype=np.int64))).sum(axis=2)
     w10 = np.concatenate([fword, p10], axis=1).astype(np.uint32)
     return p16_words(pos, f), w10.view(np.int32)
+
+
+def zero_hit_inputs(rng, S1: int, B: int, bl: int, R: int, H: int):
+    """(table uint8 [S1, B], p16 words [R, 2H], p10 words [R, H + H/4])
+    where every hash hits every bin: the tool's table with rows 5,
+    bl + 5, 2 bl + 5 and its last zero, p16 positions all at the last
+    slot, p10 offsets all 5, fingerprints 0.  A read's count is then its
+    number of hashes in every bin."""
+    table = tool_table(rng, S1, B)
+    table[[5, bl + 5, 2 * bl + 5]] = 0
+    w16 = p16_words(np.full((R, H, 3), S1 - 1, dtype=np.int64),
+                    np.zeros((R, H), dtype=np.int64))
+    w10 = np.zeros((R, H + H // 4), dtype=np.int32)
+    w10[:, H // 4:] = 5 | (5 << 10) | (5 << 20)
+    return table, w16, w10
 
 
 def run_one(table, words, n_hash, bl, spec):
@@ -131,16 +158,18 @@ def run(list_name: str = "default", device="cuda", R: int = R_TOOL,
         spec = experiment(mode, U, layout, nops, nvalid)
         n_hash = torch.full((R,), spec["n"], dtype=torch.int32, device=dev)
         check(table, words[layout][:64], n_hash[:64], BL_TOOL, spec)
-        ms = rolled_ms(lambda w, sp=spec, nh=n_hash: run_one(
-            table, w, nh, BL_TOOL, sp), words[layout])
+        ms, routes = took(diag.probe_experiment.ROUTES, lambda sp=spec,
+                          nh=n_hash, w=words[layout]: rolled_ms(
+            lambda wr: run_one(table, wr, nh, BL_TOOL, sp), w))
         per = spec["flood_k"] or 1
         ns = ms * 1e6 / (R * nvalid * per)
         unit = "ns/load" if spec["flood_k"] else "ns/hash"
         log(f"{mode:10s} U={U:2d} RT={RT:2d} nops={nops}  {ms:9.4f} ms "
             f"({ns:7.4f} {unit}; nr={spec['nr']} rounds={spec['rounds']} "
-            f"n={spec['n']})")
+            f"n={spec['n']}; routes {routes or 'plain'})")
         rows.append(dict(mode=mode, U=U, RT=RT, nops=nops, ms=ms,
-                         **{unit.replace("/", "_per_"): ns}, **spec))
+                         **{unit.replace("/", "_per_"): ns}, **spec,
+                         took=routes))
     return rows
 
 

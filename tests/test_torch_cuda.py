@@ -14,6 +14,7 @@ import torch
 from taxor_tpu_torch.device import e2e, extract, probe, sort
 from taxor_tpu_torch.device.e2e import fused_e2e_step
 from taxor_tpu_torch.hash import device_syncmer as dsync
+from taxor_tpu_torch.tools import probe_experiments as pe
 from taxor_tpu_torch.tools import time_sort
 
 pytestmark = pytest.mark.gpu
@@ -542,6 +543,114 @@ def test_diag_probe_kernels_match_twins(diag_inputs):
                                            block_length=806, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
+
+
+def diag_probe_inputs(rng, S1, B, bl, R=48, H=512):
+    """A random table [S1, B] with a zero last slot, and R reads of random
+    p16 words, block-structured p16 and p10 words; n_hash with a read of
+    no hash and one past its row of words."""
+    from taxor_tpu_torch.tools import probe_bounds as pb
+
+    table = pb.tool_table(rng, S1, B)
+    n_hash = rng.integers(0, H + 1, R).astype(np.int32)
+    n_hash[:3] = 0, H, H + 100
+    w16, w10 = pe.make_inputs(rng, R, H, S1, bl)
+    return table, pb.make_inputs(rng, R, H, S1), w16, w10, n_hash
+
+
+def zero_hit_inputs(S1, B, bl, n, H):
+    """Every hash hits every bin (probe_experiments.zero_hit_inputs)."""
+    table, w16, w10 = pe.zero_hit_inputs(np.random.default_rng(S1), S1, B,
+                                         bl, len(n), H)
+    return table, w16, w16, w10, np.array(n, dtype=np.int32)
+
+
+def check_probe_routes(cuda, inputs, bl, rows, slab, modes, runs):
+    """Both probe diagnostics through the shape's pick, which must be the
+    slab of ``slab`` bins (0 for rows), or the rows route where ``rows``
+    forces it, against their twins, bit-exact, each launch's route
+    counted in ROUTES."""
+    from taxor_tpu_torch.device import diag
+
+    table, w16r, w16, w10, n_hash = (
+        x if torch.is_tensor(x) else torch.from_numpy(x).to(cuda)
+        for x in inputs)
+    assert diag.slab_bins(*table.shape, diag.smem_per_block(cuda)) == slab
+    took = "rows" if rows or not slab else "slab"
+    for mode in modes:
+        before = diag.probe_bounds.ROUTES.get(took, 0)
+        got = diag.probe_bounds(table, w16r, n_hash, mode, _rows=rows)
+        want = diag.probe_bounds_plain(table, w16r, n_hash, mode)
+        torch.cuda.synchronize()
+        assert diag.probe_bounds.ROUTES[took] == before + 1
+        assert torch.equal(got, want), mode
+    for kw in runs:
+        w = w10 if kw.get("layout") == "p10" else w16
+        got = diag.probe_experiment(table, w, n_hash, block_length=bl,
+                                    _rows=rows, **kw)
+        want = diag.probe_experiment_plain(table, w, n_hash, block_length=bl,
+                                           **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
+    return want[0]
+
+
+# (S1, B, bl, the slab the shape picks on the H100)
+DIAG_SHAPES = [(2419, 512, 806, 64),    # the tools' geometry
+               (2419, 100, 806, 64),    # a ragged last slab of 36 bins
+               (2419, 36, 806, 64),     # one slab, ragged
+               (2419, 4096, 806, 64),   # 64 slabs
+               (1500, 256, 499, 128),   # slabs of 128 bins
+               (2419, 32, 806, 32),
+               (10000, 64, 3333, 16),   # slabs of 16 bins
+               (10000, 36, 3333, 16),   # 16 bins, a ragged last slab of 4
+               (20000, 64, 6666, 0)]    # past the shared memory: rows
+
+
+# the route the shape picks, and the rows route forced where that is a slab
+@pytest.mark.parametrize("rows,S1,B,bl,slab", [
+    (rows, *shape) for shape in DIAG_SHAPES
+    for rows in ((False, True) if shape[-1] else (False,))])
+def test_diag_probe_routes_match_twins(cuda, rows, S1, B, bl, slab):
+    from taxor_tpu_torch.device import diag
+
+    inputs = diag_probe_inputs(np.random.default_rng(S1 + B), S1, B, bl)
+    modes = [m for m in diag.PROBE_BOUNDS_MODES if m != "lcg" or S1 >= 2048]
+    check_probe_routes(cuda, inputs, bl, rows, slab, modes,
+                       pe.CHECK_RUNS)
+
+
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("S1,B,bl,slab,n,H", [
+    (2419, 100, 806, 64, [512, 300, 256, 255, 0], 512),
+    (1500, 256, 499, 128, [2048, 1021, 1020, 7], 2048)])
+def test_diag_probe_counts_past_255(cuda, rows, S1, B, bl, slab, n, H):
+    """Every hash hits every bin: counts up to 512 (a read-lane of
+    probe_experiment's slab route writes its counts after 252 hashes,
+    then adds to them twice) and 2,048 (probe_bounds' 4 hash-lanes at
+    128 bins take three flush rounds of up to 1,020)."""
+    inputs = zero_hit_inputs(S1, B, bl, n, H)
+    counts = check_probe_routes(cuda, inputs, bl, rows, slab,
+                                ("p16", "load1"), pe.CHECK_RUNS[:7])
+    assert torch.equal(counts.cpu(), torch.tensor(n)[:, None].expand(-1, B))
+
+
+def test_diag_probe_experiment_unaligned_words(cuda):
+    """Rows of words that 16-byte loads cannot take (H = 516: 129
+    fingerprint words; p16 rows of 2H + 2 words; a buffer 4 bytes past
+    16-byte alignment): probe_experiment's slab route loads a word at a
+    time there, and still equals its twin."""
+    rng = np.random.default_rng(44)
+    table, _, w16, w10, n_hash = diag_probe_inputs(rng, 2419, 512, 806,
+                                                   H=516)
+    R = w16.shape[0]
+    buf = torch.zeros(R * (w16.shape[1] + 2) + 1, dtype=torch.int32,
+                      device=cuda)
+    w16o = buf[1:].view(R, -1)  # contiguous, 4 bytes past alignment
+    w16o[:, :w16.shape[1]] = torch.from_numpy(w16).to(cuda)
+    assert w16o.is_contiguous() and w16o.data_ptr() % 16 == 4
+    inputs = (table, w16, w16o, w10, n_hash)
+    check_probe_routes(cuda, inputs, 806, False, 64, (), pe.CHECK_RUNS)
 
 
 @pytest.mark.parametrize("L", [256, 8192, 32768])

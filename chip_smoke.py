@@ -103,9 +103,12 @@ Phases (any failure exits non-zero):
      picks (ROUTES checked) and, where that is the slab route, through
      the rows route too; on tables where every hash hits every bin
      (counts up to 512 a read, and 2,048 on slabs of 128 bins); then
-     extract_stage in all ten stages at
-     every length bucket 256..32768 on phase 2's kinds of reads; and
-     window_shift for all 16 phases on the same reads' stream words;
+     extract_stage in all ten stages for the schemes STAGE_SCHEMES at
+     every length bucket 256..32768 on phase 2's kinds of reads (its
+     tied reads drive the walking thread's slide-outs), with its shared
+     memory held to ``diag.stage_smem``; and window_shift for all 16
+     phases and a reordered list with a repeat on the same reads' stream
+     words, and on rows of L/16 - 3 words (no multiple of 4);
  12. the tooling path, with every launch count set to 0 just before it:
      ``tools.bench`` on its primary config (viral_flat_256) with its
      parity gate (five scheme/layout families, device TSV == host TSV),
@@ -118,7 +121,10 @@ Phases (any failure exits non-zero):
      tools must stay on their slab routes; then the four
      diagnostic kernels timed against their twins, the two probe
      diagnostics also on the device alone and through their rows route
-     at the same shape.  Their
+     at the same shape, window_shift also on the device alone, and
+     extract_stage in stages sf, chi, erm, emit and pre, pre on a batch
+     tied in every window and on one read alone (its serial chain), each
+     a call and on the device alone (the record's ``stages``).  Their
      records count the tooling path's launches (``launches_in``:
      "tools"), with phase 11's apart as ``check_launches``, and the two
      probe diagnostics' launches by route (``routes``,
@@ -152,6 +158,9 @@ import numpy as np
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 K, S = 22, 12  # the reference's published syncmer scheme
+# extract_stage's schemes (k, s, t) in phase 11: the published one, the
+# widest window (w = 18), the shortest s-mer (s = 2, t = w = 14), t = w = 11
+STAGE_SCHEMES = ((22, 12, 5), (32, 15, 1), (15, 2, 14), (21, 11, 11))
 GENOME_LEN = 30000
 LONG_READS = 16  # of 40 kb: over L_CAP, the host-hash route
 TMAX = 64  # technical bins per IXF of the hierarchical index
@@ -1411,7 +1420,7 @@ def check_probe_diags(torch, diag, label: str, table, bl: int, rand16, w16,
 
 def check_diag(torch, flat_table, flat_bl: int, rng) -> None:
     """Phase 11: every diagnostic kernel against its twin, bit-exact."""
-    from taxor_tpu_torch.device import diag
+    from taxor_tpu_torch.device import cuda_build, diag
     from taxor_tpu_torch.hash import device_syncmer as dsync
     from taxor_tpu_torch.tools import probe_bounds as pb
     from taxor_tpu_torch.tools import probe_experiments as pe
@@ -1471,24 +1480,38 @@ def check_diag(torch, flat_table, flat_bl: int, rng) -> None:
                                 modes=("p16", "load1"))
         if top != max(n):
             raise AssertionError(f"zero-hit counts reach {top}, not {max(n)}")
-    t = (K - S + 1) // 2
+    lib = cuda_build.diag_lib()
     for L in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768):
         seqs = k1_reads(rng, L)
         packed, lengths = dsync.pack_reads(seqs, L)
         pk = torch.from_numpy(packed).to(dev)
         ln = torch.from_numpy(lengths).to(dev)
-        want = diag.extract_stages_plain(pk, ln, K, S, t)
-        for stage in diag.STAGES:
-            assert_equal(torch, f"extract_stage {stage} L={L}", (stage,),
-                         (diag.extract_stage(pk, ln, K, S, t, stage),),
-                         (want[stage],))
+        for i, stage in enumerate(diag.STAGES):  # the wrapper's mirror
+            if lib.extract_stage_smem(L, i) != diag.stage_smem(L, stage):
+                raise AssertionError(f"stage_smem({L}, {stage}) differs "
+                                     f"from the kernel's")
+        emitted = []
+        for k, s, t in STAGE_SCHEMES:
+            want = diag.extract_stages_plain(pk, ln, k, s, t)
+            for stage in diag.STAGES:
+                assert_equal(torch, f"extract_stage {stage} (k={k}, s={s}, "
+                             f"t={t}) L={L}", (stage,),
+                             (diag.extract_stage(pk, ln, k, s, t, stage),),
+                             (want[stage],))
+            emitted.append(int(want["emit"].sum()))
         x = torch.from_numpy(stream_words(packed)).to(dev)
-        assert_equal(torch, f"window_shift L={L}", ("words",),
-                     (diag.window_shift(x),),
-                     (diag.window_shift_plain(x, range(16)),))
-        log(f"extract_stage (10 stages) and window_shift (16 phases) L={L}: "
-            f"bit-exact vs twins on {len(seqs)} reads "
-            f"({int(want['emit'].sum())} emissions)")
+        for phases in (range(16), [15, 3, 11, 0, 3]):
+            assert_equal(torch, f"window_shift {list(phases)} L={L}",
+                         ("words",), (diag.window_shift(x, phases),),
+                         (diag.window_shift_plain(x, phases),))
+        xo = x[:, :x.shape[1] - 3].contiguous()  # Wd no multiple of 4
+        assert_equal(torch, f"window_shift Wd={xo.shape[1]}", ("words",),
+                     (diag.window_shift(xo),),
+                     (diag.window_shift_plain(xo, range(16)),))
+        log(f"extract_stage (10 stages, schemes {STAGE_SCHEMES}) and "
+            f"window_shift (16 phases, a reordered list, Wd = L/16 and "
+            f"L/16 - 3) L={L}: bit-exact vs twins on {len(seqs)} reads "
+            f"({emitted} emissions)")
     log(f"phase 11: diagnostic kernels checked in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1604,15 +1627,53 @@ def tool_path(torch, modules, work: str) -> tuple[dict, dict]:
     return counts, routes
 
 
+def time_stages(torch, seqs, pk, ln, words) -> tuple[dict, float]:
+    """extract_stage in stages sf, chi, erm, emit and pre on the batch
+    (packed pk, lengths ln of seqs), pre on as many reads tied in every
+    window (``pre_tied``) and on the batch's longest read alone
+    (``pre_one``: one read's serial chain of tracker steps, the floor of
+    emit and pre), and window_shift on the stream words, through
+    ``tools.time_stages.measure``: each held to its twin, then timed a
+    call and on the device alone.  Returns the stages' times beside
+    their bytes bounds, and window_shift's device time."""
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools import time_stages as ts
+    from taxor_tpu_torch.tools.time_extract import all_tied_reads
+
+    R, L = pk.shape[0], pk.shape[1] * 4
+    tied = [torch.from_numpy(x).to(pk.device) for x in dsync.pack_reads(
+        all_tied_reads(np.random.default_rng(SEED + 13), L, R), L)]
+    one = max(range(R), key=lambda r: len(seqs[r]))
+    got = ts.measure({"": (pk, ln), "_tied": tied,
+                      "_one": (pk[one:one + 1], ln[one:one + 1])}, words,
+                     pk.device)
+    if not all(got["equal"].values()):
+        raise AssertionError(f"extract_stage or window_shift differs from "
+                             f"its twin: {got['equal']}")
+    out = {}
+    for name in (*ts.STAGES, "pre_tied", "pre_one"):
+        rows = 1 if name == "pre_one" else R
+        out[name] = {"ms": got[f"{name}_ms"],
+                     "device_ms": got[f"{name}_device_ms"], **bound(
+                         (L // 4 + 4 + (1 if name == "emit" else 8) * L)
+                         * rows, 0.0, PEAK_SCALAR)}
+        log(f"time extract_stage {name} ({rows} reads, L={L}): a call "
+            f"{out[name]['ms']:.4f} ms, device {out[name]['device_ms']:.4f}"
+            f" ms, bound {out[name]['bound_ms']:.4f} ms")
+    out["pre_one"]["length"] = int(ln[one])
+    return out, got["window_shift_device_ms"]
+
+
 def time_diag(torch, state) -> list[dict]:
     """The four diagnostic kernels against their twins: the probe
     variants at the JAX tools' geometry (R=8192, H=512, 176 hashes a
     read, 2,419 slots x 512 bins), the stage dump (stage ``pre``, the
-    tracker) and the window shift at the flat path's L=8192 bucket.  The
-    two probe diagnostics, which take their slab route there, are also
-    timed on the device alone (device_ms) and through their rows route
-    at the same shape, a call and on the device alone, beside the floor
-    of their shared-memory row reads."""
+    tracker; then five stages and two more batches, ``time_stages``) and
+    the window shift (also on the device alone) at the flat path's
+    L=8192 bucket.  The two probe diagnostics, which take their slab
+    route there, are also timed on the device alone (device_ms) and
+    through their rows route at the same shape, a call and on the device
+    alone, beside the floor of their shared-memory row reads."""
     from taxor_tpu_torch.device import diag
     from taxor_tpu_torch.hash import device_syncmer as dsync
     from taxor_tpu_torch.tools import probe_bounds as pb
@@ -1676,6 +1737,12 @@ def time_diag(torch, state) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": DIAG[name][1],
                      "replaces": DIAG[name][2], "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, **bnd, "library_ms": None})
+        if name == "extract_stages":
+            rows[-1]["stages"], shift_dev = time_stages(torch, seqs, pk, ln,
+                                                        words)
+        if name == "window_shift":
+            rows[-1]["device_ms"] = shift_dev
+            log(f"time window_shift: device {shift_dev:.4f} ms")
         if name not in ("probe_bounds", "probe_experiments"):
             continue
         # on the device alone, and the rows route at the same shape, each

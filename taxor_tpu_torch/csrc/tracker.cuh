@@ -12,9 +12,9 @@
 // and :193-226), which flagged reads with tied window minima for the host.
 //
 // tracker_step is that rule for one window, over any store of s-mers.
-// track_syncmers runs it over a whole read on ONE thread (~30 dependent
-// instructions a base): the diagnostic kernel extract_stages.cu (stages
-// emit and pre) keeps it as the reference tracker to bisect against.
+// The diagnostic kernel extract_stages.cu (stages emit and pre) applies
+// it to every window of a read on ONE thread: the reference tracker to
+// bisect against.
 //
 // The decomposition (window_outcome, resolve_tied_runs) makes the tracker
 // position-parallel and exact.  The held value is always the window
@@ -33,12 +33,6 @@
 #include <cstdint>
 
 namespace taxor {
-
-// Base i of a read staged as 2-bit words: bits 2*(i%16) of word i/16
-// (the pack_reads layout read as uint32).
-__device__ __forceinline__ uint32_t base_at(const uint32_t* words, int i) {
-  return (words[i >> 4] >> (2 * (i & 15))) & 3u;
-}
 
 // One step of the reference tracker at the window of the k-mer ending at
 // base i (i >= k-1): updates the held minimum value qv and its s-mer start
@@ -75,41 +69,6 @@ __device__ __forceinline__ bool tracker_step(int i, int k, int s, int t,
     }
   }
   return qp == i - k + t;
-}
-
-// Runs the tracker over bases [0, len) of `words` on the calling thread
-// and calls emit(n, i, kmer) for the n-th emission, the canonical k-mer
-// ending at base i.  `ring` is 32 words of scratch (w = k-s+1 <= 31 s-mer
-// ends stay live).  Returns the number of emissions.  2 <= s <= 15,
-// s < k <= 32, 1 <= t <= k-s+1.
-template <class Emit>
-__device__ int track_syncmers(const uint32_t* words, uint32_t* ring, int len,
-                              int k, int s, int t, Emit&& emit) {
-  const uint64_t kmask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
-  const uint32_t smask = (1u << (2 * s)) - 1;
-  const int kshift = 2 * (k - 1), sshift = 2 * (s - 1);
-  uint64_t xk0 = 0, xk1 = 0;
-  uint32_t xs0 = 0, xs1 = 0, word = 0;
-  uint32_t qv = 0xFFFFFFFFu;  // held minimum value ...
-  int qp = -1;                // ... and its s-mer start
-  int n = 0;
-  const auto ys = [&](int e) { return ring[e & 31]; };
-  for (int i = 0; i < len; ++i) {
-    if ((i & 15) == 0) word = words[i >> 4];
-    const uint32_t c = (word >> (2 * (i & 15))) & 3u;
-    xk0 = ((xk0 << 2) | c) & kmask;
-    xk1 = (xk1 >> 2) | ((uint64_t)(3u - c) << kshift);
-    xs0 = ((xs0 << 2) | c) & smask;
-    xs1 = (xs1 >> 2) | ((3u - c) << sshift);
-    if (i < s - 1) continue;
-    ring[i & 31] = min(xs0, xs1);  // s-mer ending at i
-    if (i < k - 1) continue;
-    if (tracker_step(i, k, s, t, ys, qv, qp)) {
-      emit(n, i, xk0 < xk1 ? xk0 : xk1);
-      ++n;
-    }
-  }
-  return n;
 }
 
 // ---------------------------------------------------- the decomposition --

@@ -13,11 +13,13 @@ first use (never at import) into ``taxor_tpu_torch/_build/``, which
 edited source rebuilds.  Each C launcher enqueues on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
 into an exception.  ``syncmer_extract_smem``, ``probe_slab_bins``,
-``probe_narrow_mode`` and ``diag_smem_per_block`` are no launchers: they
-return the shared memory K1 takes, the slab width of K2's slab route (0
-for its rows route), K2n's mode (1 smem, 0 rows) and the shared memory a
-block may take (the diagnostics' slab route), so that the wrappers never
-repeat a kernel's layout.
+``probe_narrow_mode``, ``diag_smem_per_block`` and
+``extract_stage_smem`` are no launchers: they return the shared memory K1
+takes, the slab width of K2's slab route (0 for its rows route), K2n's
+mode (1 smem, 0 rows), the shared memory a block may take (the
+diagnostics' slab route) and the dynamic shared memory of an
+extract_stage launch, so that the wrappers never repeat a kernel's
+layout.
 """
 
 from __future__ import annotations
@@ -82,9 +84,11 @@ _DIAG_SIGNATURES = {
     #  block_length, slab_bins, out, extra, stream)
     "launch_probe_experiment": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I,
                                 _I, ctypes.c_uint32, _I, _P, _P, _P],
+    # (L, stage) -> extract_stage's dynamic shared-memory bytes
+    "extract_stage_smem": [_I, _I],
     # (packed, lengths, R, L, k, s, t, stage, out, out_emit, stream)
     "launch_extract_stage": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (x, R, Wd, phases, P, out, stream)
+    # (x, R, Wd, phases: host int32 (d, sh) pairs, P, out, stream)
     "launch_window_shift": [_P, _I, _I, _P, _I, _P, _P],
 }
 

@@ -8,7 +8,9 @@ Counterparts of the four Pallas kernels of the JAX package's tooling:
                      position layouts, interleaved reads, extra ALU work,
                      a loop of position-word loads
   extract_stage      tools/debug_extract.run / _stage_kernel: one stage of
-                     the syncmer extractor per launch
+                     the syncmer extractor per launch; emit and pre run
+                     the reference tracker's step rule on one thread a
+                     read, the sequential rule K1 is bisected against
   window_shift       tools/debug_min.kern: the funnel-shifted stream words
                      of the TPU extractor's 16 phases
 
@@ -27,6 +29,8 @@ diagnostic library is apart from the search kernels'
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..hash.device_syncmer import _rolling, _shift_right, syncmer_kmers, \
@@ -40,6 +44,7 @@ SLAB_WIDTHS = (128, 64, 32, 16)  # bins a slab of the slab route
 PROBE_BOUNDS_MODES = ("p16", "load1", "nosmem", "lcg", "smem1")
 LAYOUTS = ("p16", "p10")
 STAGES = ("sf", "sr", "ys", "kf", "kr", "chi", "clo", "erm", "emit", "pre")
+STAGE_RING = 4096  # s-mers in extract_stage's ring (emit, pre): kRing
 # the chains of probe_experiment's ALU rounds (the TPU tool's constants)
 C1, C2 = 0x9E3779B9, 0x85EBCA6B
 
@@ -366,13 +371,30 @@ def extract_stage_plain(packed, lengths, k: int, s: int, t: int,
     return extract_stages_plain(packed, lengths, k, s, t, (stage,))[stage]
 
 
+def stage_smem(L: int, stage: str) -> int:
+    """Dynamic shared-memory bytes of an extract_stage launch at length L
+    (csrc/diag/extract_stages.cu walk_smem, which the C query
+    ``extract_stage_smem`` returns): for emit and pre the s-mer ring, the
+    emission mask and its prefix counts (a word each 32 bases) and the
+    read staged with two zero words either side; 0 for the per-position
+    stages, whose tiles take static shared memory."""
+    if stage not in ("emit", "pre"):
+        return 0
+    return 4 * (STAGE_RING + 2 * ((L + 31) // 32) + L // 16 + 4)
+
+
 def extract_stage(packed: torch.Tensor, lengths: torch.Tensor, k: int,
                   s: int, t: int, stage: str) -> torch.Tensor:
     """One stage of the syncmer extractor for packed reads uint8 [R, L/4]
     (pack_reads) and lengths int32 [R], in position order: bool [R, L]
     for ``emit``, else int64 [R, L] (csrc/diag/extract_stages.cu lists
-    the stages).  ``emit`` and ``pre`` run the sequential reference
-    tracker of csrc/tracker.cuh.  Kernel on CUDA, twin on CPU."""
+    the stages).  The per-position stages take a block per tile of 1,024
+    positions and are bound by the 8 bytes they write a position.
+    ``emit`` and ``pre`` apply the reference tracker's step rule
+    (csrc/tracker.cuh tracker_step) to every window of a read in order,
+    on one thread, while the block's other warps compute its s-mers
+    ahead: the sequential rule K1 is bisected against, bound by one
+    read's chain of steps.  Kernel on CUDA, twin on CPU."""
     if stage not in STAGES:
         raise ValueError(f"extract_stage: unknown stage {stage!r}")
     if packed.device.type == "cpu":
@@ -412,11 +434,25 @@ def window_shift_plain(x: torch.Tensor, phases) -> torch.Tensor:
     return torch.cat(out, dim=1)
 
 
+def shift_args(phases, Wd: int) -> list[int]:
+    """[d0, sh0, d1, sh1, ...]: window_shift's kernel arguments, for each
+    phase block the source offset d = (jb + 1) mod Wd (output word j
+    reads word j + d, less Wd past the row) and the shift sh."""
+    out = []
+    for c in phases:
+        jb, sh = _phase_shift(int(c))
+        out += [(jb + 1) % Wd, sh]
+    return out
+
+
 def window_shift(x: torch.Tensor, phases=range(16)) -> torch.Tensor:
     """int32 [R, Wd * len(phases)]: for each phase c, the stream words x
     int32 [R, Wd] rolled left by jb + 1 words and, if sh, shifted left by
     32 - sh and masked to 24 bits (off = 2c - 22 = 32 jb + sh), phase
-    blocks in the order given.  Kernel on CUDA, twin on CPU."""
+    blocks in the order given.  The kernel takes a block per eight rows
+    and a phase, the phase's (d, sh) of ``shift_args`` by value, and
+    writes four words a 16-byte store: bound by its bytes.  Kernel on
+    CUDA, twin on CPU."""
     phases = [int(c) for c in phases]
     if x.device.type == "cpu":
         return window_shift_plain(x, phases)
@@ -425,15 +461,16 @@ def window_shift(x: torch.Tensor, phases=range(16)) -> torch.Tensor:
         raise ValueError("window_shift: x must be contiguous int32 [R, Wd] "
                          "on a CUDA device")
     R, Wd = x.shape
-    ph = torch.tensor(phases, dtype=torch.int32, device=x.device)
     out = torch.empty((R, Wd * len(phases)), dtype=torch.int32,
                       device=x.device)
+    if not out.numel():
+        return out
+    args = shift_args(phases, Wd)
     err = cuda_build.diag_lib().launch_window_shift(
-        x.data_ptr(), R, Wd, ph.data_ptr(), len(phases), out.data_ptr(),
-        cuda_build.stream_of(x))
+        x.data_ptr(), R, Wd, (ctypes.c_int32 * len(args))(*args),
+        len(phases), out.data_ptr(), cuda_build.stream_of(x))
     cuda_build.check(err, "launch_window_shift")
-    if out.numel():
-        cuda_build.count_launch(window_shift)
+    cuda_build.count_launch(window_shift)
     return out
 
 

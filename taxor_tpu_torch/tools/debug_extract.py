@@ -8,9 +8,10 @@ The port of the JAX package's tools/debug_extract.py, which bisected the
 TPU extractor by dumping one stage of it per run and comparing the
 compiled kernel with its interpret-mode run.  Here the kernel is
 ``device/diag.extract_stage`` (csrc/diag/extract_stages.cu), which dumps
-one stage in POSITION order and runs the sequential reference tracker
-(csrc/tracker.cuh ``track_syncmers``, the rule K1 replays in its tied
-runs) for ``emit`` and ``pre``; it is compared with its plain twin.  The reads
+one stage in POSITION order and, for ``emit`` and ``pre``, applies the
+reference tracker's step rule (csrc/tracker.cuh ``tracker_step``, the
+rule K1 replays in its tied runs) to every window of a read on one
+thread; it is compared with its plain twin.  The reads
 are the JAX tool's: reads 1, 9, 11, 15, 0, 2, 3, 4 of
 ``synth.build_problem(32 genomes of 8 kb, 256 reads of 1 kb, seed 7)``,
 with k=22, s=12, t=5.  Exit code 1 when a stage differs.

@@ -670,3 +670,54 @@ def test_diag_stage_and_shift_kernels_match_twins(cuda, L):
     x = torch.from_numpy(stream_words(packed)).to(cuda)
     assert torch.equal(diag.window_shift(x),
                        diag.window_shift_plain(x, range(16)))
+
+
+# every stage and scheme of the stage dump: the per-position tiles and the
+# walking thread (emit, pre) over chunks of s-mers, tied reads included
+STAGE_SCHEMES = [(22, 12, 5), (32, 15, 1), (15, 2, 14), (21, 11, 11)]
+
+
+@pytest.mark.parametrize("k,s,t", STAGE_SCHEMES)
+@pytest.mark.parametrize("L", [256, 1024, 8192, 32768])
+def test_diag_stages_match_twins_every_scheme(cuda, L, k, s, t):
+    from taxor_tpu_torch.device import diag
+
+    rng = np.random.default_rng(L + 100 * k + t)
+    packed, lengths = dsync.pack_reads(reads(rng, L), L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    want = diag.extract_stages_plain(pk, ln, k, s, t)
+    before = diag.extract_stage.LAUNCHES
+    for stage in diag.STAGES:
+        got = diag.extract_stage(pk, ln, k, s, t, stage)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[stage]), stage
+    assert diag.extract_stage.LAUNCHES == before + len(diag.STAGES)
+    assert want["emit"].sum() > 0
+
+
+def test_diag_stage_smem_equals_the_kernels(cuda):
+    from taxor_tpu_torch.device import cuda_build, diag
+
+    lib = cuda_build.diag_lib()
+    for L in (16, 48, 256, 1024, 8192, 32768):
+        for i, stage in enumerate(diag.STAGES):
+            assert lib.extract_stage_smem(L, i) == diag.stage_smem(L, stage)
+
+
+@pytest.mark.parametrize("Wd,phases", [(17, [15, 3, 11, 0]), (1, range(16)),
+                                       (33, list(range(16)) * 5),
+                                       (16, [5, 5]), (64, [12, 0, 13])])
+def test_diag_window_shift_widths_and_phase_lists(cuda, Wd, phases):
+    """Widths that are no multiple of 4 (head and tail words), a reordered
+    and a repeated phase list, 80 phases (two launches)."""
+    from taxor_tpu_torch.device import diag
+
+    rng = np.random.default_rng(Wd)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, (37, Wd)).astype(
+        np.int32)).to(cuda)
+    before = diag.window_shift.LAUNCHES
+    got = diag.window_shift(x, phases)
+    torch.cuda.synchronize()
+    assert torch.equal(got, diag.window_shift_plain(x, phases))
+    assert diag.window_shift.LAUNCHES == before + 1

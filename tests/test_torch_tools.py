@@ -35,7 +35,7 @@ from taxor_tpu_torch.tools import (bench, bench_probe, debug_extract,
                                    debug_min,
                                    probe_bounds, probe_experiments,
                                    profile_phases, synth, time_extract,
-                                   time_sort, timing)
+                                   time_sort, time_stages, timing)
 
 from .test_torch_extract import reads as extract_reads
 from .util import make_reads, make_ref_set
@@ -455,6 +455,18 @@ def test_time_sort_runs_on_the_twins(capsys):
     assert out["emissions"]["min"] > 0 and out["dedup_width"] == 64
     for name in ("dedup", "dedup_no_emit", "sort_pairs", "torch_sort"):
         assert out[f"{name}_ms"] > 0 and out[f"{name}_device_ms"] > 0
+
+
+def test_time_stages_runs_on_the_twins(capsys):
+    assert time_stages.main(["--L", "256", "--reads", "3", "--device",
+                             "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and (out["L"], out["reads"]) == (256, 3)
+    assert all(out["equal"].values()) and len(out["equal"]) == 8
+    assert min(out["emissions"].values()) > 0
+    for name in (*time_stages.STAGES, "pre_tied", "pre_one",
+                 "window_shift"):
+        assert out[f"{name}_ms"] > 0 and f"{name}_device_ms" not in out
 
 
 def test_profile_phases_on_the_twins():

@@ -128,7 +128,41 @@ Phases (any failure exits non-zero):
      records count the tooling path's launches (``launches_in``:
      "tools"), with phase 11's apart as ``check_launches``, and the two
      probe diagnostics' launches by route (``routes``,
-     ``check_routes``).
+     ``check_routes``); every parity family's device search must have
+     taken the fused step (``parity_routes``);
+ 13. the minimiser and plain k-mer schemes (K5) on the card: (c) K5
+     against its twin, bit-exact, at every length bucket 256..32768 on
+     phase 2's kinds of reads for (k, window) = (20, 20), (20, 26),
+     (18, 26) and (32, 40); (a) phase 7's genomes and reads under the
+     bench's hier_scaled_minimizer scheme (k = 20, --window-size 26,
+     --layout auto --tmax 64) searched with ``--engine device``: its
+     fracminhash thresholds take the descend-all descent (every pair
+     active), K5 and K2n must launch, every read up to L_CAP must take
+     the fused step and only the long ones the host-hash route, and the
+     TSV must equal ``--engine host`` on the first CHECK_READS reads and
+     the long ones; the share of classified reads that name their source
+     genome is logged.  **Cut:** the family's --scaling 3 to 1, because
+     the layout of a scaled scheme degenerates into a chain hundreds of
+     levels deep (ROADMAP C.2); (e) runs the family's whole scheme on a
+     flat layout instead; (b) plain k-mers (k = window = 20) on a flat
+     index of 1,024 genomes (K5 at w' = 1, K2 on a table of ~40,000
+     slots: its rows route) with 4,096 reads plus the long ones, checked
+     as (a).  **Cut:** from the flat cell's 4,096 genomes and 8,192
+     reads, for the script's time limit; (e) the hier_scaled_minimizer
+     scheme whole (k = 20, --window-size 26, --scaling 3: the FracMinHash
+     keep after K5) on a flat index of (b)'s genomes, searched and
+     checked as (a) with (b)'s reads; (d) K5 timed against its twin at
+     the L=8192 bucket (R=512), a call and on the device alone, for the
+     scheme of (a) and for plain k-mers; the FracMinHash keep on K5's
+     output of (e)'s scheme there, a call, held to the keep on the CPU;
+     K2 at (b)'s own shape (that bucket's reads through K5, H = L hash
+     slots, on (b)'s table: the rows route), bit-exact to its twin on
+     every read of the batch and timed (the K2 rows record's
+     ``kmer_flat``); every group of one descend-all batch of (a)'s index
+     at L=8192, each run-sum launch a call and on the device alone
+     against its bound (the K2n record's ``descend_all_groups``).  K5's
+     record counts the launches of (a), (b) and (e); K2's and K2n's add
+     theirs.
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -688,7 +722,7 @@ def reset_counts(extract, probe, sort, pipeline) -> None:
 
     ACTIVITY.reset()
     for k in (extract.syncmer_hashes, extract.syncmer_track,
-              sort.dedup_fused, sort.sort_pairs):
+              extract.minimizer_kmers, sort.dedup_fused, sort.sort_pairs):
         k.LAUNCHES = 0
     for k in (probe.k2_counts, probe.k2n_counts):
         k.LAUNCHES = 0
@@ -707,8 +741,105 @@ def read_counts(extract, probe, sort) -> dict:
             "K2n rows": probe.k2n_counts.MODES.get("rows", 0),
             "track": extract.syncmer_track.LAUNCHES,
             "K3": sort.dedup_fused.LAUNCHES, "K4": sort.sort_pairs.LAUNCHES,
+            "K5": extract.minimizer_kmers.LAUNCHES,
             "K2 routes": dict(probe.k2_counts.ROUTES),
             "K2n routes": dict(probe.k2n_counts.ROUTES)}
+
+
+def cli_build(work: str, tsv: str, gdir: str, flags: list[str],
+              layout: str, label: str):
+    """``cli build`` of an index with the scheme ``flags`` and --layout
+    ``layout`` (--tmax TMAX for "auto") in work; returns (its file, the
+    loaded index)."""
+    from taxor_tpu_torch import cli
+    from taxor_tpu_torch.hixf.index import load_index
+
+    idx = os.path.join(work, f"{label}.taxor.npz")
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(work)  # the build writes its layout file (binning.out) here
+    try:
+        rc = cli.main(["build", "--input-file", tsv, "--input-sequence-dir",
+                       gdir, "--output-filename", idx, *flags, "--layout",
+                       layout, "--threads", str(os.cpu_count() or 1)]
+                      + (["--tmax", str(TMAX)] if layout == "auto" else []))
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise RuntimeError(f"[{label}] build failed ({rc})")
+    index = load_index(idx)
+    ixfs = index.hixf.ixfs
+    log(f"[{label}] build: {time.perf_counter() - t0:.1f} s, {len(ixfs)} "
+        f"IXF(s), root S={ixfs[0].fingerprints.shape[0]} x "
+        f"B={ixfs[0].fingerprints.shape[1]} (block_length "
+        f"{ixfs[0].block_length}), fingerprints "
+        f"{sum(x.fingerprints.nbytes for x in ixfs) / 1e6:.1f} MB")
+    return idx, index
+
+
+def device_search(torch, idx: str, reads: str, out: str, label: str,
+                  modules) -> tuple[dict, dict, float, float]:
+    """``cli search --engine device`` with every launch count set to 0
+    just before and read just after; (launches, routes, wall s, peak
+    device MiB)."""
+    from taxor_tpu_torch import cli
+
+    reset_counts(*modules)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
+                   "--output-file", out, "--engine", "device",
+                   "--device", "cuda", "--write-time", "--threads",
+                   str(os.cpu_count() or 1)])
+    wall = time.perf_counter() - t0
+    launches = read_counts(*modules[:3])
+    routes = dict(modules[3].ROUTES.counts)
+    if rc != 0:
+        raise RuntimeError(f"[{label}] device search failed ({rc})")
+    return launches, routes, wall, torch.cuda.max_memory_allocated() / 2**20
+
+
+def host_parity(work: str, idx: str, recs, n_reads: int, out_dev: str,
+                label: str) -> tuple[set, list]:
+    """The device TSV equals ``--engine host`` byte for byte on the first
+    CHECK_READS reads and the long ones; returns (their ids, the host
+    rows)."""
+    from taxor_tpu_torch import cli
+
+    sub = recs[:min(CHECK_READS, n_reads)] + recs[n_reads:]
+    sub_fa = os.path.join(work, f"{label}_subset.fasta")
+    write_fasta(sub_fa, sub)
+    out_host = os.path.join(work, f"{label}_host.tsv")
+    t0 = time.perf_counter()
+    rc = cli.main(["search", "--index-file", idx, "--query-file", sub_fa,
+                   "--output-file", out_host, "--engine", "host",
+                   "--device", "cuda", "--threads",
+                   str(os.cpu_count() or 1)])
+    if rc != 0:
+        raise RuntimeError(f"[{label}] host search failed ({rc})")
+    ids = {rid for rid, _ in sub}
+    dev_rows, host_rows = tsv_rows(out_dev, ids), tsv_rows(out_host)
+    if dev_rows != host_rows:
+        bad = next(i for i, (a, b) in enumerate(zip(dev_rows, host_rows))
+                   if a != b) if len(dev_rows) == len(host_rows) else -1
+        raise AssertionError(f"[{label}] device TSV differs from host TSV "
+                             f"(row {bad}, {len(dev_rows)} vs "
+                             f"{len(host_rows)} rows)")
+    log(f"[{label}] parity: device TSV == host TSV byte for byte on "
+        f"{len(sub)} reads ({len(host_rows)} rows; host engine "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return ids, host_rows
+
+
+def accuracy(out_dev: str, recs) -> tuple[int, int]:
+    """(classified reads, those whose first row names their source
+    genome)."""
+    first = {}
+    for row in tsv_rows(out_dev):
+        rid, acc = row.split("\t", 2)[:2]
+        first.setdefault(rid, acc)
+    hits = [rid for rid, _ in recs if first.get(rid, "-") != "-"]
+    return len(hits), sum(first[rid] == rid.split("_", 1)[1] for rid in hits)
 
 
 def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
@@ -717,11 +848,10 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     n_reads + LONG_READS through the device engine with the launch
     counts set to 0 just before, check the TSV against --engine host on
     a subset and the classifications against the source genomes."""
-    from taxor_tpu_torch import cli
     from taxor_tpu_torch.device import e2e, extract, probe, sort
     from taxor_tpu_torch.search import pipeline
 
-    threads = str(os.cpu_count() or 1)
+    modules = (extract, probe, sort, pipeline)
     t0 = time.perf_counter()
     tsv, gdir, genomes = make_genomes(rng, work, n_genomes, GENOME_LEN)
     recs = make_reads(rng, genomes, n_reads, LONG_READS)
@@ -730,44 +860,14 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     log(f"[{layout}] data: {n_genomes} genomes x {GENOME_LEN} b, {n_reads} "
         f"reads ({sum(len(s) for _, s in recs[:n_reads]) / 1e6:.1f} Mb) + "
         f"{LONG_READS} x 40 kb, made in {time.perf_counter() - t0:.1f} s")
-
-    idx = os.path.join(work, "idx.taxor.npz")
-    t0 = time.perf_counter()
-    cwd = os.getcwd()
-    os.chdir(work)  # the build writes its layout file (binning.out) here
-    try:
-        rc = cli.main(["build", "--input-file", tsv, "--input-sequence-dir",
-                       gdir, "--output-filename", idx, "--kmer-size",
-                       str(K), "--syncmer-size", str(S), "--use-syncmer",
-                       "--layout", layout, "--threads", threads]
-                      + (["--tmax", str(TMAX)] if layout == "auto" else []))
-    finally:
-        os.chdir(cwd)
-    if rc != 0:
-        raise RuntimeError(f"build failed ({rc})")
-    from taxor_tpu_torch.hixf.index import load_index
-
-    index = load_index(idx)
-    ixfs = index.hixf.ixfs
-    log(f"[{layout}] build: {time.perf_counter() - t0:.1f} s, {len(ixfs)} "
-        f"IXF(s), root S={ixfs[0].fingerprints.shape[0]} x "
-        f"B={ixfs[0].fingerprints.shape[1]} (block_length "
-        f"{ixfs[0].block_length}), fingerprints "
-        f"{sum(x.fingerprints.nbytes for x in ixfs) / 1e6:.1f} MB")
+    idx, index = cli_build(work, tsv, gdir,
+                           ["--kmer-size", str(K), "--syncmer-size", str(S),
+                            "--use-syncmer"], layout, layout)
 
     # ---- the main path, counted
     out_dev = os.path.join(work, "device.tsv")
-    reset_counts(extract, probe, sort, pipeline)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
-                   "--output-file", out_dev, "--engine", "device",
-                   "--device", "cuda", "--write-time", "--threads", threads])
-    wall = time.perf_counter() - t0
-    launches = read_counts(extract, probe, sort)
-    routes = dict(pipeline.ROUTES.counts)
-    if rc != 0:
-        raise RuntimeError(f"device search failed ({rc})")
+    launches, routes, wall, peak = device_search(torch, idx, reads, out_dev,
+                                                 layout, modules)
     if launches["K1"] <= 0 or launches["K2"] + launches["K2n"] <= 0:
         raise AssertionError(f"main path skipped a kernel: {launches}")
     if layout == "flat" and launches["K2 slab"] <= 0:
@@ -780,7 +880,6 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     with open(out_dev + ".time") as fh:
         phases = fh.read().strip().replace("\n", " | ")
     n_total = len(recs)
-    peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"[{layout}] main path: {n_total} reads in {wall:.2f} s wall = "
         f"{n_total / wall:.1f} reads/s; .time [{phases}]; launches "
         f"{launches}; routes {routes} (host-oracle fallback "
@@ -788,45 +887,16 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
         f"{peak:.1f} MiB")
 
     # ---- byte parity with the host engine on a subset
-    sub = recs[:min(CHECK_READS, n_reads)] + recs[n_reads:]
-    sub_fa = os.path.join(work, "subset.fasta")
-    write_fasta(sub_fa, sub)
-    out_host = os.path.join(work, "host.tsv")
-    t0 = time.perf_counter()
-    rc = cli.main(["search", "--index-file", idx, "--query-file", sub_fa,
-                   "--output-file", out_host, "--engine", "host",
-                   "--device", "cuda", "--threads", threads])
-    if rc != 0:
-        raise RuntimeError(f"host search failed ({rc})")
-    ids = {rid for rid, _ in sub}
-    dev_rows, host_rows = tsv_rows(out_dev, ids), tsv_rows(out_host)
-    if dev_rows != host_rows:
-        bad = next(i for i, (a, b) in enumerate(zip(dev_rows, host_rows))
-                   if a != b) if len(dev_rows) == len(host_rows) else -1
-        raise AssertionError(f"device TSV differs from host TSV (row {bad}, "
-                             f"{len(dev_rows)} vs {len(host_rows)} rows)")
-    log(f"[{layout}] parity: device TSV == host TSV byte for byte on "
-        f"{len(sub)} reads ({len(host_rows)} rows; host engine "
-        f"{time.perf_counter() - t0:.1f} s)")
+    ids, host_rows = host_parity(work, idx, recs, n_reads, out_dev, layout)
 
     # ---- the split engine on the same reads, counted
     out_split = os.path.join(work, "split.tsv")
-    reset_counts(extract, probe, sort, pipeline)
-    torch.cuda.reset_peak_memory_stats()
     e2e.USE_FUSED_EXTRACT = False
-    t0 = time.perf_counter()
     try:
-        rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
-                       "--output-file", out_split, "--engine", "device",
-                       "--device", "cuda", "--threads", threads])
+        split, split_routes, wall_split, split_peak = device_search(
+            torch, idx, reads, out_split, layout, modules)
     finally:
         e2e.USE_FUSED_EXTRACT = True
-    wall_split = time.perf_counter() - t0
-    split = read_counts(extract, probe, sort)
-    split_peak = torch.cuda.max_memory_allocated() / 2**20
-    split_routes = dict(pipeline.ROUTES.counts)
-    if rc != 0:
-        raise RuntimeError(f"split-engine search failed ({rc})")
     if split["K1"] != 0 or split["track"] <= 0 or split["K3"] <= 0:
         raise AssertionError(f"split engine: wrong kernels launched {split}")
     with open(out_dev, "rb") as fa, open(out_split, "rb") as fb:
@@ -836,24 +906,20 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
         raise AssertionError("split-engine TSV differs from the host TSV")
     log(f"[{layout}] split engine: {n_total} reads in {wall_split:.2f} s "
         f"wall = {n_total / wall_split:.1f} reads/s; TSV == K1 TSV on every "
-        f"read and == host on {len(sub)}; launches {split}; routes "
+        f"read and == host on {len(ids)}; launches {split}; routes "
         f"{split_routes}; peak device memory {split_peak:.1f} MiB")
 
     # ---- the result is right: a classified read names its source genome
-    first = {}
-    for row in tsv_rows(out_dev):
-        rid, acc = row.split("\t", 2)[:2]
-        first.setdefault(rid, acc)
-    hits = [rid for rid, _ in recs if first.get(rid, "-") != "-"]
-    right = sum(first[rid] == rid.split("_", 1)[1] for rid in hits)
-    if right < 0.99 * len(hits):
-        raise AssertionError(f"only {right} of {len(hits)} classified reads "
+    hits, right = accuracy(out_dev, recs)
+    if right < 0.99 * hits:
+        raise AssertionError(f"only {right} of {hits} classified reads "
                              "name their source genome")
-    log(f"[{layout}] accuracy: {len(hits)}/{n_total} reads classified, "
+    log(f"[{layout}] accuracy: {hits}/{n_total} reads classified, "
         f"{right} of them to their source genome")
     return {"index": index, "recs": recs, "launches": launches,
             "split": split, "routes": routes, "peak_mib": peak,
-            "split_peak_mib": split_peak}
+            "split_peak_mib": split_peak, "tsv": tsv, "gdir": gdir,
+            "reads": reads, "n_reads": n_reads}
 
 
 def hier_report(torch, state) -> None:
@@ -1335,6 +1401,283 @@ def time_hier(torch, state) -> list[dict]:
     return [record]
 
 
+# ------------------------------------------------------------ phase 13 --
+# the bench's hier_scaled_minimizer family's scheme (phase 13a cuts its
+# scaling, phase 13e keeps it on a flat layout: see main)
+MM_K, MM_WINDOW, MM_SCALING = 20, 26, 3
+K5_SCHEMES = ((20, 20), (20, 26), (18, 26), (32, 40))  # (k, window)
+BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
+
+
+def k5_ops(k: int, window: int) -> int:
+    """Integer operations a position of K5 takes: ~20 for the canonical
+    value (two funnel shifts, two 2-bit reversals and their 64-bit shift,
+    the complement and mask, two XORs with the seed, the 64-bit minimum)
+    and 4 a window element for the leftmost-argmin scan (a compare, two
+    selects, the index): 48 at w' = 7."""
+    return 20 + 4 * (window - k + 1)
+
+
+def check_k5(torch, dsync, extract, rng) -> None:
+    """Phase 13c: K5 against its twin, bit for bit (0 where nothing is
+    emitted), at every length bucket on phase 2's kinds of reads, for each
+    (k, window) of K5_SCHEMES: plain k-mers (w' = 1), windowed minimisers
+    and k = 32 (the seed's top bit set)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for L in BUCKETS:
+        packed, lengths = dsync.pack_reads(k1_reads(rng, L), L)
+        pk = torch.from_numpy(packed).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        n_emit = []
+        for k, window in K5_SCHEMES:
+            got = extract.minimizer_kmers(pk, ln, k, window)
+            want = dsync.minimizer_kmers_plain(pk, ln, k, window)
+            assert_equal(torch, f"K5 L={L} k={k} window={window}",
+                         ("hi", "lo", "emit", "n_emit"), got, want)
+            n_emit.append(int(got[3].max()))
+        log(f"K5 L={L}: bit-exact vs twin on {pk.shape[0]} reads for (k, "
+            f"window) {list(K5_SCHEMES)} (n_emit max {n_emit})")
+    log(f"phase 13c: K5 checked in {time.perf_counter() - t0:.1f} s")
+
+
+def kmer_data(rng, work: str, n_genomes: int, n_reads: int) -> dict:
+    """Phase 13b's data: n_genomes genomes of phase 7's kind and n_reads
+    reads of its recipe plus LONG_READS over L_CAP."""
+    os.makedirs(work)
+    tsv, gdir, genomes = make_genomes(rng, work, n_genomes, GENOME_LEN)
+    recs = make_reads(rng, genomes, n_reads, LONG_READS)
+    reads = os.path.join(work, "reads.fasta")
+    write_fasta(reads, recs)
+    return {"tsv": tsv, "gdir": gdir, "reads": reads, "recs": recs,
+            "n_reads": n_reads}
+
+
+def nonsyncmer_path(torch, work: str, label: str, data: dict, flags,
+                    layout: str, need) -> dict:
+    """Phase 13a/13b: ``cli build`` of a minimiser or plain k-mer index on
+    ``data``'s genomes, ``cli search --engine device`` of its reads with
+    the launch counts set to 0 just before and read just after; the
+    kernels ``need`` must have launched, every read up to L_CAP must take
+    the fused step and only the reads over it the host-hash route, and
+    the TSV must equal ``--engine host`` on the first CHECK_READS reads
+    and the long ones.  The share of classified reads that name their
+    source genome is logged, not gated."""
+    from taxor_tpu_torch.device import extract, probe, sort
+    from taxor_tpu_torch.device.hixf_search import ACTIVITY
+    from taxor_tpu_torch.search import pipeline
+
+    recs, n_reads = data["recs"], data["n_reads"]
+    idx, index = cli_build(work, data["tsv"], data["gdir"], flags, layout,
+                           label)
+    out_dev = os.path.join(work, f"{label}_device.tsv")
+    launches, routes, wall, peak = device_search(
+        torch, idx, data["reads"], out_dev, label,
+        (extract, probe, sort, pipeline))
+    active = ACTIVITY.share()
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"[{label}] the path skipped one of {need}: "
+                             f"{launches}")
+    if routes["fused"] != n_reads or routes["host_hashes"] != len(recs) \
+            - n_reads:
+        raise AssertionError(f"[{label}] routes {routes}: expected every "
+                             f"read up to L_CAP fused")
+    with open(out_dev + ".time") as fh:
+        phases = fh.read().strip().replace("\n", " | ")
+    log(f"[{label}] main path: {len(recs)} reads in {wall:.2f} s wall = "
+        f"{len(recs) / wall:.1f} reads/s; .time [{phases}]; launches "
+        f"{launches}; routes {routes}; active (subgroup, read) pairs "
+        f"{active:.4f}; peak device memory {peak:.1f} MiB")
+    host_parity(work, idx, recs, n_reads, out_dev, label)
+    hits, right = accuracy(out_dev, recs)
+    log(f"[{label}] accuracy (reported, not gated): {hits}/{len(recs)} "
+        f"reads classified, {right} of them ({right / max(1, hits):.4f}) to "
+        f"their source genome")
+    return {"index": index, "recs": recs, "launches": launches,
+            "routes": routes, "peak_mib": peak, "wall": wall,
+            "active_share": active}
+
+
+def time_k5(torch, state) -> dict:
+    """Phase 13d: K5 against its twin at the minimiser path's L=8192
+    bucket (R=512), a call and on the device alone, for the path's scheme
+    and for plain k-mers."""
+    from taxor_tpu_torch.device import extract
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools.time_sort import device_ms
+
+    dev = torch.device("cuda")
+    L = 8192
+    seqs = bucket_reads(state["recs"], L)
+    packed, lengths = dsync.pack_reads(seqs, L)
+    pk = torch.from_numpy(packed).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    R = pk.shape[0]
+    row = {"name": "minimizer_kmers", "route": "cuda",
+           "source": "taxor_tpu_torch/csrc/minimizer.cu",
+           "replaces": "taxor_tpu/hash/device_syncmer.py:636 (XLA, no "
+                       "Pallas kernel)", "library_ms": None,
+           "shape": [R, L]}
+    for k, window in ((MM_K, MM_WINDOW), (MM_K, MM_K)):
+        fn = lambda: extract.minimizer_kmers(pk, ln, k, window)  # noqa: E731
+        plain = lambda: dsync.minimizer_kmers_plain(  # noqa: E731
+            pk, ln, k, window)
+        ms, plain_ms, err, each = time_pair(torch, fn, plain, 20)
+        d1, d2 = device_ms(fn, 20, 2), device_ms(fn, 20, 2)
+        # packed + lengths in; hi, lo, emit, n_emit out
+        b = bound(pk.numel() + 4 * R + 9 * R * L + 4 * R,
+                  float(R * L) * k5_ops(k, window), PEAK_SCALAR)
+        log(f"time minimizer_kmers (K5) k={k} window={window} at R={R}, "
+            f"L={L}: kernel {each[0]:.4f}/{each[1]:.4f} ms a call, "
+            f"{d1:.4f}/{d2:.4f} on the device alone; plain "
+            f"{each[2]:.3f}/{each[3]:.3f} ms; bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+        if window == MM_WINDOW:
+            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       device_ms=min(d1, d2), window=window, **b)
+        else:
+            row.update(plain_kmer_ms=ms, plain_kmer_device_ms=min(d1, d2),
+                       plain_kmer_plain_ms=plain_ms,
+                       plain_kmer_bound_ms=b["bound_ms"],
+                       max_abs_err=max(row["max_abs_err"], err))
+    return row
+
+
+def time_keep(torch, state) -> float:
+    """Phase 13d: the FracMinHash keep (device/e2e._scaling_keep, tensor
+    ops) on K5's output of phase 13e's scheme at the L=8192 bucket, ms a
+    call; its mask must equal the keep's on the CPU."""
+    from taxor_tpu_torch.device import e2e
+    from taxor_tpu_torch.device.hixf_search import _scale_thresh
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+
+    dev = torch.device("cuda")
+    L = 8192
+    packed, lengths = (torch.from_numpy(x).to(dev) for x in dsync.pack_reads(
+        bucket_reads(state["recs"], L), L))
+    thresh = _scale_thresh(state["index"].scheme)
+    hi, lo, emit, _ = e2e.minimizer_kmers(packed, lengths, MM_K, MM_WINDOW)
+    keep = e2e._scaling_keep(hi, lo, thresh)
+    if not torch.equal(keep.cpu(), e2e._scaling_keep(hi.cpu(), lo.cpu(),
+                                                     thresh)):
+        raise AssertionError("the FracMinHash keep on the card differs "
+                             "from the keep on the CPU")
+    ms1 = cuda_ms(lambda: e2e._scaling_keep(hi, lo, thresh), 20)
+    ms2 = cuda_ms(lambda: e2e._scaling_keep(hi, lo, thresh), 20)
+    log(f"time FracMinHash keep (scaling {state['index'].scheme.scaling}) "
+        f"on K5's [{hi.shape[0]}, {L}] values: {ms1:.4f}/{ms2:.4f} ms a "
+        f"call over all {hi.numel()} slots; {int((keep & emit).sum())} of "
+        f"{int(emit.sum())} emitted values kept; equal to the CPU's keep")
+    return min(ms1, ms2)
+
+
+def time_k2_kmer(torch, state) -> dict:
+    """Phase 13d: K2 at phase 13b's own shape: the L=8192 bucket of its
+    reads through K5 (plain k-mers: H = L hash slots, hundreds of hits a
+    bin on a read's source genome), probed as the path probes them on
+    its flat table, too tall for a slab (the rows route); bit-exact to
+    the twin on every read of the batch, then timed against it."""
+    from taxor_tpu_torch.device import e2e, probe
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+
+    dev = torch.device("cuda")
+    dh = DeviceHIXF.from_hixf(state["index"].hixf, dev)
+    L = 8192
+    packed, lengths = (torch.from_numpy(x).to(dev) for x in dsync.pack_reads(
+        bucket_reads(state["recs"], L), L))
+    hi, lo, valid, _, _ = e2e._hashes(packed, lengths, "minimizer", MM_K, 0,
+                                      0, MM_K, L, 0)
+    R, H = hi.shape
+    S_, Bp = dh.table.shape
+    fn = lambda: probe.probe_counts(hi, lo, valid, dh.table,  # noqa: E731
+                                    dh.seed, dh.block_length)
+    plain = lambda: probe.probe_counts_plain(  # noqa: E731
+        hi, lo, valid, dh.table, dh.seed, dh.block_length)
+    before = probe.k2_counts.VARIANTS.get("rows", 0)
+    got = fn()
+    if probe.k2_counts.VARIANTS.get("rows", 0) != before + 1:
+        raise AssertionError(f"K2 at phase 13b's table {(S_, Bp)} did not "
+                             f"take the rows route")
+    assert_equal(torch, f"K2 (rows) at phase 13b's shape R={R}, H={H}",
+                 ("counts",), (got,), (plain(),))
+    top = int(got.max())
+    if top <= 256:
+        raise AssertionError(f"K2 at phase 13b's shape: max count {top}, "
+                             f"no count past 256")
+    ms, plain_ms, err, each = time_pair(torch, fn, plain, 10)
+    n_valid = int(valid.sum())
+    b = bound(9 * R * H + S_ * Bp + 4 * R * Bp, float(n_valid) * Bp,
+              PEAK_INT8)
+    log(f"time probe_count_rows (K2 rows) at phase 13b's shape R={R}, "
+        f"L=H={H}, table {(S_, Bp)}: bit-exact vs twin on every read "
+        f"(max count {top}, {n_valid} valid hashes); kernel "
+        f"{each[0]:.4f}/{each[1]:.4f} ms, plain {each[2]:.3f}/{each[3]:.3f} "
+        f"ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"R": R, "H": H, "table": [S_, Bp], "ms": ms,
+            "plain_ms": plain_ms, "max_abs_err": err, "max_count": top,
+            "valid_hashes": n_valid, **b}
+
+
+def time_descend_all(torch, state) -> list[dict]:
+    """Phase 13d: every group of one descend-all batch of the minimiser
+    hierarchy at L=8192 (R=512): all (subgroup, read) pairs active, the
+    run-sum launch of each group a call (cuda_ms) and on the device alone
+    (device_ms), bit-exact to the twin on the batch's first 16 reads."""
+    from taxor_tpu_torch.device import e2e, probe
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF, _scale_thresh
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools.time_sort import device_ms
+
+    dev = torch.device("cuda")
+    index = state["index"]
+    dh = DeviceHIXF.from_hixf(index.hixf, dev)
+    L = 8192
+    packed, lengths = dsync.pack_reads(bucket_reads(state["recs"], L), L)
+    hi, lo, valid, _, _ = e2e._hashes(
+        torch.from_numpy(packed).to(dev), torch.from_numpy(lengths).to(dev),
+        "minimizer", MM_K, 0, 0, MM_WINDOW, L, _scale_thresh(index.scheme))
+    R = hi.shape[0]
+    rows = []
+    for gi, g in enumerate(dh.groups):
+        tables = g["tables"]
+        act = torch.ones((tables.shape[0], R), dtype=torch.bool, device=dev)
+        runs = (g["run_off"], g["run_s"], g["run_e"])
+        sk = (g["seed"], g["bl"])
+        fused = lambda: probe.probe_run_sums_grouped(  # noqa: E731
+            hi, lo, valid, tables, act, *runs, *sk)
+        got = fused()
+        want = probe.probe_run_sums_grouped_plain(
+            hi[:16], lo[:16], valid[:16], tables, act[:, :16], *runs, *sk)
+        assert_equal(torch, f"descend-all group {gi}", ("sums",),
+                     (got[:, :16],), (want,))
+        first = cuda_ms(fused, 1)
+        reps = max(1, min(20, int(40.0 / max(first, 1e-3))))
+        a1, a2 = cuda_ms(fused, reps), cuda_ms(fused, reps)
+        d1, d2 = device_ms(fused, reps, 1), device_ms(fused, reps, 1)
+        n_runs = int(g["run_s"].shape[0])
+        Bp = tables.shape[2]
+        row = {"L": L, "R": R, "shape": list(tables.shape),
+               "active_pairs": int(act.sum()), "pairs": act.numel(),
+               "n_runs": n_runs,
+               "mode": (probe.narrow_mode(*tables.shape[1:], dev)
+                        if Bp <= probe.NARROW_MAX_BINS else "K2"),
+               "ms": min(a1, a2), "device_ms": min(d1, d2),
+               **narrow_bound(hi, valid, tables, act, n_runs)}
+        rows.append(row)
+        log(f"time descend-all group {gi} at L={L}, R={R}: tables "
+            f"{tuple(tables.shape)}, {row['active_pairs']}/{row['pairs']} "
+            f"pairs active, {n_runs} runs, mode {row['mode']}: run sums "
+            f"{a1:.4f}/{a2:.4f} ms a call, {d1:.4f}/{d2:.4f} on the device "
+            f"alone; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    log(f"time descend-all batch at L={L}, R={R}: "
+        f"{sum(r['device_ms'] for r in rows):.4f} ms on the device, "
+        f"{sum(r['ms'] for r in rows):.4f} a call, bound "
+        f"{sum(r['bound_ms'] for r in rows):.4f}; {int(valid.sum())} valid "
+        f"hashes")
+    return rows
+
+
 # -------------------------------------------------- diagnostic kernels --
 DIAG = {  # record name -> (wrapper name in device/diag.py, source, TPU kernel)
     "probe_bounds": ("probe_bounds", "taxor_tpu_torch/csrc/diag/probe_bounds.cu",
@@ -1588,6 +1931,10 @@ def tool_path(torch, modules, work: str) -> tuple[dict, dict]:
     if rc != 0 or not result["parity_ok"] or result["skipped"] \
             or result["parity"] != {f: True for f in bench.FAMILIES}:
         raise AssertionError(f"tools.bench failed: rc {rc}, {result}")
+    routes = result["parity_routes"]
+    log(f"tools.bench parity: device routes by family {routes}")
+    if any(routes[f]["fused"] <= 0 for f in bench.FAMILIES):
+        raise AssertionError(f"a parity family took no fused step: {routes}")
     t0 = time.perf_counter()
     bounds = probe_bounds.run("cuda")
     secs["probe_bounds"] = time.perf_counter() - t0
@@ -1782,7 +2129,12 @@ def main() -> int:
                          "index")
     ap.add_argument("--hier-reads", type=int, default=16384,
                     help="ONT-like reads of the hierarchical path (plus 16 "
-                         "of 40 kb)")
+                         "of 40 kb); phase 13a searches them too")
+    ap.add_argument("--kmer-genomes", type=int, default=1024,
+                    help="reference genomes of 30 kb in phase 13b's flat "
+                         "plain k-mer index")
+    ap.add_argument("--kmer-reads", type=int, default=4096,
+                    help="ONT-like reads of phase 13b (plus 16 of 40 kb)")
     args = ap.parse_args()
 
     import torch
@@ -1824,23 +2176,58 @@ def main() -> int:
         hier_report(torch, hier)
         check_wide_root(torch, os.path.join(work, "wide"))
         kernels += time_hier(torch, hier)
+
+        # ---- phase 13: K5, minimisers and plain k-mers, descend-all
+        t0 = time.perf_counter()
+        check_k5(torch, dsync, extract, rng)
+        # 13a: phase 7's genomes and reads; the bench family's scaling 3
+        # is cut to 1 (ROADMAP C.2: its layout degenerates into a chain)
+        mm = nonsyncmer_path(torch, os.path.join(work, "hier"), "minimizer",
+                             hier, ["--kmer-size", str(MM_K),
+                                    "--window-size", str(MM_WINDOW)],
+                             "auto", ("K5", "K2n"))
+        if mm["active_share"] != 1.0:
+            raise AssertionError(f"[minimizer] the descend-all descent left "
+                                 f"pairs inactive: {mm['active_share']}")
+        kernels.append(time_k5(torch, mm))
+        narrow = next(r for r in kernels if r["name"] == "probe_count_narrow")
+        narrow["descend_all_groups"] = time_descend_all(torch, mm)
+        shutil.rmtree(os.path.join(work, "hier"), ignore_errors=True)
+        kmer = kmer_data(rng, os.path.join(work, "kmer"),
+                         args.kmer_genomes, args.kmer_reads)
+        kmer_in = kmer
+        kmer = nonsyncmer_path(torch, os.path.join(work, "kmer"), "kmer",
+                               kmer_in, ["--kmer-size", str(MM_K),
+                                         "--window-size", str(MM_K)],
+                               "flat", ("K5", "K2"))
+        rows = next(r for r in kernels if r["name"] == "probe_count_rows")
+        rows["kmer_flat"] = time_k2_kmer(torch, kmer)
+        # 13e: the bench family's whole scheme, scaling 3, on a flat layout
+        scaled = nonsyncmer_path(torch, os.path.join(work, "kmer"), "scaled",
+                                 kmer_in, ["--kmer-size", str(MM_K),
+                                           "--window-size", str(MM_WINDOW),
+                                           "--scaling", str(MM_SCALING)],
+                                 "flat", ("K5", "K2"))
+        k5 = next(r for r in kernels if r["name"] == "minimizer_kmers")
+        k5["scaling_keep_ms"] = time_keep(torch, scaled)
+        log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for row in kernels:  # launches on both main paths, both engines
+    runs = [flat["launches"], flat["split"], hier["launches"], hier["split"],
+            mm["launches"], kmer["launches"], scaled["launches"]]
+    for row in kernels:  # launches on the main paths, both engines
         key = {"syncmer_extract": "K1", "probe_count": "K2 slab",
                "probe_count_rows": "K2 rows", "probe_count_narrow": "K2n",
                "syncmer_track": "track", "dedup": "K3",
-               "sort_pairs": "K4"}[row["name"]]
-        row["launches"] = sum(run[key] for path in (flat, hier)
-                              for run in (path["launches"], path["split"]))
+               "sort_pairs": "K4", "minimizer_kmers": "K5"}[row["name"]]
+        row["launches"] = sum(run[key] for run in runs)
         row["launches_in"] = "main paths"
         if key == "K2n":
-            row["modes"] = {m: sum(run[f"K2n {m}"] for path in (flat, hier)
-                                   for run in (path["launches"],
-                                               path["split"]))
+            row["modes"] = {m: sum(run[f"K2n {m}"] for run in runs)
                             for m in ("smem", "rows")}
             row["peak_mib"] = {"hierarchical": hier["peak_mib"],
-                               "hierarchical split": hier["split_peak_mib"]}
+                               "hierarchical split": hier["split_peak_mib"],
+                               "minimizer descend-all": mm["peak_mib"]}
         if key == "K4":  # as in the JAX package, no search path sorts pairs
             row["launches_in"] = "not on a main path"
             row["check_launches"] = flat["k4_check"]  # sort.dedup_pairs

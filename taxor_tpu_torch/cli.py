@@ -147,8 +147,9 @@ def run_prewarm(index_file: str, lengths: str, topk: str,
     dhixf = DeviceHIXF.from_hixf(index.hixf, dev)
     print(f"prewarm: index uploaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    if not (dhixf.e2e_capable(thresholder) and dsync.supports(scheme)
-            and scheme.scaling == 1):
+    # as search does: the thresholder's kind picks the hierarchy's descent
+    # mode (the count table, or descend-all for length-dependent models)
+    if not dhixf.e2e_capable(thresholder, scheme):
         print("prewarm: the index's scheme takes no fused step; nothing "
               "more to warm")
         return

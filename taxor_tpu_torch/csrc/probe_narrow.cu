@@ -55,8 +55,9 @@
 // Then the runs: one warp turns the read's per-bin counts into an
 // exclusive prefix over the bins in shared memory (P[k] = sum of bins <
 // k) and run j's sum is P[run_e] - P[run_s].  Per-bin counts are exact,
-// a sum is at most hcap x 512 < 2^31, nothing is summed by atomics, so
-// the result is deterministic.  Invalid slots are never staged, so a
+// a sum is at most H x 512 (H = L <= 32,768 hash slots for minimisers and
+// plain k-mers: 2^24 < 2^31), nothing is summed by atomics, so the result
+// is deterministic.  Invalid slots are never staged, so a
 // fingerprint-0 slot never counts.
 //
 // What bounds it on the H100.  smem mode: the table copies (S x Bpad

@@ -26,13 +26,23 @@ is what ``syncmer_kmers`` -> ``dedup_kmers`` -> ``wyhash64`` gives.
 (device/e2e.USE_FUSED_EXTRACT = False): the same tracker, writing the
 per-position contract of ``syncmer_kmers`` (canonical k-mer int64 [R, L]
 and emission mask bool [R, L]) for the dedup kernel K3 (device/sort.py).
+
+``minimizer_kmers`` is CUDA kernel K5 (``csrc/minimizer.cu``), the
+minimiser and plain k-mer extraction of the non-syncmer schemes, with the
+contract of its twin ``hash/device_syncmer.minimizer_kmers_plain``: per
+END position the emitted value as int32 hi/lo [R, L] (0 where nothing is
+emitted; no wyhash, duplicates kept), emit bool [R, L] and n_emit int32
+[R].  Its hashes probe at full width, H = L (the JAX package's hcap = L
+for these schemes).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..hash.device_syncmer import dedup_kmers, max_emissions, syncmer_kmers
+from ..hash.device_syncmer import (dedup_kmers, max_emissions,
+                                   minimizer_kmers_plain, syncmer_kmers)
+from ..hash.minimizer import adjust_seed
 from ..utils.u64 import split32, wyhash64
 from . import cuda_build
 
@@ -59,9 +69,9 @@ def syncmer_hashes_plain(packed, lengths, k: int, s: int, t: int,
     return (*hashes_of_kmers(srt, valid), valid, n_unique, n_emit)
 
 
-def _check_reads(name: str, packed: torch.Tensor, lengths: torch.Tensor,
-                 k: int, s: int, t: int) -> tuple[int, int]:
-    """Validates a kernel's packed reads and scheme; returns (R, L)."""
+def _check_packed(name: str, packed: torch.Tensor,
+                  lengths: torch.Tensor) -> tuple[int, int]:
+    """Validates a kernel's packed reads; returns (R, L)."""
     if packed.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {packed.device}")
     if packed.dtype != torch.uint8 or packed.dim() != 2:
@@ -76,6 +86,13 @@ def _check_reads(name: str, packed: torch.Tensor, lengths: torch.Tensor,
     if L % 16 or packed.data_ptr() % 4:
         raise ValueError(f"{name}: L must be a multiple of 16 bases on "
                          "4-byte aligned rows")
+    return R, L
+
+
+def _check_reads(name: str, packed: torch.Tensor, lengths: torch.Tensor,
+                 k: int, s: int, t: int) -> tuple[int, int]:
+    """Validates a syncmer kernel's packed reads and scheme; (R, L)."""
+    R, L = _check_packed(name, packed, lengths)
     if not (2 <= s <= 15 and s < k <= 32 and 1 <= t <= k - s + 1):
         raise ValueError(f"{name}: unsupported scheme k={k} s={s} t={t}")
     return R, L
@@ -133,3 +150,34 @@ def syncmer_track(packed: torch.Tensor, lengths: torch.Tensor, k: int,
 
 
 syncmer_track.LAUNCHES = 0
+
+
+def minimizer_kmers(packed: torch.Tensor, lengths: torch.Tensor, k: int,
+                    window: int):
+    """(hi, lo, emit, n_emit) of ``minimizer_kmers_plain``: K5 on a CUDA
+    tensor, the plain twin on a CPU tensor."""
+    if packed.device.type == "cpu":
+        return minimizer_kmers_plain(packed, lengths, k, window)
+    R, L = _check_packed("minimizer_kmers", packed, lengths)
+    wp = window - k + 1
+    lib = cuda_build.lib()
+    if not (2 <= k <= 32 and wp >= 1
+            and lib.minimizer_smem(k, wp) <= SMEM_LIMIT):
+        raise ValueError(f"minimizer_kmers: unsupported scheme k={k} "
+                         f"window={window}")
+    dev = packed.device
+    hi = torch.empty((R, L), dtype=torch.int32, device=dev)
+    lo = torch.empty_like(hi)
+    emit = torch.empty((R, L), dtype=torch.bool, device=dev)
+    n_emit = torch.zeros(R, dtype=torch.int32, device=dev)  # blocks add
+    err = lib.launch_minimizer(
+        packed.data_ptr(), lengths.data_ptr(), R, L, k, wp, adjust_seed(k),
+        hi.data_ptr(), lo.data_ptr(), emit.data_ptr(), n_emit.data_ptr(),
+        cuda_build.stream_of(packed))
+    cuda_build.check(err, "launch_minimizer")
+    if R:
+        cuda_build.count_launch(minimizer_kmers)
+    return hi, lo, emit, n_emit
+
+
+minimizer_kmers.LAUNCHES = 0

@@ -3,7 +3,9 @@
 Counterpart of ``taxor_tpu/device/hixf_search.DeviceHIXF``.  ``from_hixf``
 turns the host ``HIXF`` of a loaded ``TaxorIndex`` into device tensors.
 The dispatch methods return the same collector tuples as the JAX class,
-so ``search/pipeline.py`` decodes both the same way.
+so ``search/pipeline.py`` decodes both the same way, apart from
+``e2e_async``: its tuple always has six elements, the sixth the leaf sums
+of the descend-all mode and None in the count-table one.
 
 A flat index (one IXF) keeps the uint8 fingerprint table [S, Bpad] with
 bins contiguous per slot, the run offsets and run users, and the seed and
@@ -32,8 +34,15 @@ Left out against the JAX class, because only the TPU needed them:
     (hash, seed, block_length);
   - the padding of group columns to 128 or 1024 words: a group pads to 16
     bins, and a stack pads its subgroups to the widest of them.
-Not ported yet: the mesh (ROADMAP A.8) and the descend-all chain-min mode
-of length-dependent thresholds (A.7).
+Not ported yet: the mesh (ROADMAP A.8).
+
+Every scheme the JAX steps take runs fused: syncmers (K1, hcap slots),
+minimisers and plain k-mers (K5, hcap = L), either with a FracMinHash
+scaling (``_scale_thresh``).  A hierarchy descends with the count-indexed
+threshold table (``_thr_table``) for the count-only threshold models and
+in the descend-all chain-min mode (``_descend_all``) for the
+length-dependent fracminhash model; that mode's collector returns the
+leaf sums to report as its sixth element.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..hash.device_syncmer import hash_cap
+from ..hash.device_syncmer import hash_cap, supports, supports_minimizer
 from ..hash.schemes import scaling_threshold_u64
 from ..hixf.container import HIXF
 from .e2e import (ActivityStats, fused_e2e_step, make_hixf_e2e_grouped_fn,
@@ -58,6 +67,19 @@ COUNT_ONLY_KINDS = ("percentage", "syncmer_model", "kmer_model")
 
 # active (subgroup, read) pairs of the grouped descent, over the process
 ACTIVITY = ActivityStats()
+
+
+def _scale_thresh(scheme) -> int:
+    """The FracMinHash keep threshold of the device steps; 0 means no
+    downsampling (schemes.scaling_threshold_u64)."""
+    return scaling_threshold_u64(scheme.scaling) if scheme.scaling > 1 else 0
+
+
+def _descend_all(thresholder) -> bool:
+    """Length-dependent threshold models (fracminhash) cannot use the
+    count-indexed descent table: the descent runs in descend-all mode."""
+    return thresholder is not None and \
+        thresholder.kind not in COUNT_ONLY_KINDS
 
 
 @dataclass
@@ -150,10 +172,15 @@ class DeviceHIXF:
         """The compact top-k dispatch applies: one IXF."""
         return len(self.ixfs) == 1
 
-    def e2e_capable(self, thresholder=None) -> bool:
-        """Whether the fused reads -> top-k dispatch covers this index:
-        flat always qualifies (thresholds are applied on the host); a
+    def e2e_capable(self, thresholder=None, scheme=None) -> bool:
+        """Whether the fused reads -> top-k dispatch covers this index
+        and, where given, ``scheme`` (the device extractors take
+        syncmers, minimisers and plain k-mers, scaled or not): flat
+        always qualifies (thresholds are applied on the host); a
         hierarchy needs a thresholder for its device-side descent."""
+        if scheme is not None and not (supports(scheme)
+                                       or supports_minimizer(scheme)):
+            return False
         return len(self.ixfs) == 1 or thresholder is not None
 
     # ------------------------------------------------------------ groups --
@@ -374,60 +401,79 @@ class DeviceHIXF:
 
         return collect
 
-    def _hixf_e2e_fn(self, scheme, k: int):
-        """The cached grouped step for (scheme, top-k)."""
-        key = (scheme.kmer_size, scheme.syncmer_size, scheme.t_syncmer, k)
+    def _hixf_e2e_fn(self, scheme, k: int, descend_all: bool = False):
+        """The cached grouped step for (scheme, top-k, mode)."""
+        key = (scheme.kmer_size, scheme.syncmer_size, scheme.t_syncmer,
+               scheme.use_syncmer, scheme.window_size, scheme.scaling, k,
+               descend_all)
         fn = self._e2e_fns.get(key)
         if fn is None:
             fn = self._e2e_fns[key] = make_hixf_e2e_grouped_fn(
                 self.groups, self.leaf_users, k=scheme.kmer_size,
                 s=scheme.syncmer_size, t=scheme.t_syncmer, topk=k,
                 scheme_kind="syncmer" if scheme.use_syncmer else "minimizer",
-                scale_thresh=(scaling_threshold_u64(scheme.scaling)
-                              if scheme.scaling > 1 else 0),
-                stats=ACTIVITY)
+                window=scheme.window_size, scale_thresh=_scale_thresh(scheme),
+                descend_all=descend_all, stats=ACTIVITY)
         return fn
+
+    def e2e_step(self, scheme, thresholder=None, k: int = 16,
+                 L: int = 256):
+        """(step, hcap, descend_all): ``step(reads, lengths)`` runs the
+        fused step of
+        this index on packed reads of length bucket L already on its
+        device and returns the packed int32 result (device/e2e.py); hcap
+        is the hash slots a read takes; descend_all names the mode.  A hierarchy needs a thresholder:
+        count-only models descend with the count-indexed table (built on
+        the host once per (thresholder, hcap)), the others in the
+        descend-all mode, whose result is [R, 3k + 2] and whose table is
+        all zeros (never read)."""
+        # minimisers and plain k-mers: one value a position
+        hcap = hash_cap(L) if scheme.use_syncmer else L
+        kind = "syncmer" if scheme.use_syncmer else "minimizer"
+        if len(self.ixfs) == 1:
+            def step(reads, lens):
+                return fused_e2e_step(
+                    self.table, reads, lens, self.run_offsets,
+                    self.run_users, self.seed, self.block_length,
+                    k=scheme.kmer_size, s=scheme.syncmer_size,
+                    t=scheme.t_syncmer, hcap=hcap, topk=k, scheme_kind=kind,
+                    window=scheme.window_size,
+                    scale_thresh=_scale_thresh(scheme),
+                    prefix_runs=self.prefix_runs)
+            return step, hcap, False
+        if thresholder is None:
+            raise ValueError("a hierarchical index descends with a "
+                             "thresholder")
+        da = _descend_all(thresholder)
+        tkey = ("zeros", hcap) if da else (repr(thresholder), hcap)
+        tbl = self._thr_tables.get(tkey)
+        if tbl is None:
+            tbl = self._thr_tables[tkey] = torch.from_numpy(
+                np.zeros(hcap + 1, dtype=np.int32) if da
+                else self._thr_table(thresholder, hcap)).to(self.device)
+        fn = self._hixf_e2e_fn(scheme, k, descend_all=da)
+        return (lambda reads, lens: fn(reads, lens, tbl, hcap)), hcap, da
 
     def e2e_async(self, raw_reads: np.ndarray, lengths: np.ndarray, scheme,
                   thresholder=None, k: int = 16):
         """Whole-search dispatch from 2-bit packed reads (pack_reads):
         uint8 [R, L/4] and int32 [R].  Returns a collector -> (vals [R,k],
-        users [R,k], unique hash counts [R], n_emit [R], hcap)."""
-        dev = self.device
+        users [R,k], hash counts [R], n_emit [R], hcap, sums): sums is
+        None, or in the descend-all mode the leaf sums [R, k] to report
+        (vals are then the chain minima the thresholds test)."""
         L = raw_reads.shape[1] * 4  # bases: 4 per packed byte
-        hcap = hash_cap(L)
-        reads = torch.from_numpy(raw_reads).to(dev)
-        lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
-        if len(self.ixfs) > 1:
-            if thresholder is None:
-                raise ValueError("a hierarchical index descends with a "
-                                 "thresholder")
-            if thresholder.kind not in COUNT_ONLY_KINDS:
-                raise NotImplementedError(
-                    f"{thresholder.kind} thresholds descend in the "
-                    "descend-all chain-min mode, not ported yet (ROADMAP "
-                    "A.7)")
-            tkey = (repr(thresholder), hcap)
-            tbl = self._thr_tables.get(tkey)
-            if tbl is None:
-                tbl = self._thr_tables[tkey] = torch.from_numpy(
-                    self._thr_table(thresholder, hcap)).to(dev)
-            packed = self._hixf_e2e_fn(scheme, k)(reads, lens, tbl, hcap)
-        else:
-            packed = fused_e2e_step(
-                self.table, reads, lens, self.run_offsets, self.run_users,
-                self.seed, self.block_length, k=scheme.kmer_size,
-                s=scheme.syncmer_size, t=scheme.t_syncmer, hcap=hcap,
-                topk=k,
-                scheme_kind="syncmer" if scheme.use_syncmer else "minimizer",
-                scale_thresh=(scaling_threshold_u64(scheme.scaling)
-                              if scheme.scaling > 1 else 0),
-                prefix_runs=self.prefix_runs)
+        step, hcap, da = self.e2e_step(scheme, thresholder, k, L)
+        packed = step(torch.from_numpy(raw_reads).to(self.device),
+                      torch.from_numpy(lengths.astype(np.int32)).to(
+                          self.device))
 
         def collect():
             out = packed.cpu().numpy()
+            if da:  # minv | leaf sums | users | n_unique | n_emit
+                return (out[:, :k], out[:, 2 * k:3 * k], out[:, 3 * k],
+                        out[:, 3 * k + 1], hcap, out[:, k:2 * k])
             return (out[:, :k], out[:, k:2 * k], out[:, 2 * k],
-                    out[:, 2 * k + 1], hcap)
+                    out[:, 2 * k + 1], hcap, None)
 
         return collect
 

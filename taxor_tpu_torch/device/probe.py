@@ -193,6 +193,8 @@ def _launch(hi, lo, valid, tables, active, seed: int, block_length: int,
         if Bp % 16 or tables.data_ptr() % 16:
             raise ValueError(f"{name}: the slab route takes a Bpad that is "
                              "a multiple of 16 on 16-byte aligned rows")
+        # one 8-byte record a slot: 32 MB at the fused step's R x H =
+        # POS_BUDGET (H = L for minimisers and plain k-mers)
         rec = torch.empty((R, H), dtype=torch.int64, device=out.device)
         nrec = torch.empty(R, dtype=torch.int32, device=out.device)
     err = cuda_build.lib().launch_probe_count(

@@ -14,6 +14,11 @@ Search semantics are dna4: N and IUPAC codes pack as A and never reset
 the scanner.  t is the reference's integer division (k - s + 1) // 2, and
 the selection is strand-asymmetric (DIVERGENCES.md); both come from the
 index's HashScheme.
+
+``minimizer_kmers_plain`` is the plain twin of CUDA kernel K5
+(``device/extract.minimizer_kmers``): the minimiser and plain k-mer
+scheme, whose emission is a pure function of each position (see its
+docstring), so it needs no tracker.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.u64 import umin, usort_rows
+from ..utils.u64 import INT64_MIN, i64, split32, umin, usort_rows
+from .minimizer import adjust_seed
 
 # reads longer than this take the host-hash route (search/pipeline.py)
 L_CAP = 32768
@@ -38,6 +44,17 @@ def supports(scheme) -> bool:
         and scheme.scaling >= 1
         and 2 <= scheme.syncmer_size <= 15
         and scheme.syncmer_size < scheme.kmer_size <= 32
+    )
+
+
+def supports_minimizer(scheme) -> bool:
+    """Whether the device minimiser / plain k-mer extractor (K5) covers
+    this hash scheme."""
+    return (
+        not scheme.use_syncmer
+        and scheme.scaling >= 1
+        and 2 <= scheme.kmer_size <= 32
+        and scheme.window_size >= scheme.kmer_size
     )
 
 
@@ -221,3 +238,55 @@ def dedup_kmers(kmer: torch.Tensor, emit: torch.Tensor, hcap: int,
                                             device=uniq.device)], dim=1)
     return (srt[:, :hcap], uniq[:, :hcap], n_unique.to(torch.int32),
             n_emit.to(torch.int32))
+
+
+def minimizer_kmers_plain(packed: torch.Tensor, lengths: torch.Tensor,
+                          k: int, window: int):
+    """Minimiser (plain k-mer where window == k) emissions per END
+    position: the plain twin of K5, counterpart of the JAX
+    ``minimizer_kmers``.
+
+    Returns (hi, lo int32 [R, L] bit patterns of the emitted value, 0
+    where nothing is emitted; emit bool [R, L]; n_emit int32 [R]).  The
+    value of position i is the reference's canonical XOR-seeded packing
+    min(fwd ^ seed, rc ^ seed), seed = adjust_seed(k)
+    (hash/minimizer.py), compared as uint64; the reference probes it
+    directly (no wyhash) and keeps duplicates (vector semantics).
+
+    The holder of seqan3's minimiser rule is always the LEFTMOST minimum
+    of the window of w' = window - k + 1 values ending at i (a strictly
+    smaller newcomer is the window's only minimum; ties keep the older,
+    more-left holder; a holder that slides out is replaced by the
+    leftmost minimum), so with argmin(i) that position,
+
+        emit[i] = i < length and (i == k + w' - 2
+                  or (i > k + w' - 2 and argmin(i) != argmin(i - 1)))
+
+    and the emitted value is the window minimum.  w' = 1 emits every
+    position from k - 1 on."""
+    wp = window - k + 1
+    codes = unpack_codes(packed)
+    R, L = codes.shape
+    dev = codes.device
+    fwd, rev = _rolling(codes, k)
+    seed = i64(adjust_seed(k))
+    # sign-flipped keys: a signed compare of them is the uint64 compare
+    # (at k = 32 the seed's top bit is set)
+    key = umin(fwd ^ seed, rev ^ seed) ^ INT64_MIN
+    ends = torch.arange(L, device=dev).expand(R, L)
+    # leftmost minimum of key[i-w'+1 .. i]: from the oldest value rightwards
+    # only a strictly smaller one takes over
+    m = _shift_right(key, wp - 1, fill=i64((1 << 64) - 1) ^ INT64_MIN)
+    am = ends - (wp - 1)
+    for d in range(wp - 2, -1, -1):
+        cand = _shift_right(key, d)
+        take = cand < m
+        m = torch.where(take, cand, m)
+        am = torch.where(take, ends - d, am)
+    first = k + wp - 2
+    emit = (ends == first) | ((ends > first)
+                              & (am != _shift_right(am, 1, fill=-1)))
+    emit &= ends < lengths.to(torch.int64)[:, None]
+    vals = torch.where(emit, m ^ INT64_MIN, torch.zeros_like(m))
+    hi, lo = split32(vals)
+    return hi, lo, emit, emit.sum(dim=1, dtype=torch.int32)

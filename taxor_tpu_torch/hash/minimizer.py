@@ -15,7 +15,9 @@ Semantics reproduced here:
     seqan3's minimiser emission rule: the first window emits its leftmost
     minimum; afterwards a window emits only when (a) the previous minimiser
     slid out (recompute leftmost minimum — emits even if the value repeats)
-    or (b) the new value is strictly smaller than the current minimiser,
+    or (b) the new value is strictly smaller than the current minimiser
+    (computed here as the changes of each window's leftmost argmin, which
+    is the same rule: ``minimiser_emissions``),
   - with window_size == k (the default: build_arguments.hpp:18) every
     position emits, i.e. the plain canonical k-mer path.
 
@@ -55,27 +57,37 @@ def canonical_kmer_values(codes: np.ndarray, k: int) -> np.ndarray:
     return np.minimum(fwd ^ seed, rev ^ seed)
 
 
+# windows a chunk of minimiser_emissions scans at once (its [chunk, w']
+# window view bounds the memory of argmin's buffer)
+_WINDOW_CHUNK = 1 << 20
+
+
 def minimiser_emissions(values: np.ndarray, wprime: int) -> np.ndarray:
     """Apply seqan3's minimiser emission rule over windows of `wprime`
-    canonical values. Returns emitted values in order (duplicates kept)."""
+    canonical values. Returns emitted values in order (duplicates kept).
+
+    The rule's holder is always the LEFTMOST minimum of the current
+    window: the first window takes its leftmost minimum; a strictly
+    smaller newcomer is the window's only minimum; a holder that slides
+    out is replaced by the leftmost minimum; and ties never displace the
+    holder, which is then the leftmost of them.  A value is emitted
+    exactly when that position changes (and for the first window), so
+    the scan is a vectorised leftmost argmin over every window (numpy's
+    argmin returns the first occurrence), in chunks."""
     n = values.shape[0]
     if n < wprime:
         return np.zeros(0, dtype=U64)
     if wprime == 1:
         return values.copy()
-    out = []
-    # first window: leftmost min
-    pos = int(np.argmin(values[:wprime]))
-    out.append(values[pos])
-    for i in range(wprime, n):
-        start = i - wprime + 1
-        if pos < start:  # minimiser slid out -> recompute, always emit
-            pos = start + int(np.argmin(values[start : i + 1]))
-            out.append(values[pos])
-        elif values[i] < values[pos]:  # strictly smaller -> new minimiser
-            pos = i
-            out.append(values[i])
-    return np.asarray(out, dtype=U64)
+    win = np.lib.stride_tricks.sliding_window_view(values, wprime)
+    # each window's leftmost argmin, as a position in values
+    pos = np.concatenate([
+        win[a:a + _WINDOW_CHUNK].argmin(axis=1)
+        for a in range(0, win.shape[0], _WINDOW_CHUNK)])
+    pos += np.arange(pos.shape[0])
+    change = np.ones(pos.shape[0], dtype=bool)
+    change[1:] = pos[1:] != pos[:-1]
+    return values[pos[change]]
 
 
 def minimiser_hashes(codes: np.ndarray, k: int, window: int) -> np.ndarray:

@@ -10,8 +10,10 @@ it by tests/test_torch_hostlayer.py and the TSV parity tests.
 
 Engines:
   - 'device': per batch, reads up to L_CAP go through the fused step
-    (device/e2e.py: K1, then K2 or K2n, flat or in the level-grouped
-    descent of a hierarchical index) in power-of-two length buckets;
+    (device/e2e.py: K1 for syncmers or K5 for minimisers and plain
+    k-mers, the FracMinHash keep of a scaled scheme, then K2 or K2n, flat
+    or in the level-grouped descent of a hierarchical index) in
+    power-of-two length buckets;
     longer reads are hashed on the host and probed on the device: top-k
     on a flat index (DeviceHIXF.topk_async_packed), the per-IXF
     traversal on a hierarchical one (DeviceHIXF.counts_async).  Reads the
@@ -115,8 +117,28 @@ def _read_threshold(thresholder, hash_count, seq_len, kmer_size):
         hash_count, _scaling_ratio(hash_count, seq_len, kmer_size)))
 
 
+def e2e_thresholds(thresholder, counts, lens, kmer_size) -> np.ndarray:
+    """int64 [R]: the threshold of each read of the fused result (its
+    hash count, its length), memoized on that pair, the only inputs the
+    models consume; exact host float64 math."""
+    thr_cache = getattr(thresholder, "_e2e_thr_cache", None)
+    if thr_cache is None:
+        thr_cache = thresholder._e2e_thr_cache = {}
+    thr = np.empty(len(lens), dtype=np.int64)
+    for r, key in enumerate(zip(np.asarray(counts).tolist(), lens)):
+        t = thr_cache.get(key)
+        if t is None:
+            t = thr_cache[key] = _read_threshold(
+                thresholder, key[0], key[1], kmer_size)
+        # size_t-wrapped "impossible" thresholds are >= 2^63 and would
+        # overflow int64; any value above every possible count is
+        # equivalent for the comparisons that use them
+        thr[r] = min(t, 2**62)
+    return thr
+
+
 def _pairs_from_e2e(vals, users, counts, n_emit, seqs, index, scheme,
-                    thresholder, dfs_rank, hcap,
+                    thresholder, dfs_rank, hcap, sums=None,
                     trunc_out: list | None = None):
     """Decode the fused device result (device/e2e.py).
 
@@ -129,7 +151,13 @@ def _pairs_from_e2e(vals, users, counts, n_emit, seqs, index, scheme,
     the device step used, passed through the collector), and all k
     candidate slots surviving the threshold and the 0.8*max pre-filter.
     ``trunc_out`` receives the second set: the pipeline's top-k
-    escalation trigger (a larger k cannot fix an hcap overflow)."""
+    escalation trigger (a larger k cannot fix an hcap overflow).
+
+    sums (the descend-all chain-min mode): vals are then min(leaf sum,
+    ancestor merged sums), the emission test value, and sums the leaf
+    sums to report.  The 0.8 shortcut is unsound there (a dropped slot's
+    sum may exceed the kept maximum), so truncation falls back whenever
+    all k slots pass the threshold."""
     k_sch = scheme.kmer_size
     kk = vals.shape[1]
 
@@ -144,28 +172,18 @@ def _pairs_from_e2e(vals, users, counts, n_emit, seqs, index, scheme,
     n_emit = np.asarray(n_emit, dtype=np.int64)[:Rs]
     vals = np.asarray(vals, dtype=np.int64)[:Rs]
     users = np.asarray(users, dtype=np.int64)[:Rs]
-    lens = np.fromiter((len(s) for s in seqs), dtype=np.int64,
-                       count=len(seqs))
-    # threshold per read, memoized on (hash_count, read_len), the only
-    # inputs the models consume; exact host float64 math
-    thr_cache = getattr(thresholder, "_e2e_thr_cache", None)
-    if thr_cache is None:
-        thr_cache = thresholder._e2e_thr_cache = {}
-    thr = np.empty(len(seqs), dtype=np.int64)
-    for r, key in enumerate(zip(counts.tolist(), lens.tolist())):
-        t = thr_cache.get(key)
-        if t is None:
-            t = thr_cache[key] = _read_threshold(
-                thresholder, key[0], key[1], k_sch)
-        # size_t-wrapped "impossible" thresholds are >= 2^63 and would
-        # overflow int64; any value above every possible count is
-        # equivalent for the comparisons below
-        thr[r] = min(t, 2**62)
+    thr = e2e_thresholds(thresholder, counts,
+                          [len(s) for s in seqs], k_sch)
     ok = (vals >= thr[:, None]) & (users >= 0)
     n = ok.sum(axis=1)  # vals descending => ok is a prefix
     f64 = np.float64
-    trunc = (n == kk) & (
-        vals[:, kk - 1].astype(f64) >= vals[:, 0].astype(f64) * 0.8)
+    if sums is not None:
+        sums = np.asarray(sums, dtype=np.int64)[:Rs]
+        trunc = n == kk  # no 0.8 shortcut on chain-min candidates
+        vals = sums  # report the leaf sums, not the emission-test minima
+    else:
+        trunc = (n == kk) & (
+            vals[:, kk - 1].astype(f64) >= vals[:, 0].astype(f64) * 0.8)
     if trunc_out is not None:
         trunc_out.append(trunc)
     need_fallback = (n_emit > hcap) | trunc
@@ -270,11 +288,10 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
     )
     ub2sp = index.user_bin_to_species()
     dfs_rank = index.hixf.user_bin_dfs_order()
-    # the fused step covers unscaled syncmer schemes; other schemes hash
-    # on the host and probe on the device
+    # the fused step covers every device-extractable scheme: syncmers,
+    # minimisers and plain k-mers, with or without FracMinHash scaling
     use_e2e = (config.engine == "device" and device_hixf is not None
-               and device_hixf.e2e_capable(thresholder)
-               and dsync.supports(scheme) and scheme.scaling == 1)
+               and device_hixf.e2e_capable(thresholder, scheme))
 
     def _hash_thresholds(hash_counts, seqs):
         # size_t-wrapped "impossible" thresholds are >= 2^63; any value
@@ -352,11 +369,13 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
                     pend.append((part, gseqs, device_hixf.e2e_async(
                         packed, lengths, scheme, thresholder, k=topk)))
             for part, gseqs, collect in pend:
-                vals, users, counts, n_emit, hcap = collect()
+                # sums: the descend-all mode's leaf sums to report, or None
+                vals, users, counts, n_emit, hcap, sums = collect()
                 trunc_out: list = []
                 prs, hcs = _pairs_from_e2e(
                     vals, users, counts, n_emit, gseqs, index, scheme,
-                    thresholder, dfs_rank, hcap, trunc_out=trunc_out)
+                    thresholder, dfs_rank, hcap, sums=sums,
+                    trunc_out=trunc_out)
                 ROUTES.add(fused=len(part), host_fallback=(
                     (n_emit[:len(part)] > hcap) | trunc_out[0]).sum())
                 if trunc_out[0].mean() > 0.02:

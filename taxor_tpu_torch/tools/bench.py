@@ -28,11 +28,13 @@ Per config: the native baseline (native/ref_baseline.cpp, the
 reference's worker loop in C++: reads/s on 1 thread, best of 3, times 32
 as the proxy of the reference's 32-core deployment, and a literal
 32-thread run on this host), the device compute reads/s of the fused step
-on device-resident reads (flat: device/e2e.fused_e2e_step; hierarchical:
-DeviceHIXF._hixf_e2e_fn; timed by tools/timing.rolled_ms), the host
-fallback and classified fractions of one real dispatch.  The parity gate
-searches five scheme/layout families with the device and the host
-engines and compares the TSVs byte for byte.
+on device-resident reads (DeviceHIXF.e2e_step: device/e2e.fused_e2e_step
+flat, the grouped descent hierarchical; timed by tools/timing.rolled_ms),
+the host fallback and classified fractions of one real dispatch.  The
+parity gate searches five scheme/layout families with the device and the
+host engines and compares the TSVs byte for byte; the result's
+``parity_routes`` gives each family's device-engine route counts
+(search/pipeline.ROUTES: every family's reads take the fused step).
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ from ..device.hixf_search import DeviceHIXF
 from ..hash import device_syncmer as dsync
 from ..io.fastx import read_all
 from ..native.baseline import baseline_search
-from ..search.pipeline import SearchConfig, search_single
+from ..search.pipeline import (ROUTES, SearchConfig, e2e_thresholds,
+                               search_single)
 from ..search.thresholds import Thresholder
 from . import synth
 from .timing import rolled_ms
@@ -135,40 +138,38 @@ def native_baseline(index, seqs, thresholder, sub=None):
 
 def device_reads_per_s(index, seqs, thresholder, device, topk=16):
     """(reads/s, ms per pass, fallback fraction, classified fraction) of
-    the fused step on device-resident reads; the fractions come from one
-    real dispatch."""
-    from ..device.e2e import fused_e2e_step
-
+    the fused step on device-resident reads, for every scheme the step
+    takes (syncmers; minimisers and plain k-mers, whose hash slots are
+    L; FracMinHash); the fractions come from one real dispatch."""
     dev = torch.device(device)
     scheme = index.scheme
     dh = DeviceHIXF.from_hixf(index.hixf, dev)
-    if not (dh.e2e_capable(thresholder) and dsync.supports(scheme)):
+    if not dh.e2e_capable(thresholder, scheme):
         raise ValueError("the index takes no fused step")
     L = dsync.pad_len_bucket(max(len(s) for s in seqs))
     packed, lengths = dsync.pack_reads(seqs, L)
-    R, hcap = len(seqs), dsync.hash_cap(L)
+    R = len(seqs)
 
-    vals, _, _, n_emit, _ = dh.e2e_async(packed, lengths, scheme,
-                                         thresholder, k=topk)()
+    vals, users, counts, n_emit, hcap, sums = dh.e2e_async(
+        packed, lengths, scheme, thresholder, k=topk)()
     kk = vals.shape[1]
-    nv = (vals >= 0).sum(axis=1)
-    fb = (nv == kk) & (vals[:, kk - 1].astype(np.float64)
-                       >= vals[:, 0].astype(np.float64) * 0.8)
+    if sums is None:
+        nv = (vals >= 0).sum(axis=1)
+        fb = (nv == kk) & (vals[:, kk - 1].astype(np.float64)
+                           >= vals[:, 0].astype(np.float64) * 0.8)
+        classified = float((vals[:, 0] > 0).mean())
+    else:  # descend-all: the chain minima against the reads' thresholds,
+        # with no 0.8 shortcut, as search/pipeline._pairs_from_e2e decodes
+        thr = e2e_thresholds(thresholder, counts, [len(s) for s in seqs],
+                              scheme.kmer_size)
+        n = ((vals >= thr[:, None]) & (users >= 0)).sum(axis=1)
+        fb = n == kk
+        classified = float((n > 0).mean())
     fb |= np.asarray(n_emit) > hcap
-    classified = float((vals[:, 0] > 0).mean())
 
-    pr = torch.from_numpy(packed).to(dev)
-    ln = torch.from_numpy(lengths).to(dev)
-    kw = dict(k=scheme.kmer_size, s=scheme.syncmer_size,
-              t=scheme.t_syncmer, hcap=hcap, topk=topk)
-    if dh.flat_fast_path:
-        ms = rolled_ms(lambda p, l: fused_e2e_step(
-            dh.table, p, l, dh.run_offsets, dh.run_users, dh.seed,
-            dh.block_length, prefix_runs=dh.prefix_runs, **kw), pr, ln)
-    else:
-        fn = dh._hixf_e2e_fn(scheme, topk)
-        tbl = torch.from_numpy(dh._thr_table(thresholder, hcap)).to(dev)
-        ms = rolled_ms(lambda p, l: fn(p, l, tbl, hcap), pr, ln)
+    step, _, _ = dh.e2e_step(scheme, thresholder, topk, L)
+    ms = rolled_ms(step, torch.from_numpy(packed).to(dev),
+                   torch.from_numpy(lengths).to(dev))
     return R / (ms / 1e3), ms, float(fb.mean()), classified
 
 
@@ -239,19 +240,21 @@ def bench_config(name, device, root, *, n_species, genome_len, n_reads,
         result.update(full_pipeline_reads_per_s=prs,
                       pipeline_vs_device_compute=prs / rps)
         log(f"bench[{name}]: full pipeline {prs:.0f} reads/s "
-            f"({prs / rps:.2f}x of device compute; decode, thresholds, "
-            f"fallback and TSV on {os.cpu_count()} host cores)")
+            f"({100 * prs / rps:.3f}% of device compute; decode, "
+            f"thresholds, fallback and TSV on {os.cpu_count()} host cores)")
     return result
 
 
 def parity_gate(device="cuda", n_reads: int = 256, n_mixed: int = 192,
-                budget: Budget | None = None, root: str | None = None):
+                budget: Budget | None = None, root: str | None = None,
+                routes: dict | None = None):
     """{family: True | False | None}: for each scheme/layout family one
     small search with the device engine and one with the host engine
     (the numpy oracle), the TSVs compared byte for byte; None where the
     budget skipped the family.  Covers flat and hierarchical layouts,
     syncmers, plain k-mers, FracMinHash scaling, minimizers and mixed
-    500 b .. 4 kb read lengths (several length buckets)."""
+    500 b .. 4 kb read lengths (several length buckets).  ``routes``
+    receives each family's route counts of its device search."""
     with tempfile.TemporaryDirectory(prefix="taxor_parity_",
                                      dir=root) as tmp:
         _, tsv, gdir, reads_file = synth.build_problem(
@@ -296,9 +299,13 @@ def parity_gate(device="cuda", n_reads: int = 256, n_mixed: int = 192,
                 buf = io.StringIO()
                 dh = (DeviceHIXF.from_hixf(index.hixf, device)
                       if engine == "device" else None)
+                before = dict(ROUTES.counts)
                 search_single(index, reads_file if src == 0 else mixed, buf,
                               SearchConfig(engine=engine, batch_size=256),
                               dh)
+                if engine == "device" and routes is not None:
+                    routes[name] = {r: n - before[r]
+                                    for r, n in ROUTES.counts.items()}
                 texts[engine] = buf.getvalue()
             ok = texts["device"] == texts["host"]
             results[name] = ok
@@ -360,15 +367,16 @@ def run(argv: list[str] | None = None) -> tuple[dict, int]:
             log(f"bench[{name}]: failed:\n{traceback.format_exc()}")
             configs.append(dict(name=name, error=repr(e)))
             failed.append(name)
+    parity_routes: dict = {}
     try:
-        parity = parity_gate(dev, budget=budget)
+        parity = parity_gate(dev, budget=budget, routes=parity_routes)
     except Exception as e:
         log(f"bench[parity]: failed:\n{traceback.format_exc()}")
         parity = {"error": repr(e)}
     parity_ok = (set(parity) == set(FAMILIES)
                  and all(v is True for v in parity.values()))
     log(f"bench[parity]: PARITY_RESULT={json.dumps(parity)} "
-        f"parity_ok={parity_ok}")
+        f"parity_ok={parity_ok}; device routes {json.dumps(parity_routes)}")
     primary = next((c for c in configs if c["name"] == PRIMARY), {})
     result = {
         "metric": "reads/s/GPU classification throughput (k=22,s=12 "
@@ -396,6 +404,7 @@ def run(argv: list[str] | None = None) -> tuple[dict, int]:
         "full_pipeline_reads_per_s": primary.get("full_pipeline_reads_per_s"),
         "failed": failed,
         "skipped": skipped,
+        "parity_routes": parity_routes,
         # last, so that a cut tail of the output still shows them
         "parity": parity,
         "parity_ok": parity_ok,

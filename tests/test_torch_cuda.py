@@ -1,8 +1,8 @@
-"""The CUDA kernels K1, K2, K2n, syncmer_track, K3 and K4, the steps on
-the card and the tools' four diagnostic kernels, held bit-exact to their
-plain twins.  Needs a CUDA GPU and
-nvcc; skips elsewhere.  This file imports no JAX, so it also runs on a
-machine without it:
+"""The CUDA kernels K1, K2, K2n, syncmer_track, K3, K4 and K5, the steps
+on the card (syncmer, minimiser, plain k-mer and scaled schemes) and the
+tools' four diagnostic kernels, held bit-exact to their plain twins.
+Needs a CUDA GPU and nvcc; skips elsewhere.  This file imports no JAX,
+so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider
 """
@@ -489,6 +489,121 @@ def test_wide_root_descent_matches_cpu_twins(cuda, tmp_path):
     for route in ("fused", "host_hashes"):
         assert routes.get(route, 0) == before[0].get(route, 0) + 1
     assert probe.k2n_counts.LAUNCHES > before[1]  # the group below
+
+
+# ------------------------------------------- K5 and the non-syncmer steps --
+K5_SCHEMES = [(20, 20), (20, 26), (18, 26), (32, 40)]  # (k, window)
+
+
+@pytest.mark.parametrize("k,window", K5_SCHEMES)
+@pytest.mark.parametrize("L", [256, 512, 1024, 2048, 4096, 8192, 16384,
+                               32768])
+def test_k5_matches_twin(cuda, L, k, window):
+    """K5 against minimizer_kmers_plain, bit for bit (0 where nothing is
+    emitted), at every length bucket; window == k is the plain k-mer path
+    (w' = 1), k = 32 sets the seed's top bit."""
+    rng = np.random.default_rng(L + 7 * k + window)
+    seqs = reads(rng, L) + [b"ACG" * (window // 3), ACGT[
+        rng.integers(0, 4, window - 1)].tobytes()]  # windows that never fill
+    packed, lengths = dsync.pack_reads(seqs, L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    before = extract.minimizer_kmers.LAUNCHES
+    got = extract.minimizer_kmers(pk, ln, k, window)
+    want = dsync.minimizer_kmers_plain(pk, ln, k, window)
+    torch.cuda.synchronize()
+    assert extract.minimizer_kmers.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    assert int(got[3].max()) > 0
+
+
+def test_k5_checks_inputs(cuda):
+    pk = torch.zeros((2, 64), dtype=torch.uint8, device=cuda)
+    ln = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported scheme"):
+        extract.minimizer_kmers(pk, ln, 20, 19)
+    with pytest.raises(ValueError, match="lengths"):
+        extract.minimizer_kmers(pk, ln.long(), 20, 26)
+    empty = extract.minimizer_kmers(pk[:0], ln[:0], 20, 26)
+    assert empty[0].shape == (0, 256) and empty[3].shape == (0,)
+
+
+STEP_SCHEMES = {  # name -> (scheme_kind, k, s, t, window, scaling)
+    "minimizer": ("minimizer", 20, 10, 6, 26, 1),
+    "plain_kmer": ("minimizer", 20, 10, 6, 20, 1),
+    "scaled_syncmer": ("syncmer", 22, 12, 5, 22, 3),
+}
+
+
+@pytest.mark.parametrize("name", list(STEP_SCHEMES))
+def test_nonsyncmer_fused_step_matches_cpu_twins(cuda, name):
+    """The flat step on the card (K5 or K1, the FracMinHash keep, K2)
+    equals the CPU twins for a minimiser, a plain k-mer and a scaled
+    syncmer scheme."""
+    from taxor_tpu_torch.hash.schemes import scaling_threshold_u64
+
+    kind, k, s, t, window, scaling = STEP_SCHEMES[name]
+    rng = np.random.default_rng(len(name))
+    L, topk = 2048, 16
+    packed, lengths = dsync.pack_reads(reads(rng, L, n=40), L)
+    bins, bl = 300, 1500
+    table = rng.integers(0, 256, (3 * bl, probe.pad_bins(bins)),
+                         dtype=np.uint8)
+    table[:, 7] = 0  # a bin every read hits often
+    offsets = np.array([0, 3, 4, 10, 100, 250, 300])
+    users = np.array([0, -1, 1, 2, 3, 4], dtype=np.int32)
+    args = [torch.from_numpy(x) for x in (table, packed, lengths, offsets,
+                                          users)]
+    kw = dict(k=k, s=s, t=t, topk=topk, scheme_kind=kind, window=window,
+              hcap=dsync.hash_cap(L) if kind == "syncmer" else L,
+              scale_thresh=scaling_threshold_u64(scaling) if scaling > 1
+              else 0)
+    before = extract.minimizer_kmers.LAUNCHES
+    want = fused_e2e_step(*args, 77, bl, **kw)
+    got = fused_e2e_step(*[a.to(cuda) for a in args], 77, bl, **kw)
+    assert torch.equal(got.cpu(), want)
+    assert (extract.minimizer_kmers.LAUNCHES > before) == (kind != "syncmer")
+
+
+@pytest.mark.parametrize("name", ["minimizer_scaled", "plain_kmer"])
+def test_nonsyncmer_hier_step_matches_cpu_twins(cuda, tmp_path, name):
+    """The hierarchical step on the card equals the CPU twins: a scaled
+    minimiser hierarchy descends in the descend-all mode (every pair
+    active, [R, 3*topk + 2]), a plain k-mer one with the count table."""
+    from taxor_tpu_torch.apps.build import BuildConfig, run_build
+    from taxor_tpu_torch.device import hixf_search
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.search.thresholds import Thresholder
+
+    from .util import make_ref_set
+
+    scheme = (dict(kmer_size=20, window_size=26, scaling=3)
+              if name == "minimizer_scaled"
+              else dict(kmer_size=20, window_size=20))
+    rng = np.random.default_rng(23)
+    tsv, gdir, genomes = make_ref_set(str(tmp_path), rng, n_species=100,
+                                      genome_len=3000)
+    index = run_build(BuildConfig(
+        input_file=tsv, input_sequence_dir=gdir, output_filename="",
+        use_syncmer=False, layout_mode="auto", tmax=64,
+        layout_file=str(tmp_path / "b.out"), **scheme))
+    seqs = [g[o:o + 900] for g in genomes.values() for o in (0, 1500)]
+    packed, lengths = dsync.pack_reads(seqs, 1024)
+    sch = index.scheme
+    th = Thresholder.make(sch.kmer_size, sch.window_size, 0.04, -1.0, False)
+    dhs = [DeviceHIXF.from_hixf(index.hixf, dev) for dev in ("cpu", cuda)]
+    hixf_search.ACTIVITY.reset()
+    out = [dh.e2e_async(packed, lengths, sch, th)() for dh in dhs]
+    da = name == "minimizer_scaled"
+    assert (out[1][5] is None) == (not da)  # descend-all: the leaf sums
+    for a, b in zip(out[0][:4] + out[0][5:6 if da else 5],
+                    out[1][:4] + out[1][5:6 if da else 5]):
+        np.testing.assert_array_equal(a, b)
+    assert out[1][4] == 1024  # hcap = L
+    if name == "minimizer_scaled":
+        assert hixf_search.ACTIVITY.share() == 1.0
 
 
 def test_wrappers_check_inputs(cuda):

@@ -30,8 +30,7 @@ SCRIPT = textwrap.dedent("""
                        read_len=700, error_rate=0.02)
     idx = os.path.join(WORK, "idx.taxor.npz")
     assert cli.main(["build", "--input-file", tsv, "--input-sequence-dir",
-                     gdir, "--output-filename", idx, "--kmer-size", "22",
-                     "--syncmer-size", "12", "--use-syncmer", "--layout",
+                     gdir, "--output-filename", idx, *SCHEME, "--layout",
                      LAYOUT, "--tmax", "64"]) == 0
     from taxor_tpu_torch.hixf.index import load_index
     n_ixfs = len(load_index(idx).hixf.ixfs)
@@ -57,13 +56,16 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
+SYNCMER = ["--kmer-size", "22", "--syncmer-size", "12", "--use-syncmer"]
+
+
 def run_blocked(tmp_path, layout: str, n_species: int, genome_len: int,
-                block: bool = True) -> None:
+                block: bool = True, scheme=SYNCMER) -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("JAX_PLATFORMS", None)
     code = (f"REPO = {REPO!r}\nWORK = {str(tmp_path)!r}\n"
-            f"BLOCK = {block!r}\nLAYOUT = {layout!r}\n"
+            f"BLOCK = {block!r}\nLAYOUT = {layout!r}\nSCHEME = {scheme!r}\n"
             f"N_SPECIES = {n_species}\nGENOME_LEN = {genome_len}\n"
             + SCRIPT)
     res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
@@ -81,6 +83,13 @@ def test_port_runs_hierarchical_with_jax_blocked(tmp_path):
     """More user bins than the 64 technical bins of an IXF: the layout is
     hierarchical and the device engine takes the grouped descent."""
     run_blocked(tmp_path, "auto", 100, 3000)
+
+
+def test_port_runs_minimizer_hierarchy_with_jax_blocked(tmp_path):
+    """A minimiser index (k = 20, window 26): its fracminhash thresholds
+    take the descend-all descent through the minimiser extraction."""
+    run_blocked(tmp_path, "auto", 100, 3000,
+                scheme=["--kmer-size", "20", "--window-size", "26"])
 
 
 def test_port_loads_no_jax_where_jax_is_installed(tmp_path):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~4-8 min on an H100
+    python3 chip_smoke.py                 # full size, ~12-14 min on an H100
     python3 chip_smoke.py --genomes 600 --reads 512 --hier-genomes 200 \
         --hier-reads 512                  # quick start check
 
@@ -133,28 +133,33 @@ Phases (any failure exits non-zero):
  13. the minimiser and plain k-mer schemes (K5) on the card: (c) K5
      against its twin, bit-exact, at every length bucket 256..32768 on
      phase 2's kinds of reads for (k, window) = (20, 20), (20, 26),
-     (18, 26) and (32, 40); (a) phase 7's genomes and reads under the
-     bench's hier_scaled_minimizer scheme (k = 20, --window-size 26,
-     --layout auto --tmax 64) searched with ``--engine device``: its
-     fracminhash thresholds take the descend-all descent (every pair
-     active), K5 and K2n must launch, every read up to L_CAP must take
-     the fused step and only the long ones the host-hash route, and the
-     TSV must equal ``--engine host`` on the first CHECK_READS reads and
-     the long ones; the share of classified reads that name their source
-     genome is logged.  **Cut:** the family's --scaling 3 to 1, because
-     the layout of a scaled scheme degenerates into a chain hundreds of
-     levels deep (ROADMAP C.2); (e) runs the family's whole scheme on a
-     flat layout instead; (b) plain k-mers (k = window = 20) on a flat
-     index of 1,024 genomes (K5 at w' = 1, K2 on a table of ~40,000
+     (18, 26) and (32, 40), without the FracMinHash keep and with the
+     keeps of scalings 2, 3 and 1,000 (the twin followed by the keep as
+     tensor ops); (a) phase 7's genomes and reads under the bench's
+     hier_scaled_minimizer scheme whole (k = 20, --window-size 26,
+     --scaling 3, --layout auto --tmax 64) searched with ``--engine
+     device``: its fracminhash thresholds take the descend-all descent
+     (every pair active), K5 and K2n must launch, every read up to L_CAP
+     must take the fused step and only the long ones the host-hash
+     route, and the TSV must equal ``--engine host`` on the first
+     CHECK_READS reads and the long ones; the share of classified reads
+     that name their source genome is logged.  All of phase 7's reads:
+     the ~3.5% that the scaled scheme leaves so few hashes that their
+     fracminhash threshold is 0 fall back to the host oracle, which
+     walks every IXF of the hierarchy for each (in C++,
+     ``HIXF.membership``); (b) plain k-mers (k =
+     window = 20) on a flat index of 1,024 genomes (K5 at w' = 1, K2
+     on a table of ~40,000
      slots: its rows route) with 4,096 reads plus the long ones, checked
      as (a).  **Cut:** from the flat cell's 4,096 genomes and 8,192
      reads, for the script's time limit; (e) the hier_scaled_minimizer
      scheme whole (k = 20, --window-size 26, --scaling 3: the FracMinHash
-     keep after K5) on a flat index of (b)'s genomes, searched and
+     keep in K5) on a flat index of (b)'s genomes, searched and
      checked as (a) with (b)'s reads; (d) K5 timed against its twin at
-     the L=8192 bucket (R=512), a call and on the device alone, for the
-     scheme of (a) and for plain k-mers; the FracMinHash keep on K5's
-     output of (e)'s scheme there, a call, held to the keep on the CPU;
+     the L=8192 bucket (R=512) of (a)'s reads, a call and on the device
+     alone, for (a)'s scheme with no keep, for plain k-mers and for (a)'s
+     scheme with its keep; the keep as tensor ops on K5's output there,
+     a call, held to K5's keep and the keep on the CPU;
      K2 at (b)'s own shape (that bucket's reads through K5, H = L hash
      slots, on (b)'s table: the rows route), bit-exact to its twin on
      every read of the batch and timed (the K2 rows record's
@@ -187,6 +192,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -208,6 +214,14 @@ SMEM_BPS = 128 * 132 * 1.98e9  # H100 shared memory: 128 B a clock an SM
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextmanager
+def phase(label: str):
+    """Logs the wall seconds of the block."""
+    t0 = time.perf_counter()
+    yield
+    log(f"{label}: {time.perf_counter() - t0:.1f} s")
 
 
 def card_line() -> str:
@@ -1402,42 +1416,67 @@ def time_hier(torch, state) -> list[dict]:
 
 
 # ------------------------------------------------------------ phase 13 --
-# the bench's hier_scaled_minimizer family's scheme (phase 13a cuts its
-# scaling, phase 13e keeps it on a flat layout: see main)
+# the bench's hier_scaled_minimizer family's scheme (phases 13a and 13e)
 MM_K, MM_WINDOW, MM_SCALING = 20, 26, 3
 K5_SCHEMES = ((20, 20), (20, 26), (18, 26), (32, 40))  # (k, window)
+K5_SCALINGS = (2, 3, 1000)  # phase 13c's FracMinHash keeps
 BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
+# the keep of one emission: wyhash64's 64 x 64 -> 128-bit multiply (seven
+# 32-bit multiply-adds), the XOR of its halves and the 64-bit compare
+KEEP_OPS = 11
 
 
 def k5_ops(k: int, window: int) -> int:
-    """Integer operations a position of K5 takes: ~20 for the canonical
-    value (two funnel shifts, two 2-bit reversals and their 64-bit shift,
-    the complement and mask, two XORs with the seed, the 64-bit minimum)
-    and 4 a window element for the leftmost-argmin scan (a compare, two
-    selects, the index): 48 at w' = 7."""
-    return 20 + 4 * (window - k + 1)
+    """Integer operations a position of K5 takes before the keep: ~16 for
+    the canonical value (funnel shifts of the aligned words and their
+    2-bit reversal, the complement and mask, the 64-bit shift, two XORs
+    with the seed, the 64-bit minimum); for w' > 1 the window pass, w' + 8
+    64-bit minima a thread's run of four positions (window_split: w' - 4
+    over the values left of the run, 3 taking in the three oldest, 2
+    prefix minima of its own values, 3 merging them, and the four
+    emitted minima), 4 operations each, so w' + 8 a position, and ~8 for
+    the emission test: 39 at w' = 7, 16 at w' = 1."""
+    wp = window - k + 1
+    return 16 if wp == 1 else 16 + (wp + 8) + 8
 
 
 def check_k5(torch, dsync, extract, rng) -> None:
     """Phase 13c: K5 against its twin, bit for bit (0 where nothing is
     emitted), at every length bucket on phase 2's kinds of reads, for each
     (k, window) of K5_SCHEMES: plain k-mers (w' = 1), windowed minimisers
-    and k = 32 (the seed's top bit set)."""
+    and k = 32 (the seed's top bit set); without the FracMinHash keep
+    (valid = emit, n_unique = n_emit) and with it for each scaling of
+    K5_SCALINGS (the twin followed by the keep as tensor ops)."""
+    from taxor_tpu_torch.hash.schemes import scaling_threshold_u64
+
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    names = ("hi", "lo", "valid", "n_emit", "n_unique")
     for L in BUCKETS:
         packed, lengths = dsync.pack_reads(k1_reads(rng, L), L)
         pk = torch.from_numpy(packed).to(dev)
         ln = torch.from_numpy(lengths).to(dev)
-        n_emit = []
+        n_emit, kept = [], []
         for k, window in K5_SCHEMES:
-            got = extract.minimizer_kmers(pk, ln, k, window)
-            want = dsync.minimizer_kmers_plain(pk, ln, k, window)
-            assert_equal(torch, f"K5 L={L} k={k} window={window}",
-                         ("hi", "lo", "emit", "n_emit"), got, want)
-            n_emit.append(int(got[3].max()))
+            hi, lo, emit, ne = dsync.minimizer_kmers_plain(pk, ln, k, window)
+            assert_equal(torch, f"K5 L={L} k={k} window={window}", names,
+                         extract.minimizer_kmers(pk, ln, k, window),
+                         (hi, lo, emit, ne, ne))
+            n_emit.append(int(ne.sum()))
+            for sc in K5_SCALINGS:
+                thresh = scaling_threshold_u64(sc)
+                valid = emit & extract.scaling_keep(hi, lo, thresh)
+                nu = valid.sum(dim=1, dtype=torch.int32)
+                assert_equal(torch, f"K5 L={L} k={k} window={window} "
+                             f"scaling {sc}", names,
+                             extract.minimizer_kmers(pk, ln, k, window,
+                                                     thresh),
+                             (hi, lo, valid, ne, nu))
+                kept.append(int(nu.sum()))
         log(f"K5 L={L}: bit-exact vs twin on {pk.shape[0]} reads for (k, "
-            f"window) {list(K5_SCHEMES)} (n_emit max {n_emit})")
+            f"window) {list(K5_SCHEMES)}, with no keep and the keeps of "
+            f"scalings {list(K5_SCALINGS)} (emissions {n_emit}; kept by "
+            f"scheme and scaling {kept})")
     log(f"phase 13c: K5 checked in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1501,10 +1540,14 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict, flags,
 def time_k5(torch, state) -> dict:
     """Phase 13d: K5 against its twin at the minimiser path's L=8192
     bucket (R=512), a call and on the device alone, for the path's scheme
-    and for plain k-mers."""
+    with no keep, for plain k-mers and for the path's scheme with its
+    FracMinHash keep (scaling MM_SCALING), through
+    ``tools.time_minimizer.measure``; then the keep as tensor ops on K5's
+    output (``time_keep``), the reference for the scaled times."""
     from taxor_tpu_torch.device import extract
     from taxor_tpu_torch.hash import device_syncmer as dsync
-    from taxor_tpu_torch.tools.time_sort import device_ms
+    from taxor_tpu_torch.hash.schemes import scaling_threshold_u64
+    from taxor_tpu_torch.tools import time_minimizer as tm
 
     dev = torch.device("cuda")
     L = 8192
@@ -1513,61 +1556,68 @@ def time_k5(torch, state) -> dict:
     pk = torch.from_numpy(packed).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
     R = pk.shape[0]
+    if (tm.K, tm.CASES) != (MM_K, (("w7", MM_WINDOW, 1), ("w1", MM_K, 1),
+                                   ("w7_scaled", MM_WINDOW, MM_SCALING))):
+        raise AssertionError("tools.time_minimizer times another scheme")
+    got = tm.measure(pk, ln, dev)
+    if not all(got["equal"].values()):
+        raise AssertionError(f"K5 differs from its twin: {got['equal']}")
     row = {"name": "minimizer_kmers", "route": "cuda",
            "source": "taxor_tpu_torch/csrc/minimizer.cu",
            "replaces": "taxor_tpu/hash/device_syncmer.py:636 (XLA, no "
                        "Pallas kernel)", "library_ms": None,
-           "shape": [R, L]}
-    for k, window in ((MM_K, MM_WINDOW), (MM_K, MM_K)):
-        fn = lambda: extract.minimizer_kmers(pk, ln, k, window)  # noqa: E731
-        plain = lambda: dsync.minimizer_kmers_plain(  # noqa: E731
-            pk, ln, k, window)
-        ms, plain_ms, err, each = time_pair(torch, fn, plain, 20)
-        d1, d2 = device_ms(fn, 20, 2), device_ms(fn, 20, 2)
-        # packed + lengths in; hi, lo, emit, n_emit out
-        b = bound(pk.numel() + 4 * R + 9 * R * L + 4 * R,
-                  float(R * L) * k5_ops(k, window), PEAK_SCALAR)
-        log(f"time minimizer_kmers (K5) k={k} window={window} at R={R}, "
-            f"L={L}: kernel {each[0]:.4f}/{each[1]:.4f} ms a call, "
-            f"{d1:.4f}/{d2:.4f} on the device alone; plain "
-            f"{each[2]:.3f}/{each[3]:.3f} ms; bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']})")
-        if window == MM_WINDOW:
-            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       device_ms=min(d1, d2), window=window, **b)
+           "shape": [R, L], "window": MM_WINDOW,
+           "max_abs_err": got["max_abs_err"]}
+    n_emit = got["emissions"]["w7"]  # the scaled case's, before the keep
+    for key, (name, window, scaling) in zip(("", "plain_kmer_", "scaled_"),
+                                            tm.CASES):
+        # packed + lengths in; hi, lo, valid, n_emit, n_unique out; the
+        # keep's operations an emission
+        b = bound(pk.numel() + 4 * R + 9 * R * L + 8 * R,
+                  float(R * L) * k5_ops(MM_K, window)
+                  + (n_emit * KEEP_OPS if scaling > 1 else 0), PEAK_SCALAR)
+        log(f"time minimizer_kmers (K5) k={MM_K} window={window} scaling "
+            f"{scaling} at R={R}, L={L}: kernel {got[f'{name}_ms']:.4f} ms "
+            f"a call, {got[f'{name}_device_ms']:.4f} on the device alone; "
+            f"plain {got[f'{name}_plain_ms']:.3f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); "
+            f"{got['emissions'][name]} valid slots")
+        row[f"{key}ms"] = got[f"{name}_ms"]
+        row[f"{key}device_ms"] = got[f"{name}_device_ms"]
+        row[f"{key}plain_ms"] = got[f"{name}_plain_ms"]
+        if key:
+            row[f"{key}bound_ms"] = b["bound_ms"]
         else:
-            row.update(plain_kmer_ms=ms, plain_kmer_device_ms=min(d1, d2),
-                       plain_kmer_plain_ms=plain_ms,
-                       plain_kmer_bound_ms=b["bound_ms"],
-                       max_abs_err=max(row["max_abs_err"], err))
+            row.update(b)
+    row["scaling_keep_ms"] = time_keep(
+        torch, extract, pk, ln, scaling_threshold_u64(MM_SCALING))
     return row
 
 
-def time_keep(torch, state) -> float:
-    """Phase 13d: the FracMinHash keep (device/e2e._scaling_keep, tensor
-    ops) on K5's output of phase 13e's scheme at the L=8192 bucket, ms a
-    call; its mask must equal the keep's on the CPU."""
-    from taxor_tpu_torch.device import e2e
-    from taxor_tpu_torch.device.hixf_search import _scale_thresh
-    from taxor_tpu_torch.hash import device_syncmer as dsync
-
-    dev = torch.device("cuda")
-    L = 8192
-    packed, lengths = (torch.from_numpy(x).to(dev) for x in dsync.pack_reads(
-        bucket_reads(state["recs"], L), L))
-    thresh = _scale_thresh(state["index"].scheme)
-    hi, lo, emit, _ = e2e.minimizer_kmers(packed, lengths, MM_K, MM_WINDOW)
-    keep = e2e._scaling_keep(hi, lo, thresh)
-    if not torch.equal(keep.cpu(), e2e._scaling_keep(hi.cpu(), lo.cpu(),
-                                                     thresh)):
+def time_keep(torch, extract, packed, lengths, thresh: int) -> float:
+    """Phase 13d: the FracMinHash keep as tensor ops
+    (``extract.scaling_keep``, what followed K5 before K5 took the keep)
+    on K5's output of the path's scheme, ms a call; its mask must equal
+    K5's own keep and the keep on the CPU."""
+    hi, lo, emit, _, _ = extract.minimizer_kmers(packed, lengths, MM_K,
+                                                 MM_WINDOW)
+    keep = extract.scaling_keep(hi, lo, thresh)
+    if not torch.equal(keep.cpu(), extract.scaling_keep(hi.cpu(), lo.cpu(),
+                                                        thresh)):
         raise AssertionError("the FracMinHash keep on the card differs "
                              "from the keep on the CPU")
-    ms1 = cuda_ms(lambda: e2e._scaling_keep(hi, lo, thresh), 20)
-    ms2 = cuda_ms(lambda: e2e._scaling_keep(hi, lo, thresh), 20)
-    log(f"time FracMinHash keep (scaling {state['index'].scheme.scaling}) "
-        f"on K5's [{hi.shape[0]}, {L}] values: {ms1:.4f}/{ms2:.4f} ms a "
-        f"call over all {hi.numel()} slots; {int((keep & emit).sum())} of "
-        f"{int(emit.sum())} emitted values kept; equal to the CPU's keep")
+    fused = extract.minimizer_kmers(packed, lengths, MM_K, MM_WINDOW,
+                                    thresh)[2]
+    if not torch.equal(fused, keep & emit):
+        raise AssertionError("K5's FracMinHash keep differs from the keep "
+                             "as tensor ops")
+    ms1 = cuda_ms(lambda: extract.scaling_keep(hi, lo, thresh), 20)
+    ms2 = cuda_ms(lambda: extract.scaling_keep(hi, lo, thresh), 20)
+    log(f"time FracMinHash keep as tensor ops (scaling {MM_SCALING}) on "
+        f"K5's [{hi.shape[0]}, {hi.shape[1]}] values: {ms1:.4f}/{ms2:.4f} "
+        f"ms a call over all {hi.numel()} slots; {int(fused.sum())} of "
+        f"{int(emit.sum())} emitted values kept; equal to K5's keep and to "
+        f"the CPU's")
     return min(ms1, ms2)
 
 
@@ -2129,7 +2179,7 @@ def main() -> int:
                          "index")
     ap.add_argument("--hier-reads", type=int, default=16384,
                     help="ONT-like reads of the hierarchical path (plus 16 "
-                         "of 40 kb); phase 13a searches them too")
+                         "of 40 kb)")
     ap.add_argument("--kmer-genomes", type=int, default=1024,
                     help="reference genomes of 30 kb in phase 13b's flat "
                          "plain k-mer index")
@@ -2156,61 +2206,72 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
-    check_k1(torch, dsync, extract, sort, rng)
-    k2_rows_checks = check_k2(torch, probe, rng)
-    check_sorts(torch, sort, rng)
+    with phase("phase 2 (K1, syncmer_track and K3 checks)"):
+        check_k1(torch, dsync, extract, sort, rng)
+    with phase("phase 3"):
+        k2_rows_checks = check_k2(torch, probe, rng)
+    with phase("phase 9 (K3 and K4 checks)"):
+        check_sorts(torch, sort, rng)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "taxor_tpu_torch", "_build")
     os.makedirs(root, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
     try:
-        flat = main_path(torch, os.path.join(work, "flat"), rng, args.genomes,
-                         args.reads, "flat")
-        kernels = time_kernels(torch, flat)
-        kernels += time_split(torch, flat)
+        with phase("phase 4"):
+            flat = main_path(torch, os.path.join(work, "flat"), rng,
+                             args.genomes, args.reads, "flat")
+        with phase("phases 5 and 10"):
+            kernels = time_kernels(torch, flat)
+            kernels += time_split(torch, flat)
         shutil.rmtree(os.path.join(work, "flat"), ignore_errors=True)
-        k2_rows_checks += check_grouped(torch, probe, rng)
-        check_run_sums(torch, probe, rng)
-        hier = main_path(torch, os.path.join(work, "hier"), rng,
-                         args.hier_genomes, args.hier_reads, "auto")
-        hier_report(torch, hier)
-        check_wide_root(torch, os.path.join(work, "wide"))
-        kernels += time_hier(torch, hier)
+        with phase("phase 6"):
+            k2_rows_checks += check_grouped(torch, probe, rng)
+            check_run_sums(torch, probe, rng)
+        with phase("phase 7"):
+            hier = main_path(torch, os.path.join(work, "hier"), rng,
+                             args.hier_genomes, args.hier_reads, "auto")
+            hier_report(torch, hier)
+            check_wide_root(torch, os.path.join(work, "wide"))
+        with phase("phase 8"):
+            kernels += time_hier(torch, hier)
 
         # ---- phase 13: K5, minimisers and plain k-mers, descend-all
-        t0 = time.perf_counter()
-        check_k5(torch, dsync, extract, rng)
-        # 13a: phase 7's genomes and reads; the bench family's scaling 3
-        # is cut to 1 (ROADMAP C.2: its layout degenerates into a chain)
-        mm = nonsyncmer_path(torch, os.path.join(work, "hier"), "minimizer",
-                             hier, ["--kmer-size", str(MM_K),
-                                    "--window-size", str(MM_WINDOW)],
-                             "auto", ("K5", "K2n"))
+        t13 = time.perf_counter()
+        with phase("phase 13c"):
+            check_k5(torch, dsync, extract, rng)
+        # 13a: phase 7's genomes and reads under the bench family's whole
+        # scheme (scaling 3)
+        mm_flags = ["--kmer-size", str(MM_K), "--window-size",
+                    str(MM_WINDOW), "--scaling", str(MM_SCALING)]
+        with phase("phase 13a"):
+            mm = nonsyncmer_path(torch, os.path.join(work, "hier"),
+                                 "minimizer", hier, mm_flags, "auto",
+                                 ("K5", "K2n"))
         if mm["active_share"] != 1.0:
             raise AssertionError(f"[minimizer] the descend-all descent left "
                                  f"pairs inactive: {mm['active_share']}")
-        kernels.append(time_k5(torch, mm))
-        narrow = next(r for r in kernels if r["name"] == "probe_count_narrow")
-        narrow["descend_all_groups"] = time_descend_all(torch, mm)
+        with phase("phase 13d (K5, the keep, descend-all)"):
+            kernels.append(time_k5(torch, mm))
+            narrow = next(r for r in kernels
+                          if r["name"] == "probe_count_narrow")
+            narrow["descend_all_groups"] = time_descend_all(torch, mm)
         shutil.rmtree(os.path.join(work, "hier"), ignore_errors=True)
-        kmer = kmer_data(rng, os.path.join(work, "kmer"),
-                         args.kmer_genomes, args.kmer_reads)
-        kmer_in = kmer
-        kmer = nonsyncmer_path(torch, os.path.join(work, "kmer"), "kmer",
-                               kmer_in, ["--kmer-size", str(MM_K),
-                                         "--window-size", str(MM_K)],
-                               "flat", ("K5", "K2"))
-        rows = next(r for r in kernels if r["name"] == "probe_count_rows")
-        rows["kmer_flat"] = time_k2_kmer(torch, kmer)
-        # 13e: the bench family's whole scheme, scaling 3, on a flat layout
-        scaled = nonsyncmer_path(torch, os.path.join(work, "kmer"), "scaled",
-                                 kmer_in, ["--kmer-size", str(MM_K),
-                                           "--window-size", str(MM_WINDOW),
-                                           "--scaling", str(MM_SCALING)],
-                                 "flat", ("K5", "K2"))
-        k5 = next(r for r in kernels if r["name"] == "minimizer_kmers")
-        k5["scaling_keep_ms"] = time_keep(torch, scaled)
-        log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+        with phase("phase 13b"):
+            kmer_in = kmer_data(rng, os.path.join(work, "kmer"),
+                                args.kmer_genomes, args.kmer_reads)
+            kmer = nonsyncmer_path(torch, os.path.join(work, "kmer"), "kmer",
+                                   kmer_in, ["--kmer-size", str(MM_K),
+                                             "--window-size", str(MM_K)],
+                                   "flat", ("K5", "K2"))
+        with phase("phase 13d (K2 at 13b's shape)"):
+            rows = next(r for r in kernels if r["name"] == "probe_count_rows")
+            rows["kmer_flat"] = time_k2_kmer(torch, kmer)
+        # 13e: the same scheme on a flat layout of 13b's genomes
+        with phase("phase 13e"):
+            scaled = nonsyncmer_path(torch, os.path.join(work, "kmer"),
+                                     "scaled", kmer_in, mm_flags, "flat",
+                                     ("K5", "K2"))
+        log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     runs = [flat["launches"], flat["split"], hier["launches"], hier["split"],
@@ -2242,8 +2303,9 @@ def main() -> int:
 
     dh = DeviceHIXF.from_hixf(flat["index"].hixf, "cuda")
     diag_counts(diag, zero=True)
-    check_diag(torch, dh.table, dh.block_length,
-               np.random.default_rng(SEED + 11))
+    with phase("phase 11"):
+        check_diag(torch, dh.table, dh.block_length,
+                   np.random.default_rng(SEED + 11))
     checks = diag_counts(diag)
     check_routes = diag_routes(diag)
     del dh
@@ -2255,7 +2317,9 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 12: tooling path in {time.perf_counter() - t0:.1f} s")
-    for row in time_diag(torch, flat):
+    with phase("phase 12 (the diagnostic kernels timed)"):
+        diag_rows = time_diag(torch, flat)
+    for row in diag_rows:
         row.update(launches=tools[row["name"]], launches_in="tools",
                    tool_launches=tools[row["name"]],
                    check_launches=checks[row["name"]])

@@ -114,7 +114,7 @@ def make_layout(
         file_hashes, clusters, tmax=config.tmax,
         verbose=config.verbose_stats,
         artifacts_prefix=config.count_output_prefix,
-        cost_model=config.layout_cost)
+        cost_model=config.layout_cost, scaling=scheme.scaling)
 
 
 def run_build(config: BuildConfig) -> TaxorIndex:

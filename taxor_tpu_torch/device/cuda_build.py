@@ -13,10 +13,10 @@ first use (never at import) into ``taxor_tpu_torch/_build/``, which
 edited source rebuilds.  Each C launcher enqueues on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
 into an exception.  ``syncmer_extract_smem``, ``probe_slab_bins``,
-``probe_narrow_mode``, ``minimizer_smem``, ``diag_smem_per_block`` and
+``probe_narrow_mode``, ``minimizer_max_len``, ``diag_smem_per_block`` and
 ``extract_stage_smem`` are no launchers: they return the shared memory K1
 takes, the slab width of K2's slab route (0 for its rows route), K2n's
-mode (1 smem, 0 rows), the dynamic shared memory of a K5 block, the
+mode (1 smem, 0 rows), the longest read K5 takes, the
 shared memory a block may take (the diagnostics' slab route) and the
 dynamic shared memory of an extract_stage launch, so that the wrappers
 never repeat a kernel's layout.
@@ -72,12 +72,12 @@ _SIGNATURES = {
     "launch_dedup": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # (hi, lo, R, W, Wp, scratch, out_hi, out_lo, stream)
     "launch_sort_pairs": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
-    # (packed, lengths, R, L, k, wp, seed, out_hi, out_lo, out_emit,
-    #  n_emit, stream)
-    "launch_minimizer": [_P, _P, _I, _I, _I, _I, ctypes.c_uint64, _P, _P, _P,
-                         _P, _P],
-    # (k, wp) -> K5's dynamic shared-memory bytes
-    "minimizer_smem": [_I, _I],
+    # (packed, lengths, R, L, k, wp, seed, thresh, out_hi, out_lo,
+    #  out_valid, n_emit, n_unique, stream)
+    "launch_minimizer": [_P, _P, _I, _I, _I, _I, ctypes.c_uint64,
+                         ctypes.c_uint64, _P, _P, _P, _P, _P, _P],
+    # () -> the longest read K5 takes
+    "minimizer_max_len": [],
 }
 _DIAG_SIGNATURES = {
     # (device) -> the shared memory a block may opt in to

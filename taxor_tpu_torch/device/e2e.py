@@ -20,8 +20,9 @@ the host (search/pipeline._pairs_from_e2e).
 The schemes, as in the JAX step: syncmers hash through K1 (wyhashed,
 deduplicated, hcap slots); minimisers and plain k-mers through K5 (the
 XOR-seeded values probe as they are, duplicates kept, H = L, n_unique =
-n_emit); with a FracMinHash scaling, ``_scaling_keep`` drops the hashes
-whose wyhash64 exceeds the integer threshold and n_unique is recounted.
+n_emit); with a FracMinHash scaling, the keep (``extract.scaling_keep``)
+drops the hashes whose wyhash64 exceeds the integer threshold and
+n_unique counts the rest: in K5 itself, or as tensor ops after K1.
 
 Three replacements against the JAX step:
   - run sums: exact integer sums over run offsets, where the TPU needed a
@@ -47,9 +48,8 @@ import threading
 import torch
 
 from ..hash.device_syncmer import emission_min_gap
-from ..utils.u64 import INT64_MIN, i64, join32, wyhash64
-from .extract import (hashes_of_kmers, minimizer_kmers, syncmer_hashes,
-                      syncmer_track)
+from .extract import (hashes_of_kmers, minimizer_kmers, scaling_keep,
+                      syncmer_hashes, syncmer_track)
 from .probe import probe_counts, probe_run_sums_grouped, segment_sums
 from .sort import dedup_fused
 
@@ -73,28 +73,20 @@ def _syncmer_hashes(packed, lengths, k: int, s: int, t: int, hcap: int):
     return (*hashes_of_kmers(srt, valid), valid, n_unique, n_emit)
 
 
-def _scaling_keep(hi, lo, scale_thresh: int) -> torch.Tensor:
-    """Keep mask of FracMinHash scaling: wyhash64 of the value <= T as
-    uint64 (T = schemes.scaling_threshold_u64, the exact integer form of
-    the reference's double compare).  For syncmers the value is K1's
-    hash, hashed again, as the host's scaling_filter does."""
-    v = wyhash64(join32(hi, lo))
-    return (v ^ INT64_MIN) <= (i64(scale_thresh) ^ INT64_MIN)
-
-
 def _hashes(packed, lengths, scheme_kind: str, k: int, s: int, t: int,
             window: int, hcap: int, scale_thresh: int):
     """(hi, lo, valid, n_unique, n_emit) of the step's scheme: K1 (or the
-    split engine) for syncmers, K5 for minimisers and plain k-mers (hcap
-    is then L), then the FracMinHash keep where scale_thresh is set."""
-    if scheme_kind == "syncmer":
-        hi, lo, valid, n_unique, n_emit = _syncmer_hashes(packed, lengths, k,
-                                                          s, t, hcap)
-    else:
-        hi, lo, valid, n_emit = minimizer_kmers(packed, lengths, k, window)
-        n_unique = n_emit
+    split engine) for syncmers, then the FracMinHash keep as tensor ops
+    where scale_thresh is set; K5 for minimisers and plain k-mers (hcap
+    is then L), the keep computed in the kernel."""
+    if scheme_kind != "syncmer":
+        hi, lo, valid, n_emit, n_unique = minimizer_kmers(
+            packed, lengths, k, window, scale_thresh)
+        return hi, lo, valid, n_unique, n_emit
+    hi, lo, valid, n_unique, n_emit = _syncmer_hashes(packed, lengths, k, s,
+                                                      t, hcap)
     if scale_thresh:
-        valid = valid & _scaling_keep(hi, lo, scale_thresh)
+        valid = valid & scaling_keep(hi, lo, scale_thresh)
         n_unique = valid.sum(dim=1, dtype=torch.int32)
     return hi, lo, valid, n_unique, n_emit
 

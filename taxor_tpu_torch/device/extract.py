@@ -28,12 +28,14 @@ per-position contract of ``syncmer_kmers`` (canonical k-mer int64 [R, L]
 and emission mask bool [R, L]) for the dedup kernel K3 (device/sort.py).
 
 ``minimizer_kmers`` is CUDA kernel K5 (``csrc/minimizer.cu``), the
-minimiser and plain k-mer extraction of the non-syncmer schemes, with the
-contract of its twin ``hash/device_syncmer.minimizer_kmers_plain``: per
-END position the emitted value as int32 hi/lo [R, L] (0 where nothing is
-emitted; no wyhash, duplicates kept), emit bool [R, L] and n_emit int32
-[R].  Its hashes probe at full width, H = L (the JAX package's hcap = L
-for these schemes).
+minimiser and plain k-mer extraction of the non-syncmer schemes with the
+FracMinHash keep, with the contract of its twin ``minimizer_hashes_plain``
+(``hash/device_syncmer.minimizer_kmers_plain`` followed by
+``scaling_keep``): per END position the emitted value as int32 hi/lo
+[R, L] (0 where nothing is emitted; no wyhash, duplicates kept), valid
+bool [R, L] (emitted and kept), n_emit int32 [R] (emissions before the
+keep) and n_unique int32 [R] (the valid slots).  Its hashes probe at full
+width, H = L (the JAX package's hcap = L for these schemes).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 from ..hash.device_syncmer import (dedup_kmers, max_emissions,
                                    minimizer_kmers_plain, syncmer_kmers)
 from ..hash.minimizer import adjust_seed
-from ..utils.u64 import split32, wyhash64
+from ..utils.u64 import INT64_MIN, i64, join32, split32, wyhash64
 from . import cuda_build
 
 # dynamic shared memory one block may use on Hopper
@@ -59,6 +61,15 @@ def hashes_of_kmers(srt: torch.Tensor, valid: torch.Tensor):
     """(hi, lo) int32 bit patterns of wyhash64 of the sorted k-mers, 0
     where a slot holds no first occurrence: K1's hash output."""
     return split32(torch.where(valid, wyhash64(srt), torch.zeros_like(srt)))
+
+
+def scaling_keep(hi, lo, scale_thresh: int) -> torch.Tensor:
+    """Keep mask of FracMinHash scaling: wyhash64 of the value <= T as
+    uint64 (T = schemes.scaling_threshold_u64, the exact integer form of
+    the reference's double compare).  For syncmers the value is K1's
+    hash, hashed again, as the host's scaling_filter does."""
+    v = wyhash64(join32(hi, lo))
+    return (v ^ INT64_MIN) <= (i64(scale_thresh) ^ INT64_MIN)
 
 
 def syncmer_hashes_plain(packed, lengths, k: int, s: int, t: int,
@@ -152,32 +163,50 @@ def syncmer_track(packed: torch.Tensor, lengths: torch.Tensor, k: int,
 syncmer_track.LAUNCHES = 0
 
 
+def minimizer_hashes_plain(packed, lengths, k: int, window: int,
+                           scale_thresh: int = 0):
+    """Plain PyTorch twin of K5 (same contract): ``minimizer_kmers_plain``
+    followed by ``scaling_keep`` where scale_thresh is set."""
+    hi, lo, valid, n_emit = minimizer_kmers_plain(packed, lengths, k, window)
+    if scale_thresh:
+        valid = valid & scaling_keep(hi, lo, scale_thresh)
+    return hi, lo, valid, n_emit, valid.sum(dim=1, dtype=torch.int32)
+
+
 def minimizer_kmers(packed: torch.Tensor, lengths: torch.Tensor, k: int,
-                    window: int):
-    """(hi, lo, emit, n_emit) of ``minimizer_kmers_plain``: K5 on a CUDA
-    tensor, the plain twin on a CPU tensor."""
+                    window: int, scale_thresh: int = 0):
+    """(hi, lo, valid, n_emit, n_unique) of ``minimizer_hashes_plain``: K5
+    on a CUDA tensor, the plain twin on a CPU tensor.  scale_thresh: the
+    FracMinHash threshold (schemes.scaling_threshold_u64), 0 for none."""
     if packed.device.type == "cpu":
-        return minimizer_kmers_plain(packed, lengths, k, window)
+        return minimizer_hashes_plain(packed, lengths, k, window,
+                                      scale_thresh)
     R, L = _check_packed("minimizer_kmers", packed, lengths)
-    wp = window - k + 1
     lib = cuda_build.lib()
-    if not (2 <= k <= 32 and wp >= 1
-            and lib.minimizer_smem(k, wp) <= SMEM_LIMIT):
+    if not (2 <= k <= 32 and window >= k):
         raise ValueError(f"minimizer_kmers: unsupported scheme k={k} "
                          f"window={window}")
+    if L > lib.minimizer_max_len():
+        raise ValueError(f"minimizer_kmers: reads of {L} positions, past "
+                         f"K5's {lib.minimizer_max_len()}")
+    if not 0 <= scale_thresh < 1 << 64:
+        raise ValueError(f"minimizer_kmers: scale_thresh {scale_thresh} is "
+                         "no uint64")
     dev = packed.device
     hi = torch.empty((R, L), dtype=torch.int32, device=dev)
     lo = torch.empty_like(hi)
-    emit = torch.empty((R, L), dtype=torch.bool, device=dev)
-    n_emit = torch.zeros(R, dtype=torch.int32, device=dev)  # blocks add
+    valid = torch.empty((R, L), dtype=torch.bool, device=dev)
+    n_emit = torch.empty(R, dtype=torch.int32, device=dev)
+    n_unique = torch.empty_like(n_emit)
     err = lib.launch_minimizer(
-        packed.data_ptr(), lengths.data_ptr(), R, L, k, wp, adjust_seed(k),
-        hi.data_ptr(), lo.data_ptr(), emit.data_ptr(), n_emit.data_ptr(),
+        packed.data_ptr(), lengths.data_ptr(), R, L, k, window - k + 1,
+        adjust_seed(k), scale_thresh, hi.data_ptr(), lo.data_ptr(),
+        valid.data_ptr(), n_emit.data_ptr(), n_unique.data_ptr(),
         cuda_build.stream_of(packed))
     cuda_build.check(err, "launch_minimizer")
     if R:
         cuda_build.count_launch(minimizer_kmers)
-    return hi, lo, emit, n_emit
+    return hi, lo, valid, n_emit, n_unique
 
 
 minimizer_kmers.LAUNCHES = 0

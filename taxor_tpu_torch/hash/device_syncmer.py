@@ -141,8 +141,9 @@ def _shift_right(x: torch.Tensor, d: int, fill: int = 0) -> torch.Tensor:
     """y[:, i] = x[:, i - d] (fill for i < d)."""
     if d == 0:
         return x
+    d = min(d, x.shape[1])  # a shift past the row leaves only fill
     pad = torch.full((x.shape[0], d), fill, dtype=x.dtype, device=x.device)
-    return torch.cat([pad, x[:, :-d]], dim=1)
+    return torch.cat([pad, x[:, :x.shape[1] - d]], dim=1)
 
 
 def _rolling(codes: torch.Tensor, m: int):

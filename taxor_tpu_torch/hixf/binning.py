@@ -40,7 +40,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..utils.u64np import wyhash64
+from ..utils.u64np import murmur64, wyhash64
 from .hll import HyperLogLog
 from .layout import LayoutNode, LayoutRecord
 
@@ -75,11 +75,18 @@ class _Bin:
     sketch: HyperLogLog
 
 
-def make_sketch(hashes: np.ndarray, bits: int = _SKETCH_BITS) -> HyperLogLog:
+def make_sketch(hashes: np.ndarray, bits: int = _SKETCH_BITS,
+                scaling: int = 1) -> HyperLogLog:
     """Sketch over re-mixed hash values (minimizer-path values are not
-    uniform; wyhash64 whitens both paths)."""
+    uniform; wyhash64 whitens both paths).  A FracMinHash-scaled set
+    (scaling > 1) holds exactly the hashes whose wyhash64 is at most
+    2^64 / scaling, so its wyhash64 values fill only the lowest 1/scaling
+    of the registers and every sketch estimates about the same small
+    number, whatever the set's size; such a set is mixed with murmur64,
+    which is independent of the keep.  Unscaled sets keep wyhash64, so
+    their layouts stay those of the JAX package."""
     sk = HyperLogLog(bits)
-    sk.add_many(wyhash64(hashes))
+    sk.add_many(murmur64(hashes) if scaling > 1 else wyhash64(hashes))
     return sk
 
 
@@ -463,6 +470,7 @@ def compute_layout_from_hashes(
     verbose: bool = False,
     artifacts_prefix: str = "",
     cost_model: str = "cpu",
+    scaling: int = 1,
 ) -> LayoutNode:
     """Layout for accession clusters given precomputed per-file hash sets.
     Runs the reference's t_max sweep (taxor_build.cpp:173-228): powers of
@@ -484,7 +492,9 @@ def compute_layout_from_hashes(
     <prefix>_sketches/<accession>.hll (HLL register dumps).  chopper
     itself is not in the reference tree, so the exact byte format is
     reconstructed from the call sites; the artifacts exist for build
-    RESUME (apps/build.py) and debugging, like the reference's."""
+    RESUME (apps/build.py) and debugging, like the reference's.
+    scaling: the scheme's FracMinHash scaling, which picks the sketch's
+    mix (make_sketch)."""
     def load(f):
         return file_hashes.get(f) if hasattr(file_hashes, "get") and not isinstance(file_hashes, dict) else file_hashes[f]
 
@@ -502,7 +512,7 @@ def compute_layout_from_hashes(
             if len(files) > 1
             else load(files[0])
         )
-        sketch = make_sketch(hashes)
+        sketch = make_sketch(hashes, scaling=scaling)
         if count_fh is not None:
             import os
 
@@ -583,4 +593,5 @@ def compute_layout(clusters: dict[str, list[str]], scheme, tmax: int = 4096,
 
     all_files = [f for files in clusters.values() for f in files]
     file_hashes = precompute_file_hashes(all_files, scheme)
-    return compute_layout_from_hashes(file_hashes, clusters, tmax=tmax)
+    return compute_layout_from_hashes(file_hashes, clusters, tmax=tmax,
+                                      scaling=scheme.scaling)

@@ -14,10 +14,15 @@ src/hixf/build/hierarchical_interleaved_xor_filter.hpp:
 same user bin (split bins), emit (user_bin, sum) when sum >= threshold,
 recurse into merged bins whose own count >= threshold.  Emission order is
 the DFS order of the recursion — the search TSV row order depends on it.
+It walks in C++ (``native/ref_baseline.cpp``) where the native library
+loads, else in numpy (``membership_plain``): a read whose threshold every
+merged bin passes visits every IXF, thousands in a large hierarchy.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -25,6 +30,7 @@ import numpy as np
 from ..ixf.xor_filter import IXF
 
 U64 = np.uint64
+_FLAT_LOCK = threading.Lock()
 
 
 @dataclass
@@ -108,7 +114,49 @@ class HIXF:
 
     def membership(self, hashes: np.ndarray,
                    threshold: int) -> list[tuple[int, int]]:
-        """(user_bin, count) pairs in reference emission order."""
+        """(user_bin, count) pairs in reference emission order, from the
+        native walk, or from ``membership_plain`` without the library."""
+        from ..native import get_lib
+
+        lib = get_lib()
+        if lib is None:
+            return self.membership_plain(hashes, threshold)
+        flat = self._flat()
+        hashes = np.ascontiguousarray(hashes, dtype=U64)
+        impossible = threshold > 2**63 - 1  # past every count
+        thr = 0 if impossible else max(int(threshold), -2**63)
+        cap = self.num_user_bins
+        while True:
+            users = np.empty(cap, dtype=np.int32)
+            counts = np.empty(cap, dtype=np.int64)
+            n = lib.hixf_membership(
+                *(flat[key].ctypes.data_as(ctypes.c_void_p)
+                  for key in ("fp", "fp_off")), flat["n_ixfs"],
+                *(flat[key].ctypes.data_as(ctypes.c_void_p)
+                  for key in ("bins", "block_len", "seeds", "bin_off",
+                              "user_of", "next_ixf")),
+                hashes.ctypes.data_as(ctypes.c_void_p), hashes.shape[0],
+                thr, int(impossible), users.ctypes.data_as(ctypes.c_void_p),
+                counts.ctypes.data_as(ctypes.c_void_p), cap)
+            if n <= cap:
+                return list(zip(users[:n].tolist(), counts[:n].tolist()))
+            cap = n
+
+    def _flat(self) -> dict:
+        """The contiguous view of the native walk, made at the first call
+        (``native.baseline.flatten_hixf``)."""
+        with _FLAT_LOCK:
+            flat = self.__dict__.get("_flat_view")
+            if flat is None:
+                from ..native.baseline import flatten_hixf
+
+                flat = self.__dict__["_flat_view"] = flatten_hixf(self)
+            return flat
+
+    def membership_plain(self, hashes: np.ndarray,
+                         threshold: int) -> list[tuple[int, int]]:
+        """``membership`` in numpy: the recursion above, one IXF's
+        ``bulk_count`` at a time."""
         out: list[tuple[int, int]] = []
         hashes = np.asarray(hashes, dtype=U64)
 

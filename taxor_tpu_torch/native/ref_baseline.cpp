@@ -21,6 +21,9 @@
 // shaped (one hash -> 3 contiguous fingerprint rows over all bins) so the
 // compiler can vectorize it; built -O3 -march=native, i.e. at least as
 // strong as the reference's -Ofast build.
+//
+// hixf_membership runs step 3 alone for the host oracle of the search
+// (HIXF.membership): the same walk, its (user bin, count) pairs returned.
 
 #include <algorithm>
 #include <cstdint>
@@ -133,6 +136,30 @@ void contains_impl(const HixfView& hx, int ixf, const uint64_t* hashes,
 }  // namespace
 
 extern "C" {
+
+// The host oracle of one hash list (hixf/container.HIXF.membership): the
+// (user bin, count) pairs of contains_impl in its emission order.  Writes
+// at most cap pairs and returns how many there are; impossible: no count
+// reaches the threshold (it is past int64).
+long hixf_membership(const uint8_t* fp, const int64_t* fp_off, int n_ixfs,
+                     const int64_t* bins, const int64_t* block_len,
+                     const uint64_t* seeds, const int64_t* bin_off,
+                     const int32_t* user_of, const int32_t* next_ixf,
+                     const uint64_t* hashes, long n_hashes,
+                     long long threshold, int impossible, int32_t* out_user,
+                     int64_t* out_count, long cap) {
+    HixfView hx{fp, fp_off, bins, block_len, seeds, bin_off,
+                user_of, next_ixf, n_ixfs};
+    Scratch sc;
+    contains_impl(hx, 0, hashes, n_hashes, (int64_t)threshold,
+                  impossible != 0, sc, 0);
+    const long n = (long)sc.pair_user.size();
+    for (long i = 0; i < n && i < cap; i++) {
+        out_user[i] = sc.pair_user[(size_t)i];
+        out_count[i] = sc.pair_count[(size_t)i];
+    }
+    return n;
+}
 
 // Returns 0 on success.  out_best_user[i] = -1 when read i has no hit.
 // thr_table: uint64 per deduped hash count (0..thr_cap); values >= 2^63

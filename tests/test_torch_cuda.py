@@ -513,10 +513,111 @@ def test_k5_matches_twin(cuda, L, k, window):
     want = dsync.minimizer_kmers_plain(pk, ln, k, window)
     torch.cuda.synchronize()
     assert extract.minimizer_kmers.LAUNCHES == before + 1
-    for a, b in zip(got, want):
+    # (hi, lo, valid, n_emit, n_unique): with no keep valid is the
+    # emission mask and n_unique the emission count
+    for a, b in zip(got, (*want, want[3])):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b)
     assert int(got[3].max()) > 0
+
+
+KEEP_THRESHOLDS = {  # name -> scale_thresh: FracMinHash scalings, keep-all
+    "scaling2": 2, "scaling3": 3, "scaling1000": 1000, "all": None}
+
+
+@pytest.mark.parametrize("name", list(KEEP_THRESHOLDS))
+@pytest.mark.parametrize("L", [256, 512, 1024, 2048, 4096, 8192, 16384,
+                               32768])
+def test_k5_keep_matches_twin(cuda, L, name):
+    """K5 with the FracMinHash keep against its twin
+    (minimizer_kmers_plain followed by scaling_keep), bit for bit, at
+    every length bucket for every scheme of K5_SCHEMES; a threshold of
+    2^64 - 1 keeps every emission."""
+    from taxor_tpu_torch.hash.schemes import scaling_threshold_u64
+
+    s = KEEP_THRESHOLDS[name]
+    thresh = (1 << 64) - 1 if s is None else scaling_threshold_u64(s)
+    rng = np.random.default_rng(L + len(name))
+    packed, lengths = dsync.pack_reads(reads(rng, L), L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    for k, window in K5_SCHEMES:
+        got = extract.minimizer_kmers(pk, ln, k, window, thresh)
+        want = extract.minimizer_hashes_plain(pk, ln, k, window, thresh)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b)
+        n_emit, n_unique = int(got[3].sum()), int(got[4].sum())
+        if s is None:
+            assert n_unique == n_emit > 0
+        elif s < 1000:
+            assert 0 < n_unique < n_emit
+
+
+@pytest.mark.parametrize("k,window", [(2, 5), (20, 21), (20, 22),
+                                      (20, 23), (16, 60), (20, 1200)])
+@pytest.mark.parametrize("L", [1024, 8192, 32768])
+def test_k5_window_widths(cuda, L, k, window):
+    """K5 with and without the keep against its twin at the window widths
+    its window pass treats apart: w' - 1 = 1 and 2 (direct), 3 (the split
+    with no halo before the last position), 4 and wide windows whose
+    values come from the cluster's earlier blocks, one of them past a
+    whole tile (w' = 1,181 against tiles of 1,024 and 4,096)."""
+    from taxor_tpu_torch.hash.schemes import scaling_threshold_u64
+
+    rng = np.random.default_rng(L + k + window)
+    seqs = reads(rng, L) + [ACGT[rng.integers(0, 4, L)].tobytes()
+                            for _ in range(4)]
+    packed, lengths = dsync.pack_reads(seqs, L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    for thresh in (0, scaling_threshold_u64(3)):
+        got = extract.minimizer_kmers(pk, ln, k, window, thresh)
+        want = extract.minimizer_hashes_plain(pk, ln, k, window, thresh)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert (int(got[4].max()) > 0) == (window < L)
+
+
+def test_k5_launches_no_other_kernel(cuda):
+    """One call of K5, the keep included, counts one launch, runs no
+    PyTorch operation but allocations (torch.empty) and puts one kernel on
+    the card, K5's: no fill of its counts, no keep pass, no memset.  The
+    host's operations are the profiler's CPU events; the card's are
+    CUPTI's device events, with the card idle before the call and
+    synchronized inside the profile after it, and with an empty profile
+    just before that takes in whatever an earlier profile left behind.  A
+    failure lists every event of both."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from taxor_tpu_torch.hash.schemes import scaling_threshold_u64
+
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    rng = np.random.default_rng(3)
+    packed, lengths = dsync.pack_reads(reads(rng, 8192), 8192)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    for window in (20, 26):
+        args = (pk, ln, 20, window, scaling_threshold_u64(3))
+        extract.minimizer_kmers(*args)  # built and loaded
+        torch.cuda.synchronize()
+        with profile(activities=both):
+            torch.cuda.synchronize()
+        before = extract.minimizer_kmers.LAUNCHES
+        with profile(activities=both) as prof:
+            extract.minimizer_kmers(*args)
+            torch.cuda.synchronize()
+        events = [(e.name, str(e.device_type)) for e in prof.events()]
+        ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+        card = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        assert ops and ops <= {"aten::empty", "aten::empty_like",
+                               "aten::empty_strided"}, events
+        assert len(card) == 1 and "minimizer_kernel" in card[0], events
+        assert extract.minimizer_kmers.LAUNCHES == before + 1
 
 
 def test_k5_checks_inputs(cuda):
@@ -526,14 +627,21 @@ def test_k5_checks_inputs(cuda):
         extract.minimizer_kmers(pk, ln, 20, 19)
     with pytest.raises(ValueError, match="lengths"):
         extract.minimizer_kmers(pk, ln.long(), 20, 26)
+    with pytest.raises(ValueError, match="uint64"):
+        extract.minimizer_kmers(pk, ln, 20, 26, 1 << 64)
+    long = torch.zeros((1, 65536 // 4), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="past K5's 32768"):
+        extract.minimizer_kmers(long, ln[:1], 20, 26)
     empty = extract.minimizer_kmers(pk[:0], ln[:0], 20, 26)
     assert empty[0].shape == (0, 256) and empty[3].shape == (0,)
+    assert empty[4].shape == (0,)
 
 
 STEP_SCHEMES = {  # name -> (scheme_kind, k, s, t, window, scaling)
     "minimizer": ("minimizer", 20, 10, 6, 26, 1),
     "plain_kmer": ("minimizer", 20, 10, 6, 20, 1),
     "scaled_syncmer": ("syncmer", 22, 12, 5, 22, 3),
+    "scaled_minimizer": ("minimizer", 20, 10, 6, 26, 3),
 }
 
 

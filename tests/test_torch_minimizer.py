@@ -24,7 +24,7 @@ from taxor_tpu.hash.schemes import scaling_threshold_u64
 from taxor_tpu.io.fastx import read_all
 from taxor_tpu.search import pipeline as jax_pipeline
 from taxor_tpu.utils.u64np import wyhash64
-from taxor_tpu_torch.device import e2e
+from taxor_tpu_torch.device import extract
 from taxor_tpu_torch.device.e2e import fused_e2e_step
 from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 from taxor_tpu_torch.hash import device_syncmer as dsync
@@ -130,7 +130,7 @@ def test_host_emissions_match_jax(monkeypatch, wprime):
 def keep_both(vals: np.ndarray, thresh: int):
     """(port keep, JAX keep) of uint64 values at threshold thresh."""
     hi, lo = split32(torch.from_numpy(vals.view(np.int64)))
-    got = e2e._scaling_keep(hi, lo, thresh).numpy()
+    got = extract.scaling_keep(hi, lo, thresh).numpy()
     want = np.asarray(jax_e2e._scaling_keep(
         jnp.asarray((vals >> np.uint64(32)).astype(np.uint32)),
         jnp.asarray((vals & np.uint64(0xFFFFFFFF)).astype(np.uint32)),

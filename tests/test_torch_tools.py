@@ -35,7 +35,8 @@ from taxor_tpu_torch.tools import (bench, bench_probe, debug_extract,
                                    debug_min,
                                    probe_bounds, probe_experiments,
                                    profile_phases, synth, time_extract,
-                                   time_sort, time_stages, timing)
+                                   time_minimizer, time_sort, time_stages,
+                                   timing)
 
 from .test_torch_extract import reads as extract_reads
 from .util import make_reads, make_ref_set
@@ -454,6 +455,17 @@ def test_time_sort_runs_on_the_twins(capsys):
                             "sort_pairs": True}
     assert out["emissions"]["min"] > 0 and out["dedup_width"] == 64
     for name in ("dedup", "dedup_no_emit", "sort_pairs", "torch_sort"):
+        assert out[f"{name}_ms"] > 0 and out[f"{name}_device_ms"] > 0
+
+
+def test_time_minimizer_runs_on_the_twins(capsys):
+    assert time_minimizer.main(["--L", "256", "--reads", "3", "--device",
+                                "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and (out["L"], out["reads"]) == (256, 3)
+    assert out["equal"] == {"w7": True, "w1": True, "w7_scaled": True}
+    assert 0 < out["emissions"]["w7_scaled"] < out["emissions"]["w7"]
+    for name in ("w7", "w1", "w7_scaled"):
         assert out[f"{name}_ms"] > 0 and out[f"{name}_device_ms"] > 0
 
 

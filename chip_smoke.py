@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~12-14 min on an H100
+    python3 chip_smoke.py                 # full size, ~13-16 min on an H100
     python3 chip_smoke.py --genomes 600 --reads 512 --hier-genomes 200 \
         --hier-reads 512                  # quick start check
 
@@ -167,7 +167,25 @@ Phases (any failure exits non-zero):
      at L=8192, each run-sum launch a call and on the device alone
      against its bound (the K2n record's ``descend_all_groups``).  K5's
      record counts the launches of (a), (b) and (e); K2's and K2n's add
-     theirs.
+     theirs;
+ 14. the sharded engine on the card, through ``search --engine sharded
+     --distributed`` (device/sharding.py, device/distributed.py): each
+     rank is a process of this script (``--rank FILE``) that runs
+     ``taxor_tpu_torch.cli.main`` with the argv of ``python -m
+     taxor_tpu_torch.cli search ...`` and writes its launch counts,
+     routes, wall, peak device memory and collective seconds (CUDA
+     events around each all_gather and all_reduce) to FILE; ranks that
+     share the card run their collectives on gloo, one rank on NCCL.
+     (a) phase 4's flat cell, all its reads, 4 ranks on a 2 x 2 mesh; (b)
+     phase 7's hierarchy, all its reads, 4 ranks on a 2 x 2 mesh; (c)
+     phase 13a's scaled minimiser hierarchy (descend-all), 2 ranks with
+     --mesh-bins 2; (d) phase 4's flat cell on one rank (NCCL); (e)
+     ``tools.dryrun_multichip`` over 4 ranks.  Every rank must exit 0,
+     each TSV must equal the phase's single-device ``--engine device``
+     TSV byte for byte on every read, and K1 and K2 ((a), (d); K2n on a
+     quick start's flat shard of at most 512 bins), K1 and K2n ((b)), K5
+     and K2n ((c)) must launch in the ranks.  The kernels
+     records' ``sharded_launches`` sum the ranks' launches of (a)-(d).
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -933,7 +951,8 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     return {"index": index, "recs": recs, "launches": launches,
             "split": split, "routes": routes, "peak_mib": peak,
             "split_peak_mib": split_peak, "tsv": tsv, "gdir": gdir,
-            "reads": reads, "n_reads": n_reads}
+            "reads": reads, "n_reads": n_reads, "idx": idx,
+            "device_tsv": out_dev}
 
 
 def hier_report(torch, state) -> None:
@@ -1534,7 +1553,8 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict, flags,
         f"their source genome")
     return {"index": index, "recs": recs, "launches": launches,
             "routes": routes, "peak_mib": peak, "wall": wall,
-            "active_share": active}
+            "active_share": active, "idx": idx, "device_tsv": out_dev,
+            "reads": data["reads"]}
 
 
 def time_k5(torch, state) -> dict:
@@ -2168,7 +2188,165 @@ def time_diag(torch, state) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------ phase 14 --
+RANK_TIMEOUT = 420  # seconds a sharded search's ranks may take
+
+
+def rank_main(counts_file: str, argv: list[str]) -> int:
+    """One rank of a phase 14 search: ``cli.main(argv)`` (the argv of
+    ``python -m taxor_tpu_torch.cli search ...``) with every launch count
+    set to 0 just before, then this rank's launches, routes, wall, peak
+    device memory and collective seconds written to counts_file."""
+    import torch
+
+    from taxor_tpu_torch import cli
+    from taxor_tpu_torch.device import extract, probe, sharding, sort
+    from taxor_tpu_torch.search import pipeline
+
+    reset_counts(extract, probe, sort, pipeline)
+    sharding.COLLECTIVES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    rec = {"rc": rc, "wall_s": wall,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "launches": read_counts(extract, probe, sort),
+           "routes": dict(pipeline.ROUTES.counts),
+           "collectives": sharding.COLLECTIVES.summary()}
+    with open(counts_file, "w") as fh:
+        json.dump(rec, fh)
+    return rc
+
+
+def run_ranks(cmds, logs, timeout: float) -> list[int]:
+    """Start every command at once, each logging to its file; wait for
+    all, and stop the others as soon as one fails.  Return codes."""
+    procs = []
+    try:
+        for cmd, path in zip(cmds, logs):
+            with open(path, "w") as fh:
+                procs.append(subprocess.Popen(cmd, stdout=fh,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return [p.returncode for p in procs]
+
+
+def tail(path: str, n: int = 3000) -> str:
+    with open(path, errors="replace") as fh:
+        return fh.read()[-n:]
+
+
+def sharded_search(work: str, label: str, state: dict, ranks: int,
+                   mesh: list[str], need, card: str) -> dict:
+    """``cli search --engine sharded --distributed`` of ``state``'s index
+    and reads in ``ranks`` processes on the card (gloo where they share
+    it, NCCL for one rank: distributed.collective_backend), each through
+    ``rank_main``; every rank must exit 0, the kernels ``need`` must have
+    launched in the ranks, and rank 0's TSV must equal the phase's
+    single-device ``--engine device`` TSV byte for byte.  Logs the
+    backend, the mesh and each rank's launches, wall, peak device memory
+    and collective seconds a batch (CUDA events around each all_gather
+    and all_reduce)."""
+    from taxor_tpu_torch.tools.dryrun_multichip import free_port
+
+    port = free_port()
+    out = os.path.join(work, f"{label}_sharded.tsv")
+    threads = str(max(1, (os.cpu_count() or 1) // ranks))
+    cmds, logs, files = [], [], []
+    for r in range(ranks):
+        files.append(os.path.join(work, f"{label}_rank{r}.json"))
+        logs.append(os.path.join(work, f"{label}_rank{r}.log"))
+        cmds.append([sys.executable, os.path.abspath(__file__), "--rank",
+                     files[-1], "search", "--index-file", state["idx"],
+                     "--query-file", state["reads"], "--output-file", out,
+                     "--engine", "sharded", "--distributed",
+                     "--coordinator-address", f"127.0.0.1:{port}",
+                     "--num-processes", str(ranks), "--process-id", str(r),
+                     *mesh, "--device", "cuda", "--threads", threads,
+                     "--write-time"])
+    t0 = time.perf_counter()
+    rcs = run_ranks(cmds, logs, RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        raise RuntimeError(f"[{label}] sharded search: rank return codes "
+                           f"{rcs}\n" + "\n".join(
+                               f"--- rank {r}\n{tail(p)}"
+                               for r, p in enumerate(logs)))
+    recs = []
+    for path in files:
+        with open(path) as fh:
+            recs.append(json.load(fh))
+    total = {k: sum(r["launches"][k] for r in recs)
+             for k, v in recs[0]["launches"].items() if isinstance(v, int)}
+    if any(total[k] <= 0 for k in need):
+        raise AssertionError(f"[{label}] the ranks skipped one of {need}: "
+                             f"{total}")
+    with open(out, "rb") as fa, open(state["device_tsv"], "rb") as fb:
+        got, want = fa.read(), fb.read()
+    if got != want:
+        a, b = got.splitlines(), want.splitlines()
+        bad = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+        raise AssertionError(f"[{label}] sharded TSV differs from the device "
+                             f"TSV at row {bad} ({len(a)} vs {len(b)} rows)")
+    backend = next(line for line in tail(logs[0], 10**6).splitlines()
+                   if "collectives on" in line)
+    log(f"[{label}] sharded search, {ranks} rank(s) {' '.join(mesh)}: "
+        f"{len(want.splitlines()) - 1} rows == the device TSV byte for "
+        f"byte; {wall:.2f} s wall for all ranks (start-up included); "
+        f"{backend.strip()}; launches summed over the ranks {total}; {card}")
+    for r, rec in enumerate(recs):
+        c = rec["collectives"]
+        dev_s = c["device_s"] or 0.0
+        log(f"[{label}]   rank {r}: {c['mesh']}; wall {rec['wall_s']:.2f} s; "
+            f"peak device memory {rec['peak_mib']:.1f} MiB; launches "
+            f"{ {k: v for k, v in rec['launches'].items() if v} }; routes "
+            f"{rec['routes']}; collectives {c['calls']} calls over "
+            f"{c['batches']} batches: {dev_s:.4f} s on the card (CUDA "
+            f"events), {c['host_s']:.4f} s host, "
+            f"{dev_s / max(1, c['batches']) * 1e3:.3f} ms a batch; {card}")
+    return {"launches": total, "ranks": recs, "wall": wall}
+
+
+def flat_probe(state: dict, nb: int) -> str:
+    """The probe kernel of a flat index's bins shard: K2 past 512 bins,
+    else K2n (a quick-start flat index of fewer than 513 genomes)."""
+    from taxor_tpu_torch.device.probe import LANE, NARROW_MAX_BINS, pad_bins
+
+    bins = state["index"].hixf.ixfs[0].fingerprints.shape[1]
+    return "K2" if pad_bins(bins, LANE * nb) // nb > NARROW_MAX_BINS \
+        else "K2n"
+
+
+def dryrun_on_card(card: str) -> None:
+    """Phase 14e: tools.dryrun_multichip over 4 ranks on the card."""
+    res = subprocess.run(
+        [sys.executable, "-m", "taxor_tpu_torch.tools.dryrun_multichip",
+         "--ranks", "4", "--device", "cuda"], capture_output=True, text=True,
+        timeout=RANK_TIMEOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0:
+        raise RuntimeError(f"dryrun_multichip failed ({res.returncode}):\n"
+                           + res.stdout[-2000:] + res.stderr[-3000:])
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    if not (out.get("count_step") and out.get("fused_step")):
+        raise AssertionError(f"dryrun_multichip: {out}")
+    log(f"phase 14e: dryrun_multichip over 4 ranks: {out}; {card}")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:  # one rank of a phase 14 search
+        return rank_main(sys.argv[2], sys.argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genomes", type=int, default=4096,
                     help="reference genomes of 30 kb in the flat index")
@@ -2223,6 +2401,20 @@ def main() -> int:
         with phase("phases 5 and 10"):
             kernels = time_kernels(torch, flat)
             kernels += time_split(torch, flat)
+        # ---- phase 14: the sharded engine on phase 4's flat cell
+        t14 = time.perf_counter()
+        with phase("phase 14a"):
+            sharded = [sharded_search(
+                os.path.join(work, "flat"), "flat 2x2", flat, 4,
+                ["--mesh-reads", "2", "--mesh-bins", "2"],
+                ("K1", flat_probe(flat, 2)), card)]
+        with phase("phase 14d"):
+            sharded.append(sharded_search(
+                os.path.join(work, "flat"), "flat 1 rank", flat, 1, [],
+                ("K1", flat_probe(flat, 1)), card))
+        with phase("phase 14e"):
+            dryrun_on_card(card)
+        t14 = time.perf_counter() - t14
         shutil.rmtree(os.path.join(work, "flat"), ignore_errors=True)
         with phase("phase 6"):
             k2_rows_checks += check_grouped(torch, probe, rng)
@@ -2255,6 +2447,19 @@ def main() -> int:
             narrow = next(r for r in kernels
                           if r["name"] == "probe_count_narrow")
             narrow["descend_all_groups"] = time_descend_all(torch, mm)
+        # ---- phase 14 on phase 7's and phase 13a's hierarchies
+        t0 = time.perf_counter()
+        with phase("phase 14b"):
+            sharded.append(sharded_search(
+                os.path.join(work, "hier"), "hier 2x2", hier, 4,
+                ["--mesh-reads", "2", "--mesh-bins", "2"], ("K1", "K2n"),
+                card))
+        with phase("phase 14c"):
+            sharded.append(sharded_search(
+                os.path.join(work, "hier"), "minimizer 1x2", mm, 2,
+                ["--mesh-bins", "2"], ("K5", "K2n"), card))
+        t14 += time.perf_counter() - t0
+        log(f"phase 14: {t14:.1f} s")
         shutil.rmtree(os.path.join(work, "hier"), ignore_errors=True)
         with phase("phase 13b"):
             kmer_in = kmer_data(rng, os.path.join(work, "kmer"),
@@ -2283,6 +2488,9 @@ def main() -> int:
                "sort_pairs": "K4", "minimizer_kmers": "K5"}[row["name"]]
         row["launches"] = sum(run[key] for run in runs)
         row["launches_in"] = "main paths"
+        # phase 14: summed over the ranks of its four sharded searches
+        row["sharded_launches"] = sum(run["launches"].get(key, 0)
+                                      for run in sharded)
         if key == "K2n":
             row["modes"] = {m: sum(run[f"K2n {m}"] for run in runs)
                             for m in ("smem", "rows")}

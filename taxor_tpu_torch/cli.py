@@ -75,10 +75,27 @@ def _add_search(sub):
     p.add_argument("--percentage", type=float, default=-1.0,
                    help="if set, used instead of the k-mer/syncmer models")
     p.add_argument("--error-rate", type=float, default=0.04)
-    p.add_argument("--engine", default="device", choices=["device", "host"])
+    p.add_argument("--engine", default="device",
+                   choices=["device", "host", "sharded"])
+    p.add_argument("--mesh-reads", type=int, default=0,
+                   help="reads-axis size of the sharded engine's mesh "
+                        "(0 = the ranks left over by --mesh-bins)")
+    p.add_argument("--mesh-bins", type=int, default=0,
+                   help="bins-axis size of the sharded engine's mesh "
+                        "(0 = one shard per rank)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a world of ranks (torch.distributed) before "
+                        "searching, one process a device; every rank runs "
+                        "the same command")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0 (defaults to the env:// "
+                        "variables that torchrun sets)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda",
-                   help="torch device of the device engine (cuda, cuda:N "
-                        "or cpu for the plain twins)")
+                   help="torch device of the device engines (cuda, cuda:N "
+                        "or cpu for the plain twins; with --distributed "
+                        "each rank takes cuda:(rank %% device count))")
     p.add_argument("--output-verbose-statistics", action="store_true",
                    help="accepted for parity; unused, as in the "
                         "reference's search path")
@@ -207,6 +224,14 @@ def _run(args) -> None:
     elif args.command == "search":
         from .search.pipeline import SearchConfig, run_search
 
+        device = args.device
+        if args.distributed:
+            from .device.distributed import initialize
+
+            device = initialize(coordinator_address=args.coordinator_address,
+                                num_processes=args.num_processes,
+                                process_id=args.process_id,
+                                device=args.device)
         run_search(SearchConfig(
             index_file=args.index_file,
             query_file=args.query_file,
@@ -215,9 +240,11 @@ def _run(args) -> None:
             percentage=args.percentage,
             error_rate=args.error_rate,
             engine=args.engine,
+            mesh_reads=args.mesh_reads,
+            mesh_bins=args.mesh_bins,
             write_time=args.write_time,
             profile_trace=args.profile_trace,
-        ), device=args.device)
+        ), device=device)
     elif args.command == "prewarm":
         run_prewarm(args.index_file, args.lengths, args.topk,
                     args.percentage, args.error_rate, args.device)

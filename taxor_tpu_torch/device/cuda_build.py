@@ -193,8 +193,14 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The current stream of t's device, made the calling thread's
+    current device first: a C launcher launches on the thread's current
+    device, and a pipeline worker thread starts on device 0 (a rank of
+    the sharded engine on cuda:r of a multi-card host)."""
     import torch
 
+    if torch.cuda.current_device() != t.device.index:
+        torch.cuda.set_device(t.device)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -135,8 +135,8 @@ def fused_e2e_step(table: torch.Tensor, packed: torch.Tensor,
                    run_users: torch.Tensor, seed: int, block_length: int, *,
                    k: int, s: int, t: int, hcap: int, topk: int,
                    scheme_kind: str = "syncmer", window: int = 0,
-                   scale_thresh: int = 0,
-                   prefix_runs: int = 0) -> torch.Tensor:
+                   scale_thresh: int = 0, prefix_runs: int = 0,
+                   gather=None, reduce_sums=None) -> torch.Tensor:
     """Packed int32 [R, 2*topk + 2]: [:, :topk] descending raw run sums,
     [:, topk:2*topk] their user bins (-1 for merged runs and padding),
     [:, -2] the hash count per read (unique for syncmers, the emitted
@@ -148,12 +148,23 @@ def fused_e2e_step(table: torch.Tensor, packed: torch.Tensor,
     (pack_reads); run_offsets int64 [n_runs + 1]; run_users int32
     [n_runs]; all on one device.  scheme_kind "syncmer" or "minimizer"
     (window: the minimiser window, k for plain k-mers); scale_thresh the
-    FracMinHash threshold, 0 for none."""
-    hi, lo, valid, n_unique, n_emit = _hashes(
-        packed, lengths, scheme_kind, k, s, t, window, hcap, scale_thresh)
+    FracMinHash threshold, 0 for none.
+
+    The sharded step's hooks (device/sharding.py), None for none:
+    ``gather`` maps the extraction's (hi, lo, valid, n_unique, n_emit) of
+    these reads to those of the reads probed (the reads row's), and
+    ``reduce_sums`` the run sums of this table to those of the whole
+    index (the sum over the bins shards)."""
+    hashes = _hashes(packed, lengths, scheme_kind, k, s, t, window, hcap,
+                     scale_thresh)
+    if gather is not None:
+        hashes = gather(hashes)
+    hi, lo, valid, n_unique, n_emit = hashes
     counts = probe_counts(hi, lo, valid, table, seed, block_length,
                           route="fused")
     sums = run_sums(counts, run_offsets, prefix_runs)
+    if reduce_sums is not None:
+        sums = reduce_sums(sums)
     vs = torch.where(run_users[None, :] >= 0, sums, torch.full_like(sums, -1))
     vals, users = topk_desc(vs, run_users, topk)
     return torch.cat([vals, users, n_unique[:, None], n_emit[:, None]],
@@ -187,7 +198,7 @@ class ActivityStats:
 
 def descend(groups, n_nodes: int, hi, lo, valid, thr,
             stats: ActivityStats | None = None, upto: int | None = None,
-            descend_all: bool = False):
+            descend_all: bool = False, reduce_sums=None):
     """The level-grouped descent of the extracted hashes (hi, lo, valid
     [R, H]) with per-read thresholds thr int32 [R].  Returns (leaf_vals,
     leaf_sums), lists over the groups of [n_leaves, R]: leaf_vals the
@@ -205,7 +216,11 @@ def descend(groups, n_nodes: int, hi, lo, valid, thr,
     minimum of the merged run sums on the path from the root (2^30 at the
     root): chain[child] = min(chain[parent], its run's sum).  leaf_vals
     are then min(chain, leaf sum), the value the host tests against the
-    read's threshold, and leaf_sums the leaf sums it reports."""
+    read's threshold, and leaf_sums the leaf sums it reports.
+
+    reduce_sums: applied to each group's [n_runs, R] run sums before the
+    descent reads them (the sharded step's sum over the bins shards);
+    None for none."""
     R = hi.shape[0]
     dev = hi.device
     active = torch.zeros((n_nodes, R), dtype=torch.bool, device=dev)
@@ -230,6 +245,8 @@ def descend(groups, n_nodes: int, hi, lo, valid, thr,
         sums = probe_run_sums_grouped(hi, lo, valid, g["tables"], act_mat,
                                       g["run_off"], g["run_s"], g["run_e"],
                                       g["seed"], g["bl"], route="fused")
+        if reduce_sums is not None:
+            sums = reduce_sums(sums)
         if descend_all:
             if g["child_bfs"].numel():
                 chain[g["child_bfs"]] = torch.minimum(
@@ -255,7 +272,8 @@ def make_hixf_e2e_grouped_fn(groups, leaf_users: torch.Tensor, k: int,
                              scheme_kind: str = "syncmer", window: int = 0,
                              scale_thresh: int = 0,
                              descend_all: bool = False,
-                             stats: ActivityStats | None = None):
+                             stats: ActivityStats | None = None,
+                             gather=None, reduce_sums=None):
     """Fused hierarchical search with level-grouped probing (the JAX
     ``make_hixf_e2e_grouped_fn``).  Returns ``run(packed, lengths,
     thr_table, hcap)`` -> packed int32 [R, 2*topk + 2]: the top-k leaf run
@@ -293,16 +311,21 @@ def make_hixf_e2e_grouped_fn(groups, leaf_users: torch.Tensor, k: int,
       merged run's child, its parent member and the run), leaf_bfs/
       leaf_run (each leaf run's member and the run); members, the host
       member tuples, give the BFS positions' range.
-    leaf_users: int32 [n_leaves], the user bin of each leaf column."""
+    leaf_users: int32 [n_leaves], the user bin of each leaf column.
+    gather, reduce_sums: the sharded step's hooks, as in fused_e2e_step
+    (reduce_sums applies to each group's run sums, ``descend``)."""
     n_nodes = 1 + max(m[0] for g in groups for m in g["members"])
 
     def run(packed, lengths, thr_table, hcap: int) -> torch.Tensor:
-        hi, lo, valid, n_unique, n_emit = _hashes(
-            packed, lengths, scheme_kind, k, s, t, window, hcap,
-            scale_thresh)
+        hashes = _hashes(packed, lengths, scheme_kind, k, s, t, window,
+                         hcap, scale_thresh)
+        if gather is not None:
+            hashes = gather(hashes)
+        hi, lo, valid, n_unique, n_emit = hashes
         thr = thr_table[n_unique.clamp(0, thr_table.shape[0] - 1).long()]
         leaf_vals, leaf_sums = descend(groups, n_nodes, hi, lo, valid, thr,
-                                       stats, descend_all=descend_all)
+                                       stats, descend_all=descend_all,
+                                       reduce_sums=reduce_sums)
         vals, idx = topk_idx(torch.cat(leaf_vals).T, topk)
         users = torch.where(vals >= 0, leaf_users[idx],
                             torch.full_like(vals, -1))

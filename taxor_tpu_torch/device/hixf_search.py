@@ -34,7 +34,16 @@ Left out against the JAX class, because only the TPU needed them:
     (hash, seed, block_length);
   - the padding of group columns to 128 or 1024 words: a group pads to 16
     bins, and a stack pads its subgroups to the widest of them.
-Not ported yet: the mesh (ROADMAP A.8).
+
+Under a reads x bins mesh (``mesh``, device/distributed.py) the index
+uploads only this rank's column shard of the flat table and of every
+stacked group (sharding.shard_ixf), with the runs clipped to the shard
+(sharding.shard_runs: a run may be empty there, or start at the shard's
+first column); the groups are the single-device ones.  The fused steps
+then run bin-sharded (sharding.sharded_e2e_fn, sharded_hixf_e2e_fn) and
+``counts`` sums each IXF's runs over the row before the descent reads
+them.  As in the JAX class, ``flat_fast_path`` is off under a mesh: the
+long reads of a flat index take ``counts``.
 
 Every scheme the JAX steps take runs fused: syncmers (K1, hcap slots),
 minimisers and plain k-mers (K5, hcap = L), either with a FracMinHash
@@ -47,6 +56,7 @@ leaf sums to report as its sixth element.
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 from dataclasses import dataclass
 
@@ -56,6 +66,7 @@ import torch
 from ..hash.device_syncmer import hash_cap, supports, supports_minimizer
 from ..hash.schemes import scaling_threshold_u64
 from ..hixf.container import HIXF
+from . import sharding
 from .e2e import (ActivityStats, fused_e2e_step, make_hixf_e2e_grouped_fn,
                   run_sums, topk_desc)
 from .probe import (pad_bins, pad_fingerprints, probe_counts,
@@ -98,8 +109,11 @@ class _IXFInfo:
 class DeviceHIXF:
     """An HIXF on one torch device, with BFS traversal metadata."""
 
-    def __init__(self, hixf: HIXF, device):
-        self.device = torch.device(device)
+    def __init__(self, hixf: HIXF, device, mesh=None):
+        """mesh: a distributed.Mesh; this rank then holds its bins shard
+        of every table (the module docstring)."""
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None else mesh.device)
         self.hixf = hixf
         self.num_user_bins = hixf.num_user_bins
         self.ixfs: list[_IXFInfo] = []
@@ -129,9 +143,9 @@ class DeviceHIXF:
                     self.parent[int(c)] = (i, r)
         self._thr_tables: dict = {}
         self._e2e_fns: dict = {}
-        # per IXF of a hierarchy: (its subgroup's table as a stack of one
-        # [1, S, Bpad] and its runs: the CSR [0, n_runs], column starts,
-        # ends) for ``counts``
+        # per IXF: (its subgroup's table, or the flat table, as a stack of
+        # one [1, S, Bpad] and its runs: the CSR [0, n_runs], column
+        # starts, ends) for ``counts``
         self._ixf_probe: dict[int, tuple] = {}
         dev = self.device
         if len(self.ixfs) == 1:
@@ -149,35 +163,48 @@ class DeviceHIXF:
         dev = self.device
         self.seed = info.seed
         self.block_length = info.block_length
-        self.table = torch.from_numpy(
-            pad_fingerprints(ixf.fingerprints)).to(dev)
+        table = pad_fingerprints(ixf.fingerprints)
         offsets = np.append(info.run_starts, info.run_ends[-1])
+        starts, ends = info.run_starts, info.run_ends
+        n_runs = starts.shape[0]
+        # every run one bin at its own index: run sums are a column slice
+        # (of a shard only where the shard's columns are the runs' own)
+        self.prefix_runs = (
+            n_runs if (np.array_equal(starts, np.arange(n_runs))
+                       and np.array_equal(ends, starts + 1)) else 0)
+        if self.mesh is None:
+            self.table = torch.from_numpy(table).to(dev)
+        else:
+            self.table = sharding.shard_ixf(self.mesh, table)
+            offsets, starts, ends = sharding.shard_runs(
+                self.mesh, self.table.shape[1], offsets, starts, ends)
+            if self.mesh.nb > 1:
+                self.prefix_runs = 0
         self.run_offsets = torch.from_numpy(
             offsets.astype(np.int64)).to(dev)
         self.run_users = torch.from_numpy(
             info.run_users.astype(np.int32)).to(dev)
-        n_runs = info.run_starts.shape[0]
-        # every run one bin at its own index: run sums are a column slice
-        self.prefix_runs = (
-            n_runs if (np.array_equal(info.run_starts, np.arange(n_runs))
-                       and np.array_equal(info.run_ends,
-                                          info.run_starts + 1)) else 0)
+        self._ixf_probe[0] = (
+            self.table[None], self.run_offsets.new_tensor([0, n_runs]),
+            torch.from_numpy(starts.astype(np.int64)).to(dev),
+            torch.from_numpy(ends.astype(np.int64)).to(dev))
 
     @classmethod
-    def from_hixf(cls, hixf: HIXF, device) -> "DeviceHIXF":
-        return cls(hixf, device)
+    def from_hixf(cls, hixf: HIXF, device, mesh=None) -> "DeviceHIXF":
+        return cls(hixf, device, mesh)
 
     @property
     def flat_fast_path(self) -> bool:
-        """The compact top-k dispatch applies: one IXF."""
-        return len(self.ixfs) == 1
+        """The compact top-k dispatch applies: one IXF, no mesh."""
+        return len(self.ixfs) == 1 and self.mesh is None
 
     def e2e_capable(self, thresholder=None, scheme=None) -> bool:
         """Whether the fused reads -> top-k dispatch covers this index
         and, where given, ``scheme`` (the device extractors take
         syncmers, minimisers and plain k-mers, scaled or not): flat
         always qualifies (thresholds are applied on the host); a
-        hierarchy needs a thresholder for its device-side descent."""
+        hierarchy needs a thresholder for its device-side descent.  The
+        same under a mesh, whose steps are the sharded ones."""
         if scheme is not None and not (supports(scheme)
                                        or supports_minimizer(scheme)):
             return False
@@ -336,15 +363,23 @@ class DeviceHIXF:
     def upload_groups(self, stacked) -> list[dict]:
         """The stacked host groups as device tensors, with the index
         tensors of the vectorised descent (e2e.descend); also records each
-        member's table and runs for the counts traversal."""
+        member's table and runs for the counts traversal.  Under a mesh,
+        this rank's column shard of each stack, its runs clipped to it."""
         dev = self.device
+        mesh = self.mesh
 
         def t(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int64)).to(dev)
 
         groups = []
         for g in stacked:
-            tables = torch.from_numpy(g["tables"]).to(dev)
+            run_s, run_e = g["run_s"], g["run_e"]
+            if mesh is None:
+                tables = torch.from_numpy(g["tables"]).to(dev)
+            else:
+                tables = sharding.shard_ixf(mesh, g["tables"])
+                run_s, run_e = sharding.shard_runs(mesh, tables.shape[2],
+                                                   run_s, run_e)
             # the runs of one subgroup are contiguous (_stack_host_groups
             # concatenates them subgroup by subgroup): a CSR over G
             G = g["tables"].shape[0]
@@ -352,7 +387,7 @@ class DeviceHIXF:
                 raise AssertionError("a subgroup's runs are not contiguous")
             run_off = t(np.concatenate(
                 [[0], np.cumsum(np.bincount(g["run_g"], minlength=G))]))
-            run_s, run_e = t(g["run_s"]), t(g["run_e"])
+            run_s, run_e = t(run_s), t(run_e)
             sub_of = {b: gi for gi, sub in enumerate(g["sub_members"])
                       for b in sub}
             members = g["members"]
@@ -408,12 +443,17 @@ class DeviceHIXF:
                descend_all)
         fn = self._e2e_fns.get(key)
         if fn is None:
-            fn = self._e2e_fns[key] = make_hixf_e2e_grouped_fn(
-                self.groups, self.leaf_users, k=scheme.kmer_size,
-                s=scheme.syncmer_size, t=scheme.t_syncmer, topk=k,
-                scheme_kind="syncmer" if scheme.use_syncmer else "minimizer",
-                window=scheme.window_size, scale_thresh=_scale_thresh(scheme),
-                descend_all=descend_all, stats=ACTIVITY)
+            kw = dict(k=scheme.kmer_size, s=scheme.syncmer_size,
+                      t=scheme.t_syncmer, topk=k,
+                      scheme_kind=("syncmer" if scheme.use_syncmer
+                                   else "minimizer"),
+                      window=scheme.window_size,
+                      scale_thresh=_scale_thresh(scheme),
+                      descend_all=descend_all, stats=ACTIVITY)
+            fn = self._e2e_fns[key] = (
+                make_hixf_e2e_grouped_fn(self.groups, self.leaf_users, **kw)
+                if self.mesh is None else sharding.sharded_hixf_e2e_fn(
+                    self.mesh, self.groups, self.leaf_users, **kw))
         return fn
 
     def e2e_step(self, scheme, thresholder=None, k: int = 16,
@@ -422,7 +462,11 @@ class DeviceHIXF:
         fused step of
         this index on packed reads of length bucket L already on its
         device and returns the packed int32 result (device/e2e.py); hcap
-        is the hash slots a read takes; descend_all names the mode.  A hierarchy needs a thresholder:
+        is the hash slots a read takes; descend_all names the mode.
+        Under a mesh the step is the sharded one: the reads are the whole
+        batch (a multiple of nr * nb) and the result this rank's reads
+        row's (sharding.host_view gathers the rows).  A hierarchy needs a
+        thresholder:
         count-only models descend with the count-indexed table (built on
         the host once per (thresholder, hcap)), the others in the
         descend-all mode, whose result is [R, 3k + 2] and whose table is
@@ -431,15 +475,18 @@ class DeviceHIXF:
         hcap = hash_cap(L) if scheme.use_syncmer else L
         kind = "syncmer" if scheme.use_syncmer else "minimizer"
         if len(self.ixfs) == 1:
+            kw = dict(k=scheme.kmer_size, s=scheme.syncmer_size,
+                      t=scheme.t_syncmer, hcap=hcap, topk=k, scheme_kind=kind,
+                      window=scheme.window_size,
+                      scale_thresh=_scale_thresh(scheme))
+            fused = (functools.partial(fused_e2e_step, **kw)
+                     if self.mesh is None
+                     else sharding.sharded_e2e_fn(self.mesh, **kw))
+
             def step(reads, lens):
-                return fused_e2e_step(
-                    self.table, reads, lens, self.run_offsets,
-                    self.run_users, self.seed, self.block_length,
-                    k=scheme.kmer_size, s=scheme.syncmer_size,
-                    t=scheme.t_syncmer, hcap=hcap, topk=k, scheme_kind=kind,
-                    window=scheme.window_size,
-                    scale_thresh=_scale_thresh(scheme),
-                    prefix_runs=self.prefix_runs)
+                return fused(self.table, reads, lens, self.run_offsets,
+                             self.run_users, self.seed, self.block_length,
+                             prefix_runs=self.prefix_runs)
             return step, hcap, False
         if thresholder is None:
             raise ValueError("a hierarchical index descends with a "
@@ -463,12 +510,18 @@ class DeviceHIXF:
         (vals are then the chain minima the thresholds test)."""
         L = raw_reads.shape[1] * 4  # bases: 4 per packed byte
         step, hcap, da = self.e2e_step(scheme, thresholder, k, L)
+        R0 = raw_reads.shape[0]
+        if self.mesh is not None:  # equal parts for every rank
+            rpad = -R0 % (self.mesh.nr * self.mesh.nb)
+            raw_reads = np.pad(raw_reads, ((0, rpad), (0, 0)))
+            lengths = np.pad(lengths, (0, rpad))
         packed = step(torch.from_numpy(raw_reads).to(self.device),
                       torch.from_numpy(lengths.astype(np.int32)).to(
                           self.device))
 
         def collect():
-            out = packed.cpu().numpy()
+            out = (packed.cpu().numpy() if self.mesh is None
+                   else sharding.host_view(packed, self.mesh)[:R0])
             if da:  # minv | leaf sums | users | n_unique | n_emit
                 return (out[:, :k], out[:, 2 * k:3 * k], out[:, 3 * k],
                         out[:, 3 * k + 1], hcap, out[:, k:2 * k])
@@ -496,12 +549,28 @@ class DeviceHIXF:
         skipped.
         ``emitted[r, u]`` replicates the reference's emission rule: the
         user bin's split-run sum reached the threshold AND every merged
-        bin on the path down was descended."""
+        bin on the path down was descended.
+
+        Under a mesh, reads row r takes its part of the reads, each rank
+        probes its bins shard, one all_reduce over the row adds each
+        IXF's run sums before the descent reads them, and host_view
+        gathers the rows' results."""
         dev = self.device
-        R = hi.shape[0]
-        hi_t, lo_t, valid_t = (torch.from_numpy(x).to(dev)
-                               for x in (hi, lo, valid))
+        mesh = self.mesh
+        R0 = hi.shape[0]
         thresholds = np.asarray(thresholds, dtype=np.int64)
+        if mesh is not None:
+            sharding.COLLECTIVES.batch()
+            rpad = -R0 % mesh.nr
+            part = sharding.row_part(mesh, R0 + rpad)
+            hi, lo, valid = (np.pad(x, ((0, rpad), (0, 0)))[part]
+                             for x in (hi, lo, valid))
+            # a padding read reaches no threshold: it descends nowhere
+            thresholds = np.pad(thresholds, (0, rpad),
+                                constant_values=2**62)[part]
+        R = hi.shape[0]
+        hi_t, lo_t, valid_t = (torch.from_numpy(np.ascontiguousarray(x)).to(
+            dev) for x in (hi, lo, valid))
         run_sums_h: dict[int, np.ndarray] = {}
         active: dict[int, np.ndarray] = {0: np.ones(R, dtype=bool)}
         for i in self.bfs_order:
@@ -513,8 +582,10 @@ class DeviceHIXF:
             sums = probe_run_sums_grouped(
                 hi_t, lo_t, valid_t, tables,
                 torch.from_numpy(act[None]).to(dev), run_off, run_s, run_e,
-                info.seed, info.block_length,
-                route="host_hashes").T.cpu().numpy()
+                info.seed, info.block_length, route="host_hashes")
+            if mesh is not None:
+                sums = sharding.row_sum(mesh, sums)
+            sums = sums.T.cpu().numpy()
             run_sums_h[i] = sums.astype(np.int64)
             for r, child in enumerate(info.run_children):
                 if child >= 0:
@@ -532,6 +603,11 @@ class DeviceHIXF:
             emit = active[i][:, None] & (s >= thresholds[:, None])
             counts[:, u] = np.where(emit, s, counts[:, u])
             emitted[:, u] |= emit
+        if mesh is not None:
+            counts = sharding.host_view(torch.from_numpy(counts).to(dev),
+                                        mesh)[:R0]
+            emitted = sharding.host_view(torch.from_numpy(emitted).to(dev),
+                                         mesh)[:R0]
         return counts, emitted
 
 

@@ -125,12 +125,16 @@ def segment_sums(counts: torch.Tensor, run_g: torch.Tensor,
                  run_s: torch.Tensor, run_e: torch.Tensor) -> torch.Tensor:
     """int32 [n_runs, R]: run j sums columns [run_s[j], run_e[j]) of table
     run_g[j] of counts [G, R, Bpad] — exact int64 segment sums of the
-    cumulative sum along the bins (runs are never empty)."""
+    cumulative sum along the bins.  An empty run (run_e <= run_s, as a
+    run clipped to a bins shard it misses) sums to 0."""
     cs = torch.cumsum(counts, dim=2, dtype=torch.int64)
-    end = cs[run_g, :, run_e - 1]
-    start = torch.where((run_s > 0)[:, None],
-                        cs[run_g, :, (run_s - 1).clamp(min=0)], 0)
-    return (end - start).to(torch.int32)
+
+    def before(col):  # sum of the columns < col
+        return torch.where((col > 0)[:, None],
+                           cs[run_g, :, (col - 1).clamp(min=0)], 0)
+
+    return (before(torch.maximum(run_e, run_s)) - before(run_s)).to(
+        torch.int32)
 
 
 def run_groups(run_off: torch.Tensor) -> torch.Tensor:

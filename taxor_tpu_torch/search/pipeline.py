@@ -19,12 +19,19 @@ Engines:
     traversal on a hierarchical one (DeviceHIXF.counts_async).  Reads the
     device result cannot decide exactly (hash capacity overflow, top-k
     truncation) take the host oracle, as in the reference package.
+  - 'sharded': the device engine over a reads x bins mesh of ranks
+    (device/sharding.py): every rank holds its bins shard of the index,
+    the fused steps and the long reads' traversal run bin-sharded, and
+    every rank ends with the whole result; only rank 0 writes the report.
+    One process drives one device, so a mesh of more than one rank needs
+    ``--distributed`` (device/distributed.py).
   - 'host': the numpy oracle recursion; it runs without JAX and without
     a GPU.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -56,7 +63,7 @@ class SearchConfig:
     threads: int = 1  # host hashing threads (hash/schemes.NUM_THREADS)
     percentage: float = -1.0
     error_rate: float = 0.04
-    engine: str = "device"  # 'device' | 'host'
+    engine: str = "device"  # 'device' | 'host' | 'sharded'
     batch_size: int = 1024
     # batches in flight on worker threads: packing, upload, the device
     # step, download and decoding of consecutive batches overlap
@@ -64,6 +71,9 @@ class SearchConfig:
     write_time: bool = False
     topk: int = 16  # device candidate slots; auto-escalates on truncation
     profile_trace: str = ""  # torch.profiler trace directory (utils/logging)
+    # sharded engine mesh ('reads' x 'bins'); 0 = the default over the world
+    mesh_reads: int = 0
+    mesh_bins: int = 0
 
 
 HEADER = (
@@ -290,7 +300,8 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
     dfs_rank = index.hixf.user_bin_dfs_order()
     # the fused step covers every device-extractable scheme: syncmers,
     # minimisers and plain k-mers, with or without FracMinHash scaling
-    use_e2e = (config.engine == "device" and device_hixf is not None
+    use_e2e = (config.engine in ("device", "sharded")
+               and device_hixf is not None
                and device_hixf.e2e_capable(thresholder, scheme))
 
     def _hash_thresholds(hash_counts, seqs):
@@ -411,8 +422,10 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
         return rows_text(chunk, hash_counts, all_pairs)
 
     # P batches in flight on worker threads; the main thread writes them
-    # in submission order, so the output is deterministic
-    depth = max(1, config.pipeline_depth)
+    # in submission order, so the output is deterministic.  Under a mesh
+    # one worker: every rank must issue its collectives in the same order
+    depth = (1 if getattr(device_hixf, "mesh", None) is not None
+             else max(1, config.pipeline_depth))
     t_start = time.perf_counter()
     with ThreadPoolExecutor(depth) as ex:
         q: deque = deque()
@@ -443,17 +456,47 @@ def _device_dispatch(device_hixf, hash_lists, thresholds):
     return "dense", device_hixf.counts_async(hi, lo, valid, thresholds)
 
 
+def search_mesh(config: SearchConfig, device):
+    """The sharded engine's reads x bins mesh: over the world of ranks
+    where a process group is up (``--distributed``), else the one
+    process's 1 x 1 mesh (one process drives one device)."""
+    import torch.distributed as dist
+
+    from ..device.distributed import global_mesh, make_mesh
+    from ..device.sharding import COLLECTIVES
+
+    if dist.is_initialized():
+        mesh = global_mesh(config.mesh_reads or None,
+                           config.mesh_bins or None, device)
+    else:
+        mesh = make_mesh(config.mesh_reads or 1, config.mesh_bins or 1,
+                         device)
+    COLLECTIVES.mesh = mesh.describe()
+    return mesh
+
+
 def run_search(config: SearchConfig, device="cuda") -> dict:
     """Outer product over comma-separated query and index lists
-    (taxor_search.cpp:340-360); the device engine runs on ``device``.
-    Returns the phase timings written to <out>.time."""
-    if config.engine not in ("device", "host"):
-        raise ValueError(f"engine {config.engine!r} is not ported yet "
-                         "(device and host run; sharded is ROADMAP A.8)")
+    (taxor_search.cpp:340-360); the device engines run on ``device``.
+    Returns the phase timings written to <out>.time.  The sharded engine
+    leaves the world of ranks (destroys the process group) at its end."""
+    if config.engine not in ("device", "host", "sharded"):
+        raise ValueError(f"unknown engine {config.engine!r}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu to run the plain twins)")
+    if config.engine != "sharded":
+        return _run_search(config, device)
+    from ..device.distributed import shutdown
+
+    try:
+        return _run_search(config, device)
+    finally:
+        shutdown()
+
+
+def _run_search(config: SearchConfig, device: torch.device) -> dict:
     _schemes.NUM_THREADS = max(1, int(config.threads))
     index_files = config.index_file.split(",")
     query_files = config.query_file.split(",")
@@ -469,15 +512,26 @@ def run_search(config: SearchConfig, device="cuda") -> dict:
             "kmer selection schemes")
 
     timings = {"index_io": 0.0, "reads_io": 0.0, "compute": 0.0}
-    with open(config.report_file, "w") as out, \
+    mesh = None
+    report_file = config.report_file
+    if config.engine == "sharded":
+        t0 = time.perf_counter()
+        mesh = search_mesh(config, device)
+        timings["index_io"] += time.perf_counter() - t0
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_rank():
+            # every rank computes the whole result; rank 0 writes it
+            report_file = os.devnull
+    with open(report_file, "w") as out, \
             maybe_profile(config.profile_trace, device):
         out.write(HEADER)
         for query in query_files:
             for index in loaded:
                 dhixf = None
-                if config.engine == "device":
+                if config.engine != "host":
                     t0 = time.perf_counter()
-                    dhixf = DeviceHIXF.from_hixf(index.hixf, device)
+                    dhixf = DeviceHIXF.from_hixf(index.hixf, device, mesh)
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
                     timings["index_io"] += time.perf_counter() - t0
@@ -485,7 +539,7 @@ def run_search(config: SearchConfig, device="cuda") -> dict:
                 timings["reads_io"] += t["reads_io"]
                 timings["compute"] += t["compute"]
 
-    if config.write_time:
+    if config.write_time and report_file == config.report_file:
         with open(config.report_file + ".time", "w") as fh:
             fh.write("Index I/O\tReads I/O\tCompute\n")
             fh.write(f"{timings['index_io']:.2f}\t{timings['reads_io']:.2f}"

@@ -1,6 +1,5 @@
 """The port's command line against the JAX package's: the same options
-with the same defaults (but the JAX CLI's multi-device search flags,
-which the port does not have yet, and the port's --device), and one small
+with the same defaults (but the port's --device), and one small
 hierarchical ``build`` through each writing the same files, the counting
 stage's chopper.count and chopper_sketches/ included."""
 
@@ -16,9 +15,7 @@ from taxor_tpu_torch import cli
 
 from .util import make_ref_set
 
-JAX_ONLY = {"search": {"--mesh-reads", "--mesh-bins", "--distributed",
-                       "--coordinator-address", "--num-processes",
-                       "--process-id"}}
+JAX_ONLY: dict = {}
 PORT_ONLY = {"search": {"--device"}, "prewarm": {"--device"}}
 COMMANDS = ("build", "search", "profile", "prewarm")
 

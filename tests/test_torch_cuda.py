@@ -944,3 +944,158 @@ def test_diag_window_shift_widths_and_phase_lists(cuda, Wd, phases):
     torch.cuda.synchronize()
     assert torch.equal(got, diag.window_shift_plain(x, phases))
     assert diag.window_shift.LAUNCHES == before + 1
+
+
+# ------------------------------------------------------ the bins shards --
+def shard(nb, b):
+    from taxor_tpu_torch.device.distributed import Mesh
+
+    return Mesh(1, nb, 0, b, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("mode", ["smem", "rows"])
+@pytest.mark.parametrize("nb", [2, 3])
+def test_k2n_run_sums_on_shard_clipped_runs(cuda, nb, mode):
+    """K2n's run sums on each bins shard of a [72, 216, 512] stack, its
+    runs clipped to the shard (sharding.shard_runs): empty runs, runs
+    that start at the shard's column 0 and runs cut at its last, each
+    against the twin; over the shards they add up to the whole stack's
+    run sums."""
+    from taxor_tpu_torch.device import sharding
+
+    rng = np.random.default_rng(nb)
+    G, bins = 72, 512
+    keys, tables, seed = narrow_inputs(rng, G, bins)
+    active = rng.random((G, keys[0].shape[0])) < 0.6
+    active[0, 0] = True
+    run_off, run_s, run_e = run_csr(rng, G, bins)
+    dev = [torch.from_numpy(x).to(cuda) for x in (*keys, active, run_off)]
+    whole = probe.probe_run_sums_grouped_plain(
+        *dev[:3], torch.from_numpy(tables).to(cuda), dev[3], dev[4],
+        torch.from_numpy(run_s).to(cuda), torch.from_numpy(run_e).to(cuda),
+        seed, 72)
+    total = torch.zeros_like(whole)
+    kinds = {"empty": 0, "at 0": 0}
+    for b in range(nb):
+        mesh = shard(nb, b)
+        tbl = sharding.shard_ixf(mesh, tables)
+        s_np, e_np = sharding.shard_runs(mesh, tbl.shape[2], run_s, run_e)
+        empty = torch.from_numpy(e_np <= s_np).to(cuda)
+        kinds["empty"] += int(empty.sum())
+        kinds["at 0"] += int(((s_np == 0) & (e_np > 0) & (run_s > 0)).sum())
+        s, e = (torch.from_numpy(x).to(cuda) for x in (s_np, e_np))
+        before = probe.k2n_counts.LAUNCHES
+        got = probe.k2n_run_sums(*dev[:3], tbl, dev[3], dev[4], s, e, seed,
+                                 72, mode=mode)
+        want = probe.probe_run_sums_grouped_plain(*dev[:3], tbl, dev[3],
+                                                  dev[4], s, e, seed, 72)
+        torch.cuda.synchronize()
+        assert probe.k2n_counts.LAUNCHES == before + 1
+        assert torch.equal(got, want)
+        assert int(got[empty].abs().sum()) == 0
+        total += got
+    assert kinds["empty"] > 0 and kinds["at 0"] > 0, kinds
+    assert torch.equal(total, whole) and int(whole[0].max()) > 256
+
+
+@pytest.mark.parametrize("variant", ["slab", "rows"])
+def test_k2_on_half_a_flat_table(cuda, variant):
+    """K2 on each half (Bpad / 2 = 2,048 columns) of a flat [3,606,
+    4,096] table, chip_smoke phase 4's shape cut by a 2-shard mesh: the
+    slab route picks its slab for the narrower table, both routes equal
+    the twin, and the halves' run sums add up to the whole table's."""
+    from taxor_tpu_torch.device import sharding
+    from taxor_tpu_torch.device.e2e import run_sums
+
+    rng = np.random.default_rng(2048)
+    bl, bins, R, H = 1202, 4096, 24, 1500
+    table = rng.integers(0, 256, (3 * bl, bins), dtype=np.uint8)
+    table[:, ::5] = 0
+    hi, lo = (rng.integers(-2**31, 2**31, (R, H), dtype=np.int32)
+              for _ in range(2))
+    valid = rng.random((R, H)) < 0.7
+    args = [torch.from_numpy(x).to(cuda) for x in (hi, lo, valid)]
+    seed = int(rng.integers(0, 2**63))
+    offsets = np.concatenate([[0], np.cumsum(rng.integers(1, 9, 900))])
+    offsets = np.append(offsets[offsets < bins], bins)
+    whole = run_sums(probe.probe_counts_plain(
+        *args, torch.from_numpy(table).to(cuda), seed, bl),
+        torch.from_numpy(offsets).to(cuda))
+    total = torch.zeros_like(whole)
+    for b in range(2):
+        mesh = shard(2, b)
+        tbl = sharding.shard_ixf(mesh, table)
+        assert tbl.shape == (3 * bl, 2048)
+        assert probe.slab_bins(3 * bl, 2048, cuda) > 0
+        got = probe.k2_counts(*args, tbl[None], None, seed, bl,
+                              variant=variant)[0]
+        want = probe.probe_counts_plain(*args, tbl, seed, bl)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        local = sharding.shard_runs(mesh, 2048, offsets)[0]
+        total += run_sums(got, torch.from_numpy(local).to(cuda))
+    assert torch.equal(total, whole)
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """The sharded count and fused steps over two ranks, each equal to
+    the single-device step: on gloo where the ranks share a card, on
+    NCCL where each has its own."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "taxor_tpu_torch.tools.dryrun_multichip",
+         "--ranks", "2", "--device", "cuda"], cwd=repo, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=repo))
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["count_step"] and out["fused_step"]
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    assert out["mesh"].endswith(f"collectives on {backend}")
+
+
+def test_wide_root_changes_route_when_sharded(cuda):
+    """A 529-bin root (phase 7b's width) takes K2's dense counts and
+    their segment sums whole, and K2n on each of its two 272-bin shards;
+    the shards' run sums add up to the whole root's."""
+    from taxor_tpu_torch.device import sharding
+
+    rng = np.random.default_rng(529)
+    bins, bl, R, H = 529, 400, 20, 900
+    Bp = probe.pad_bins(bins)
+    tables = np.zeros((1, 3 * bl, Bp), dtype=np.uint8)
+    tables[0, :, :bins] = rng.integers(0, 256, (3 * bl, bins))
+    tables[0, :, ::6] = 0
+    hi, lo = (rng.integers(-2**31, 2**31, (R, H), dtype=np.int32)
+              for _ in range(2))
+    valid = rng.random((R, H)) < 0.8
+    active = rng.random((1, R)) < 0.7
+    ends = np.append(np.cumsum(rng.integers(1, 40, 40)), bins)
+    ends = np.unique(np.minimum(ends, bins))
+    starts = np.concatenate([[0], ends[:-1]])
+    args = [torch.from_numpy(x).to(cuda) for x in (hi, lo, valid)]
+    act = torch.from_numpy(active).to(cuda)
+    off = torch.tensor([0, starts.shape[0]], device=cuda)
+    before = probe.k2_counts.LAUNCHES, probe.k2n_counts.LAUNCHES
+    whole = probe.probe_run_sums_grouped(
+        *args, torch.from_numpy(tables).to(cuda), act, off,
+        torch.from_numpy(starts).to(cuda), torch.from_numpy(ends).to(cuda),
+        77, bl)
+    assert probe.k2_counts.LAUNCHES == before[0] + 1
+    total = torch.zeros_like(whole)
+    for b in range(2):
+        mesh = shard(2, b)
+        tbl = sharding.shard_ixf(mesh, tables)
+        assert tbl.shape[2] == 272
+        s, e = (torch.from_numpy(x).to(cuda) for x in sharding.shard_runs(
+            mesh, 272, starts, ends))
+        total += probe.probe_run_sums_grouped(*args, tbl, act, off, s, e, 77,
+                                              bl)
+    torch.cuda.synchronize()
+    assert probe.k2n_counts.LAUNCHES == before[1] + 2
+    assert torch.equal(total, whole) and int(whole.max()) > 0

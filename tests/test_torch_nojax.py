@@ -1,6 +1,8 @@
 """taxor_tpu_torch runs where JAX and the JAX package are absent: a
 subprocess with ``jax`` and ``taxor_tpu`` blocked builds an index,
-searches it with both engines on the CPU and profiles the result; a
+searches it with the three engines on the CPU (the sharded one on its
+one-process 1 x 1 mesh) and profiles the result; two blocked rank
+processes search with the sharded engine over torch.distributed; a
 subprocess where both are importable does the same and loads neither;
 and no source of the port, nor chip_smoke.py, imports either."""
 
@@ -36,13 +38,14 @@ SCRIPT = textwrap.dedent("""
     n_ixfs = len(load_index(idx).hixf.ixfs)
     assert (n_ixfs > 1) == (LAYOUT == "auto"), n_ixfs
     out = {}
-    for engine in ("device", "host"):
+    for engine in ("device", "host", "sharded"):
         out[engine] = os.path.join(WORK, engine + ".tsv")
         assert cli.main(["search", "--index-file", idx, "--query-file",
                          reads, "--output-file", out[engine], "--engine",
                          engine, "--device", "cpu"]) == 0
-    dev, host = (open(out[e], "rb").read() for e in ("device", "host"))
-    assert dev == host and dev.count(b"GCF_") >= 3 * N_SPECIES, dev
+    dev, host, sharded = (open(out[e], "rb").read()
+                          for e in ("device", "host", "sharded"))
+    assert dev == host == sharded and dev.count(b"GCF_") >= 3 * N_SPECIES
     cami = os.path.join(WORK, "profile.tsv")
     assert cli.main(["profile", "--search-file", out["device"],
                      "--cami-report-file", cami, "--binning-file",
@@ -98,6 +101,44 @@ def test_port_loads_no_jax_where_jax_is_installed(tmp_path):
     import jax  # noqa: F401  (JAX is installed here)
 
     run_blocked(tmp_path, "auto", 100, 3000, block=False)
+
+
+RANK = ("import sys; sys.modules['jax'] = None; "
+        "sys.modules['taxor_tpu'] = None; "
+        "from taxor_tpu_torch import cli; rc = cli.main(sys.argv[1:]); "
+        "import taxor_tpu_torch.device.sharding, "
+        "taxor_tpu_torch.tools.dryrun_multichip; sys.exit(rc)")
+
+
+def test_sharded_ranks_run_with_jax_blocked(tmp_path):
+    """Two rank processes with jax and taxor_tpu blocked run ``search
+    --engine sharded --distributed`` (gloo, one bins shard each) and
+    write the host engine's TSV; the new modules import blocked."""
+    run_blocked(tmp_path, "flat", 4, 5000)  # the index and host.tsv
+    from .torch_world import free_port
+
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    port, out = free_port(), str(tmp_path / "dist.tsv")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK, "search", "--index-file",
+         str(tmp_path / "idx.taxor.npz"), "--query-file",
+         str(tmp_path / "reads.fasta"), "--output-file", out, "--engine",
+         "sharded", "--distributed", "--coordinator-address",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(r), "--device", "cpu"], cwd=str(tmp_path), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], errs
+    with open(out, "rb") as fh, open(tmp_path / "host.tsv", "rb") as eh:
+        assert fh.read() == eh.read()
 
 
 TOOLS_SCRIPT = textwrap.dedent("""

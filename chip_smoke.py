@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~13-16 min on an H100
+    python3 chip_smoke.py                 # full size, ~13-17 min on an H100
     python3 chip_smoke.py --genomes 600 --reads 512 --hier-genomes 200 \
-        --hier-reads 512                  # quick start check
+        --minimizer-genomes 200 --hier-reads 512 \
+        --atscale-reads 2048                    # quick start check
 
 Phases (any failure exits non-zero):
   1. card and build: prints nvidia-smi's name and power limit, builds
@@ -50,9 +51,13 @@ Phases (any failure exits non-zero):
      run sums above 256, each call one K2n launch; and the run sums of
      1,000- and 4,096-bin groups, one K2 launch each (dense counts and
      their segment sums: a group past K2n's 512 bins);
-  7. the hierarchical main path: the same recipe on an index built with
-     ``--layout auto --tmax 64`` (a 64-bin root); K1, the grouped probe
-     (K2n in both modes: smem on stacked groups, rows on the root) and
+  7. the hierarchical main path: the same recipe on an index of
+     ``--hier-genomes`` genomes built with ``--layout auto --tmax 64`` (a
+     64-bin root; **cut** from 8,192 genomes to 4,096 to make room for
+     phase 15 in the time limit: it halves phase 7's build, ~165 s at
+     8,192; phase 13a keeps 8,192 on data of its own); K1, the grouped
+     probe (K2n in both modes:
+     smem on stacked groups, rows on the root) and
      the per-IXF traversal of the reads over L_CAP must have launched,
      the TSV must equal ``--engine host`` on a subset, and 99% of the
      classified reads must name their source genome; then the split
@@ -135,15 +140,16 @@ Phases (any failure exits non-zero):
      phase 2's kinds of reads for (k, window) = (20, 20), (20, 26),
      (18, 26) and (32, 40), without the FracMinHash keep and with the
      keeps of scalings 2, 3 and 1,000 (the twin followed by the keep as
-     tensor ops); (a) phase 7's genomes and reads under the bench's
-     hier_scaled_minimizer scheme whole (k = 20, --window-size 26,
-     --scaling 3, --layout auto --tmax 64) searched with ``--engine
-     device``: its fracminhash thresholds take the descend-all descent
+     tensor ops); (a) ``--minimizer-genomes`` genomes (8,192) and
+     ``--hier-reads`` reads of phase 7's recipe, drawn apart from
+     phase 7's, under the bench's hier_scaled_minimizer scheme whole
+     (k = 20, --window-size 26, --scaling 3, --layout auto --tmax 64)
+     searched with ``--engine device``: its fracminhash thresholds take the descend-all descent
      (every pair active), K5 and K2n must launch, every read up to L_CAP
      must take the fused step and only the long ones the host-hash
      route, and the TSV must equal ``--engine host`` on the first
      CHECK_READS reads and the long ones; the share of classified reads
-     that name their source genome is logged.  All of phase 7's reads:
+     that name their source genome is logged.  All of its reads:
      the ~3.5% that the scaled scheme leaves so few hashes that their
      fracminhash threshold is 0 fall back to the host oracle, which
      walks every IXF of the hierarchy for each (in C++,
@@ -185,7 +191,30 @@ Phases (any failure exits non-zero):
      TSV byte for byte on every read, and K1 and K2 ((a), (d); K2n on a
      quick start's flat shard of at most 512 bins), K1 and K2n ((b)), K5
      and K2n ((c)) must launch in the ranks.  The kernels
-     records' ``sharded_launches`` sum the ranks' launches of (a)-(d).
+     records' ``sharded_launches`` sum the ranks' launches of (a)-(d);
+ 15. the at-scale path: (a) K2n's rows mode (run sums and dense counts)
+     and K2's rows route against their twins, bit-exact, on stacks of
+     more than 2^31 bytes (tools/synth.big_table_problem: [1, 3 x 2^24,
+     64], every hash's third row past byte 2^31, and [2, 3 x 2^20, 512],
+     half of the valid hashes planted in every bin), each timed beside
+     its twin (the K2n and K2 rows records' ``past_2_31_bytes``); (b)
+     the port's at-scale demo (``tools/at_scale_demo.py``: the JAX
+     demo's recipe of log-normal genomes of 30 kb - 5 Mb in homology
+     clusters, a k=22/s=12 syncmer index built with ``--layout auto
+     --tmax 4096``, mixed-length reads of 500 b - 8 kb from FASTQ.gz) at
+     one block of 1,024 genomes (0.4 GB, 112 IXFs in 3 levels under a
+     64-bin root) and ``--atscale-reads`` reads: gen, build, search on
+     the card and parity; the launches counted are the demo's own
+     around its three searches of the reads (``search_launches``: the
+     cold search and both warm passes, not the burst after them).  The
+     index must be hierarchical, the root group must take K2n's rows
+     mode and a group below it the smem mode, K1 and both K2n modes
+     must launch, the parity TSV must equal
+     ``--engine host`` byte for byte, and 99% of the classified reads
+     must name their source genome.  Each stage's record is logged
+     (``phase 15 <stage>: {...}``).  **Cut:** the demo's 18 GB recipe to
+     its first block, for the script's time limit (the full recipe is
+     the demo's five stages in turn, its module docstring).
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -749,33 +778,16 @@ def tsv_rows(path: str, ids: set | None = None) -> list[str]:
     return [x for x in lines if x.split("\t", 1)[0] in ids]
 
 
-def reset_counts(extract, probe, sort, pipeline) -> None:
+def reset_counts() -> None:
+    """Every launch count, the descent's activity and the pipeline's
+    routes to 0."""
+    from taxor_tpu_torch.device import launches as launch_counts
     from taxor_tpu_torch.device.hixf_search import ACTIVITY
+    from taxor_tpu_torch.search import pipeline
 
     ACTIVITY.reset()
-    for k in (extract.syncmer_hashes, extract.syncmer_track,
-              extract.minimizer_kmers, sort.dedup_fused, sort.sort_pairs):
-        k.LAUNCHES = 0
-    for k in (probe.k2_counts, probe.k2n_counts):
-        k.LAUNCHES = 0
-        k.ROUTES = {}
-    probe.k2_counts.VARIANTS = {}
-    probe.k2n_counts.MODES = {}
+    launch_counts.reset()
     pipeline.ROUTES.reset()
-
-
-def read_counts(extract, probe, sort) -> dict:
-    return {"K1": extract.syncmer_hashes.LAUNCHES,
-            "K2": probe.k2_counts.LAUNCHES, "K2n": probe.k2n_counts.LAUNCHES,
-            "K2 slab": probe.k2_counts.VARIANTS.get("slab", 0),
-            "K2 rows": probe.k2_counts.VARIANTS.get("rows", 0),
-            "K2n smem": probe.k2n_counts.MODES.get("smem", 0),
-            "K2n rows": probe.k2n_counts.MODES.get("rows", 0),
-            "track": extract.syncmer_track.LAUNCHES,
-            "K3": sort.dedup_fused.LAUNCHES, "K4": sort.sort_pairs.LAUNCHES,
-            "K5": extract.minimizer_kmers.LAUNCHES,
-            "K2 routes": dict(probe.k2_counts.ROUTES),
-            "K2n routes": dict(probe.k2n_counts.ROUTES)}
 
 
 def cli_build(work: str, tsv: str, gdir: str, flags: list[str],
@@ -809,14 +821,16 @@ def cli_build(work: str, tsv: str, gdir: str, flags: list[str],
     return idx, index
 
 
-def device_search(torch, idx: str, reads: str, out: str, label: str,
-                  modules) -> tuple[dict, dict, float, float]:
+def device_search(torch, idx: str, reads: str, out: str,
+                  label: str) -> tuple[dict, dict, float, float]:
     """``cli search --engine device`` with every launch count set to 0
     just before and read just after; (launches, routes, wall s, peak
     device MiB)."""
     from taxor_tpu_torch import cli
+    from taxor_tpu_torch.device import launches as launch_counts
+    from taxor_tpu_torch.search import pipeline
 
-    reset_counts(*modules)
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
@@ -824,8 +838,8 @@ def device_search(torch, idx: str, reads: str, out: str, label: str,
                    "--device", "cuda", "--write-time", "--threads",
                    str(os.cpu_count() or 1)])
     wall = time.perf_counter() - t0
-    launches = read_counts(*modules[:3])
-    routes = dict(modules[3].ROUTES.counts)
+    launches = launch_counts.read()
+    routes = dict(pipeline.ROUTES.counts)
     if rc != 0:
         raise RuntimeError(f"[{label}] device search failed ({rc})")
     return launches, routes, wall, torch.cuda.max_memory_allocated() / 2**20
@@ -880,10 +894,8 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     n_reads + LONG_READS through the device engine with the launch
     counts set to 0 just before, check the TSV against --engine host on
     a subset and the classifications against the source genomes."""
-    from taxor_tpu_torch.device import e2e, extract, probe, sort
-    from taxor_tpu_torch.search import pipeline
+    from taxor_tpu_torch.device import e2e
 
-    modules = (extract, probe, sort, pipeline)
     t0 = time.perf_counter()
     tsv, gdir, genomes = make_genomes(rng, work, n_genomes, GENOME_LEN)
     recs = make_reads(rng, genomes, n_reads, LONG_READS)
@@ -899,7 +911,7 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     # ---- the main path, counted
     out_dev = os.path.join(work, "device.tsv")
     launches, routes, wall, peak = device_search(torch, idx, reads, out_dev,
-                                                 layout, modules)
+                                                 layout)
     if launches["K1"] <= 0 or launches["K2"] + launches["K2n"] <= 0:
         raise AssertionError(f"main path skipped a kernel: {launches}")
     if layout == "flat" and launches["K2 slab"] <= 0:
@@ -926,7 +938,7 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     e2e.USE_FUSED_EXTRACT = False
     try:
         split, split_routes, wall_split, split_peak = device_search(
-            torch, idx, reads, out_split, layout, modules)
+            torch, idx, reads, out_split, layout)
     finally:
         e2e.USE_FUSED_EXTRACT = True
     if split["K1"] != 0 or split["track"] <= 0 or split["K3"] <= 0:
@@ -1500,8 +1512,8 @@ def check_k5(torch, dsync, extract, rng) -> None:
 
 
 def kmer_data(rng, work: str, n_genomes: int, n_reads: int) -> dict:
-    """Phase 13b's data: n_genomes genomes of phase 7's kind and n_reads
-    reads of its recipe plus LONG_READS over L_CAP."""
+    """Phase 13a's or 13b's data: n_genomes genomes of phase 7's kind and
+    n_reads reads of its recipe plus LONG_READS over L_CAP."""
     os.makedirs(work)
     tsv, gdir, genomes = make_genomes(rng, work, n_genomes, GENOME_LEN)
     recs = make_reads(rng, genomes, n_reads, LONG_READS)
@@ -1521,17 +1533,14 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict, flags,
     the TSV must equal ``--engine host`` on the first CHECK_READS reads
     and the long ones.  The share of classified reads that name their
     source genome is logged, not gated."""
-    from taxor_tpu_torch.device import extract, probe, sort
     from taxor_tpu_torch.device.hixf_search import ACTIVITY
-    from taxor_tpu_torch.search import pipeline
 
     recs, n_reads = data["recs"], data["n_reads"]
     idx, index = cli_build(work, data["tsv"], data["gdir"], flags, layout,
                            label)
     out_dev = os.path.join(work, f"{label}_device.tsv")
     launches, routes, wall, peak = device_search(
-        torch, idx, data["reads"], out_dev, label,
-        (extract, probe, sort, pipeline))
+        torch, idx, data["reads"], out_dev, label)
     active = ACTIVITY.share()
     if any(launches[k] <= 0 for k in need):
         raise AssertionError(f"[{label}] the path skipped one of {need}: "
@@ -1975,16 +1984,17 @@ def cli_tools(torch, work: str) -> dict:
     return secs
 
 
-def tool_path(torch, modules, work: str) -> tuple[dict, dict]:
+def tool_path(torch, work: str) -> tuple[dict, dict]:
     """Phase 12: the tooling path through its entry points, the launch
     counts of every kernel set to 0 just before and read just after;
     returns the diagnostic launches, and those by route."""
     from taxor_tpu_torch.device import diag
+    from taxor_tpu_torch.device import launches as launch_counts
     from taxor_tpu_torch.tools import (bench, debug_extract, debug_min,
                                        probe_bounds, probe_experiments,
                                        profile_phases)
 
-    reset_counts(*modules)
+    reset_counts()
     diag_counts(diag, zero=True)
     secs = {}
     t0 = time.perf_counter()
@@ -2024,7 +2034,7 @@ def tool_path(torch, modules, work: str) -> tuple[dict, dict]:
     secs.update(cli_tools(torch, work))
     counts = diag_counts(diag)
     routes = diag_routes(diag)
-    launches = read_counts(*modules[:3])
+    launches = launch_counts.read()
     log(f"tool path: probe_bounds ns/hash "
         f"{ {k: round(v['ns_per_hash'], 4) for k, v in bounds.items()} }")
     for name, rows in exps.items():
@@ -2200,10 +2210,11 @@ def rank_main(counts_file: str, argv: list[str]) -> int:
     import torch
 
     from taxor_tpu_torch import cli
-    from taxor_tpu_torch.device import extract, probe, sharding, sort
+    from taxor_tpu_torch.device import launches as launch_counts
+    from taxor_tpu_torch.device import sharding
     from taxor_tpu_torch.search import pipeline
 
-    reset_counts(extract, probe, sort, pipeline)
+    reset_counts()
     sharding.COLLECTIVES.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2211,7 +2222,7 @@ def rank_main(counts_file: str, argv: list[str]) -> int:
     wall = time.perf_counter() - t0
     rec = {"rc": rc, "wall_s": wall,
            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-           "launches": read_counts(extract, probe, sort),
+           "launches": launch_counts.read(),
            "routes": dict(pipeline.ROUTES.counts),
            "collectives": sharding.COLLECTIVES.summary()}
     with open(counts_file, "w") as fh:
@@ -2344,6 +2355,99 @@ def dryrun_on_card(card: str) -> None:
     log(f"phase 14e: dryrun_multichip over 4 ranks: {out}; {card}")
 
 
+# ------------------------------------------------------------ phase 15 --
+# stacks of tables past 2^31 bytes (15a): one [3 x 2^24, 64] table, every
+# hash's third row past byte 2^31, and two [3 x 2^20, 512] tables, the
+# second's rows past it (the at-scale root, [1, 37.7 M, 64], is 2.4 GB)
+BIG_TABLES = ((1, 3 * 2**24, 64), (2, 3 * 2**20, 512))
+ATSCALE_SEQ_GB = 0.001  # the demo's one block of 1,024 genomes: 3 levels
+
+
+def check_big_tables(torch, probe) -> list[dict]:
+    """Phase 15a: K2n's rows mode (run sums and dense counts) and K2's
+    rows route against their twins, bit-exact, on stacks of more than
+    2^31 bytes (tools/synth.big_table_problem: half of the valid hashes
+    planted in every bin), each timed beside its twin."""
+    from taxor_tpu_torch.tools import synth
+
+    out = []
+    for G, S, Bp in BIG_TABLES:
+        p = synth.big_table_problem("cuda", G, S, Bp, seed=G)
+        args = (p["hi"], p["lo"], p["valid"], p["tables"], p["active"])
+        sb = (p["seed"], p["block_length"])
+        runs = p["runs"]
+        if probe.narrow_mode(S, Bp, "cuda") != "rows" or probe.slab_bins(
+                S, Bp, "cuda"):
+            raise AssertionError(f"[{G}, {S}, {Bp}] takes no rows route")
+        plain = {
+            "K2n rows (run sums)": lambda: probe.probe_run_sums_grouped_plain(
+                *args, *runs, *sb),
+            "K2n rows (counts)": lambda: probe.probe_counts_grouped_plain(
+                *args, *sb)}
+        plain["K2 rows"] = plain["K2n rows (counts)"]
+        kern = {
+            "K2n rows (run sums)": lambda: probe.k2n_run_sums(
+                *args, *runs, *sb, mode="rows"),
+            "K2n rows (counts)": lambda: probe.k2n_counts(*args, *sb,
+                                                          mode="rows"),
+            "K2 rows": lambda: probe.k2_counts(*args, *sb, variant="rows")}
+        rec = dict(shape=[G, S, Bp], table_bytes=p["tables"].numel(),
+                   reads=int(p["hi"].shape[0]),
+                   valid_hashes=int(p["valid"].sum()))
+        for name, fn in kern.items():
+            ms, plain_ms, err, _ = time_pair(torch, fn, plain[name], 3)
+            rec[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+        want = plain["K2n rows (counts)"]()
+        if int(want[:, 0].min()) <= 0:  # read 0: active, hashes planted
+            raise AssertionError("phase 15a: a planted read counts 0")
+        log(f"phase 15a: {rec}")
+        out.append(rec)
+        del p, args, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def atscale_path(torch, work: str, n_reads: int) -> dict:
+    """Phase 15b: the port's at-scale demo (tools/at_scale_demo.py) at
+    one block of 1,024 genomes and n_reads reads, gen -> build ->
+    search -> parity.  The search's launches are the demo's own count
+    around its three ``search_single`` calls (``search_launches``: the
+    cold one and both warm ones; not the burst that follows them).
+    Asserts a hierarchy of depth >= 2, K1 and K2n's rows mode on the
+    root, K2n's smem mode on a group below it, the parity TSV byte for
+    byte and 99% of the classified reads naming their source."""
+    from taxor_tpu_torch.tools import at_scale_demo as demo
+
+    os.makedirs(work, exist_ok=True)
+    d = demo.Demo(work=work, result=os.path.join(work, "atscale.json"),
+                  seq_gb=ATSCALE_SEQ_GB, n_reads=n_reads, device="cuda")
+    gen = demo.gen(d)
+    build = demo.build(d)
+    if build["n_ixfs"] < 2 or build["depth"] < 2:
+        raise AssertionError(f"phase 15: the index is not hierarchical: "
+                             f"{build}")
+    reset_counts()
+    search = demo.search(d)
+    launches = search["search_launches"]
+    try:
+        parity = demo.parity(d)
+    except SystemExit as exc:
+        raise AssertionError(f"phase 15: {exc}") from None
+    routes = [g["route"] for g in search["groups"]]
+    if (routes[0] != "K2n rows" or "K2n smem" not in routes[1:]
+            or launches["K1"] <= 0 or launches["K2n rows"] <= 0
+            or launches["K2n smem"] <= 0):
+        raise AssertionError(f"phase 15: routes {routes}, launches "
+                             f"{launches}")
+    if search["correct_of_classified"] < 0.99:
+        raise AssertionError(f"phase 15: {search['correct_of_classified']} "
+                             "of the classified reads name their source")
+    for key, rec in (("gen", gen), ("build", build), ("search", search),
+                     ("parity", parity)):
+        log(f"phase 15 {key}: {json.dumps(rec)}")
+    return {"launches": launches, "search": search, "build": build}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:  # one rank of a phase 14 search
         return rank_main(sys.argv[2], sys.argv[3:])
@@ -2352,9 +2456,14 @@ def main() -> int:
                     help="reference genomes of 30 kb in the flat index")
     ap.add_argument("--reads", type=int, default=8192,
                     help="ONT-like reads of the flat path (plus 16 of 40 kb)")
-    ap.add_argument("--hier-genomes", type=int, default=8192,
+    ap.add_argument("--hier-genomes", type=int, default=4096,
                     help="reference genomes of 30 kb in the hierarchical "
-                         "index")
+                         "index (phases 7, 8 and 14b; 8,192 before phase "
+                         "15 came)")
+    ap.add_argument("--minimizer-genomes", type=int, default=8192,
+                    help="reference genomes of 30 kb in phase 13a's scaled "
+                         "minimiser hierarchy (phases 13a, 13d and 14c), "
+                         "with --hier-reads reads")
     ap.add_argument("--hier-reads", type=int, default=16384,
                     help="ONT-like reads of the hierarchical path (plus 16 "
                          "of 40 kb)")
@@ -2363,6 +2472,8 @@ def main() -> int:
                          "plain k-mer index")
     ap.add_argument("--kmer-reads", type=int, default=4096,
                     help="ONT-like reads of phase 13b (plus 16 of 40 kb)")
+    ap.add_argument("--atscale-reads", type=int, default=20000,
+                    help="reads of phase 15's at-scale demo")
     args = ap.parse_args()
 
     import torch
@@ -2431,13 +2542,16 @@ def main() -> int:
         t13 = time.perf_counter()
         with phase("phase 13c"):
             check_k5(torch, dsync, extract, rng)
-        # 13a: phase 7's genomes and reads under the bench family's whole
-        # scheme (scaling 3)
+        # 13a: phase 7's recipe on data of its own, under the bench
+        # family's whole scheme (scaling 3)
         mm_flags = ["--kmer-size", str(MM_K), "--window-size",
                     str(MM_WINDOW), "--scaling", str(MM_SCALING)]
         with phase("phase 13a"):
-            mm = nonsyncmer_path(torch, os.path.join(work, "hier"),
-                                 "minimizer", hier, mm_flags, "auto",
+            mm_in = kmer_data(np.random.default_rng(SEED + 14),
+                              os.path.join(work, "minimizer"),
+                              args.minimizer_genomes, args.hier_reads)
+            mm = nonsyncmer_path(torch, os.path.join(work, "minimizer"),
+                                 "minimizer", mm_in, mm_flags, "auto",
                                  ("K5", "K2n"))
         if mm["active_share"] != 1.0:
             raise AssertionError(f"[minimizer] the descend-all descent left "
@@ -2456,11 +2570,12 @@ def main() -> int:
                 card))
         with phase("phase 14c"):
             sharded.append(sharded_search(
-                os.path.join(work, "hier"), "minimizer 1x2", mm, 2,
+                os.path.join(work, "minimizer"), "minimizer 1x2", mm, 2,
                 ["--mesh-bins", "2"], ("K5", "K2n"), card))
         t14 += time.perf_counter() - t0
         log(f"phase 14: {t14:.1f} s")
-        shutil.rmtree(os.path.join(work, "hier"), ignore_errors=True)
+        for done in ("hier", "minimizer"):
+            shutil.rmtree(os.path.join(work, done), ignore_errors=True)
         with phase("phase 13b"):
             kmer_in = kmer_data(rng, os.path.join(work, "kmer"),
                                 args.kmer_genomes, args.kmer_reads)
@@ -2477,10 +2592,18 @@ def main() -> int:
                                      "scaled", kmer_in, mm_flags, "flat",
                                      ("K5", "K2"))
         log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+        shutil.rmtree(os.path.join(work, "kmer"), ignore_errors=True)
+        # ---- phase 15: tables past 2^31 bytes, the at-scale demo
+        with phase("phase 15a (tables past 2^31 bytes)"):
+            big = check_big_tables(torch, probe)
+        with phase("phase 15b (the at-scale demo)"):
+            atscale = atscale_path(torch, os.path.join(work, "atscale"),
+                                   args.atscale_reads)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     runs = [flat["launches"], flat["split"], hier["launches"], hier["split"],
-            mm["launches"], kmer["launches"], scaled["launches"]]
+            mm["launches"], kmer["launches"], scaled["launches"],
+            atscale["launches"]]
     for row in kernels:  # launches on the main paths, both engines
         key = {"syncmer_extract": "K1", "probe_count": "K2 slab",
                "probe_count_rows": "K2 rows", "probe_count_narrow": "K2n",
@@ -2491,9 +2614,16 @@ def main() -> int:
         # phase 14: summed over the ranks of its four sharded searches
         row["sharded_launches"] = sum(run["launches"].get(key, 0)
                                       for run in sharded)
+        if key in ("K2n", "K2 rows"):  # phase 15a
+            row["past_2_31_bytes"] = [
+                {n: v for n, v in b.items()
+                 if not n.startswith("K2") or n.startswith(key)}
+                for b in big]
         if key == "K2n":
             row["modes"] = {m: sum(run[f"K2n {m}"] for run in runs)
                             for m in ("smem", "rows")}
+            row["atscale_launches"] = {
+                m: atscale["launches"][f"K2n {m}"] for m in ("smem", "rows")}
             row["peak_mib"] = {"hierarchical": hier["peak_mib"],
                                "hierarchical split": hier["split_peak_mib"],
                                "minimizer descend-all": mm["peak_mib"]}
@@ -2507,7 +2637,6 @@ def main() -> int:
     # ---- phases 11 and 12: the diagnostic kernels and the tooling path
     from taxor_tpu_torch.device import diag
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
-    from taxor_tpu_torch.search import pipeline
 
     dh = DeviceHIXF.from_hixf(flat["index"].hixf, "cuda")
     diag_counts(diag, zero=True)
@@ -2520,8 +2649,7 @@ def main() -> int:
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_tools_", dir=root)
     try:
-        tools, tool_routes = tool_path(torch, (extract, probe, sort,
-                                               pipeline), work)
+        tools, tool_routes = tool_path(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 12: tooling path in {time.perf_counter() - t0:.1f} s")

@@ -43,6 +43,7 @@ package's scan-exact path); the output is the same.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -173,10 +174,13 @@ def fused_e2e_step(table: torch.Tensor, packed: torch.Tensor,
 
 class ActivityStats:
     """Active (subgroup, read) pairs over all pairs probed by the grouped
-    step: a device-side sum, read once at the end (no sync per batch)."""
+    step: a device-side sum, read once at the end (no sync per batch).
+    Inside ``per_launch()`` each group launch's active pairs a subgroup
+    are kept as well."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._launches = None
         self.reset()
 
     def reset(self) -> None:
@@ -184,11 +188,26 @@ class ActivityStats:
             self.active = None
             self.total = 0
 
+    @contextlib.contextmanager
+    def per_launch(self):
+        """Yields a list that gets, for each group launch while open, its
+        active pairs a subgroup (int64 [G] on the device)."""
+        kept: list = []
+        with self._lock:
+            self._launches = kept
+        try:
+            yield kept
+        finally:
+            with self._lock:
+                self._launches = None
+
     def add(self, act_mat: torch.Tensor) -> None:
         n = act_mat.sum(dtype=torch.int64)
         with self._lock:
             self.active = n if self.active is None else self.active + n
             self.total += act_mat.numel()
+            if self._launches is not None:
+                self._launches.append(act_mat.sum(dim=1, dtype=torch.int64))
 
     def share(self) -> float:
         with self._lock:

@@ -172,3 +172,53 @@ def write_wide_root_layout(files: list[str], path: str, split: int = 8,
     root.num_technical_bins = nb + 2
     write_layout(root, path)
     return root.num_technical_bins
+
+
+def big_table_problem(device, G: int, S: int, Bpad: int, R: int = 256,
+                      H: int = 256, seed: int = 0) -> dict:
+    """Inputs of the probe kernels on a stack of G random uint8 [S,
+    Bpad] tables made on ``device`` (3 x 2^24 slots of 64 bins, or 2 x 3
+    x 2^20 of 512, hold more than 2^31 bytes, every hash's third row past
+    byte 2^31): keys hi/lo int32 [R, H], valid bool [R, H] (70%), active
+    bool [G, R] (read 0 active everywhere, read 1 nowhere), a CSR of runs
+    over each table's bins (widths 1, 3, 16, 5, ...), and half of the
+    valid hashes planted in every bin of every table (the third row set
+    to the XOR of the other two and the fingerprint), so that counts run
+    up to the hashes a read holds.  Block length S // 3."""
+    import torch
+
+    from ..utils.u64 import join32, probe_positions_and_fprint4
+
+    rng = np.random.default_rng(seed)
+    bl = S // 3
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tables = torch.randint(0, 256, (G, S, Bpad), dtype=torch.uint8,
+                           device=device, generator=gen)
+    keys = rng.integers(-2**31, 2**31, (2, R, H), dtype=np.int32)
+    valid = rng.random((R, H)) < 0.7
+    active = rng.random((G, R)) < 0.6
+    active[:, 0], active[:, 1] = True, False
+    hi, lo = (torch.from_numpy(x).to(device) for x in keys)
+    key_seed = int(rng.integers(0, 2**63))
+    pos, f4 = probe_positions_and_fprint4(join32(hi, lo), key_seed, bl)
+    plant = torch.from_numpy(valid & (rng.random((R, H)) < 0.5)).to(device)
+    p = pos[plant].long()
+    fp = (f4[plant] & 0xFF).to(torch.uint8)[:, None]
+    for g in range(G):
+        t = tables[g]
+        t[p[:, 2]] = t[p[:, 0]] ^ t[p[:, 1]] ^ fp
+    offs, starts, ends = [0], [], []
+    widths = (1, 3, 16, 5, 60, 2)
+    for g in range(G):
+        col, i = 0, g
+        while col < Bpad:
+            e = min(Bpad, col + widths[i % len(widths)])
+            starts.append(col)
+            ends.append(e)
+            col, i = e, i + 1
+        offs.append(len(starts))
+    runs = [torch.tensor(x, dtype=torch.int64, device=device)
+            for x in (offs, starts, ends)]
+    return dict(hi=hi, lo=lo, valid=torch.from_numpy(valid).to(device),
+                tables=tables, active=torch.from_numpy(active).to(device),
+                runs=runs, seed=key_seed, block_length=bl)

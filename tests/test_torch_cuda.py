@@ -15,7 +15,7 @@ from taxor_tpu_torch.device import e2e, extract, probe, sort
 from taxor_tpu_torch.device.e2e import fused_e2e_step
 from taxor_tpu_torch.hash import device_syncmer as dsync
 from taxor_tpu_torch.tools import probe_experiments as pe
-from taxor_tpu_torch.tools import time_sort
+from taxor_tpu_torch.tools import synth, time_sort
 
 pytestmark = pytest.mark.gpu
 
@@ -354,6 +354,30 @@ def test_k2n_dense_counts_in_both_modes(cuda, bins):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert int(want[:, 0].max()) > 256
+
+
+@pytest.mark.parametrize("G,S,Bpad", [(1, 3 * 2**24, 64),
+                                       (2, 3 * 2**20, 512)])
+def test_rows_kernels_past_2_31_bytes(cuda, G, S, Bpad):
+    """K2n's rows mode (run sums and counts) and K2's rows route on
+    stacks of more than 2^31 bytes (the at-scale root is 2.4 GB): every
+    hash's third row lies past byte 2^31 of the [3 x 2^24, 64] table, and
+    the second [3 x 2^20, 512] table starts 1.6 GB in; half of the valid
+    hashes are planted in every bin."""
+    p = synth.big_table_problem(cuda, G, S, Bpad, seed=G)
+    assert p["tables"].numel() > 2**31
+    assert probe.narrow_mode(S, Bpad, cuda) == "rows"
+    args = (p["hi"], p["lo"], p["valid"], p["tables"], p["active"])
+    sb = (p["seed"], p["block_length"])
+    want = probe.probe_counts_grouped_plain(*args, *sb)
+    want_sums = probe.probe_run_sums_grouped_plain(*args, *p["runs"], *sb)
+    got = [probe.k2n_counts(*args, *sb, mode="rows"),
+           probe.k2_counts(*args, *sb, variant="rows"),
+           probe.k2n_run_sums(*args, *p["runs"], *sb, mode="rows")]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+    assert torch.equal(got[2], want_sums)
+    assert int(want[:, 0].min()) > 0 and int(want[:, 1].abs().sum()) == 0
 
 
 def test_k2n_run_sums_check_inputs(cuda):

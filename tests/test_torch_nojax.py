@@ -2,7 +2,8 @@
 subprocess with ``jax`` and ``taxor_tpu`` blocked builds an index,
 searches it with the three engines on the CPU (the sharded one on its
 one-process 1 x 1 mesh) and profiles the result; two blocked rank
-processes search with the sharded engine over torch.distributed; a
+processes search with the sharded engine over torch.distributed; the
+at-scale demo imports and generates its data blocked; a
 subprocess where both are importable does the same and loads neither;
 and no source of the port, nor chip_smoke.py, imports either."""
 
@@ -173,6 +174,37 @@ def test_tools_import_neither_jax_nor_the_jax_tooling(tmp_path):
     for name in ("bench", "debug_extract", "debug_min", "probe_bounds",
                  "probe_experiments", "profile_phases", "synth", "timing"):
         assert f"'{name}'" in res.stdout
+
+
+ATSCALE_SCRIPT = textwrap.dedent("""
+    import os, sys
+    sys.modules["jax"] = None  # any `import jax` or `import taxor_tpu`
+    sys.modules["taxor_tpu"] = None  # now raises
+    from taxor_tpu_torch.tools import at_scale_demo as demo
+    d = demo.Demo(work=WORK, result=os.path.join(WORK, "r.json"),
+                  seq_gb=0.001, n_reads=64, parity_reads=16)
+    rec = demo.gen(d)
+    assert rec["n_species"] == len(os.listdir(d.path("genomes"))) == 1024
+    assert open(d.path("parity_reads.fna")).read().count(">") == 16
+    loaded = [m for m, mod in sys.modules.items() if mod is not None
+              and m.split(".")[0] in ("jax", "jaxlib", "taxor_tpu")]
+    assert not loaded, loaded
+    print("ATSCALE_OK")
+""")
+
+
+def test_at_scale_demo_runs_with_jax_blocked(tmp_path):
+    """taxor_tpu_torch.tools.at_scale_demo imports, and its gen runs at
+    one block of 1,024 genomes, with jax and taxor_tpu blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("JAX_PLATFORMS", None)
+    code = f"WORK = {str(tmp_path)!r}\n" + ATSCALE_SCRIPT
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "ATSCALE_OK" in res.stdout
 
 
 def _sources():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~13-17 min on an H100
+    python3 chip_smoke.py                 # full size, ~15-19 min on an H100
     python3 chip_smoke.py --genomes 600 --reads 512 --hier-genomes 200 \
         --minimizer-genomes 200 --hier-reads 512 \
         --atscale-reads 2048                    # quick start check
@@ -214,7 +214,26 @@ Phases (any failure exits non-zero):
      must name their source genome.  Each stage's record is logged
      (``phase 15 <stage>: {...}``).  **Cut:** the demo's 18 GB recipe to
      its first block, for the script's time limit (the full recipe is
-     the demo's five stages in turn, its module docstring).
+     the demo's five stages in turn, its module docstring);
+ 16. the layout cost model of ``--layout-cost device``
+     (hixf/device_cost.py) on the card: (a) its host copies of K2's and
+     K2n's routing rules equal the card's (probe.slab_bins,
+     probe.narrow_mode) on device_cost.routing_grid(): S 1-70,000 with
+     every width's limits, Bpad 16-4,096 in steps of 16; (b)
+     ``tools.bench_gather_scale`` at its default shapes: every route
+     bit-exact to its twin, each call's time beside the model's
+     prediction, which must fall within MODEL_SLACK (30%) of it, or
+     HOST_SLACK (50%) where the model's host floor bounds it; (c) at
+     CHOICE_GENOMES (1,024) genomes of phase 7's recipe and on phase 7's
+     own data and cpu index: flat, the cpu model's and the device
+     model's layout at --tmax 64, each one's fused step timed on the
+     L=8192 bucket (R = 512, ``DeviceHIXF.e2e_async``, CUDA events)
+     beside the model's ms a read; the device layout must be the
+     fastest or within CHOICE_SLACK (10%) of it, and its TSV equal to
+     ``--engine host`` on the first CHECK_READS reads and the long ones;
+     (d) ``tools.layout_invariance`` at 100 species and 400 reads on the
+     card, its table (with the device_model row) logged.  The launches
+     of phase 16 are counted in no record.
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -2448,6 +2467,173 @@ def atscale_path(torch, work: str, n_reads: int) -> dict:
     return {"launches": launches, "search": search, "build": build}
 
 
+# ------------------------------------------------------------ phase 16 --
+SYNCMER_FLAGS = ["--kmer-size", str(K), "--syncmer-size", str(S),
+                 "--use-syncmer"]
+# phase 16c's second reference set (phase 7's recipe), besides phase 7's
+CHOICE_GENOMES, CHOICE_READS = 1024, 2048
+# the device model's layout may take at most this much longer than the
+# fastest of the three layouts (16c), and its predictions of
+# bench_gather_scale's calls must fall within MODEL_SLACK of them (16b);
+# HOST_SLACK for the calls the host's launch path bounds, whose time the
+# host's speed moves (on one machine, in one process, the empty group's
+# probe call took 0.028-0.044 ms and its descent step 0.19-0.36 ms, in
+# runs of calls at either speed)
+CHOICE_SLACK = 1.10
+MODEL_SLACK = 0.30
+HOST_SLACK = 0.50
+
+
+def check_routing(torch, probe) -> None:
+    """Phase 16a: the layout cost model's host copies of K2's and K2n's
+    routing rules (hixf/device_cost.py: slab_bins, narrow_mode, with the
+    H100's opt-in shared memory a block as a constant) equal the card's
+    (probe.slab_bins, probe.narrow_mode) on device_cost.routing_grid()."""
+    from taxor_tpu_torch.hixf import device_cost
+
+    dev = torch.device("cuda")
+    optin = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", None)
+    grid = device_cost.routing_grid()
+    bad = [(s, b) for s, b in grid
+           if probe.slab_bins(s, b, dev) != device_cost.slab_bins(s, b)
+           or probe.narrow_mode(s, b, dev) != device_cost.narrow_mode(s, b)]
+    if bad or optin not in (None, device_cost.SMEM_OPTIN):
+        raise AssertionError(f"phase 16a: the host routing rules differ "
+                             f"from the card's at {bad[:10]} ({len(bad)} "
+                             f"points); opt-in shared memory {optin}")
+    slots = sorted({s for s, _ in grid})
+    log(f"phase 16a: host slab_bins and narrow_mode == the card's at "
+        f"{len(grid)} (S, Bpad) points (S {slots[0]}-{slots[-1]}, Bpad "
+        f"16-4096); opt-in shared memory a block {optin} B")
+
+
+def check_fit(torch) -> dict:
+    """Phase 16b: tools.bench_gather_scale at its default shapes: every
+    route bit-exact to its twin, each call's time beside the model's
+    prediction, which must fall within MODEL_SLACK of it (HOST_SLACK
+    where the model's host floor bounds the call)."""
+    from taxor_tpu_torch.tools import bench_gather_scale
+
+    out = bench_gather_scale.run(argparse.Namespace(
+        shapes="default", seed=0, device="cuda"))
+    off = []
+    for name, rec in out["shapes"].items():
+        for rt, r in rec["routes"].items():
+            log(f"phase 16b: {name} {rec['tables']} {rt}: {r['ms']:.4f} ms "
+                f"a call ({r['device_ms']:.4f} on the device), model "
+                f"{r['model_ms']:.4f} ms"
+                f"{' (host floor)' if r['host_bound'] else ''}; == twin: "
+                f"{r['equal']}")
+            slack = HOST_SLACK if r["host_bound"] else MODEL_SLACK
+            if abs(r["model_ms"] - r["ms"]) > slack * r["ms"]:
+                off.append((name, rt, r["ms"], r["model_ms"]))
+    if not out["equal"]:
+        raise AssertionError("phase 16b: a route differs from its twin")
+    if off:
+        raise AssertionError(f"phase 16b: the model misses these calls by "
+                             f"more than {MODEL_SLACK:.0%} (host-bound "
+                             f"{HOST_SLACK:.0%}): {off}")
+    return out
+
+
+def layout_choice(torch, work: str, label: str, data: dict,
+                  cpu_built=None) -> dict:
+    """Phase 16c: three layouts of one reference set (data: tsv, gdir,
+    recs, n_reads): flat, the cpu model's and the device model's at
+    --tmax TMAX (cpu_built: the cpu model's (index file, index), built
+    already).  Each one's fused step on the L=8192 bucket (R = 512 reads,
+    DeviceHIXF.e2e_async with its collect, CUDA events, the least of four
+    means of 20 calls in turns a, b, c, c, b, a, a, b, c, c, b, a) beside
+    the device model's ms a read of its probe launches
+    (device_cost.hixf_ms_per_read); the device layout must be the fastest
+    or within CHOICE_SLACK of it, and its TSV equal to --engine host on
+    the first CHECK_READS reads and the long ones."""
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.hixf import device_cost
+    from taxor_tpu_torch.search.thresholds import Thresholder
+
+    os.makedirs(work, exist_ok=True)
+    built = {}
+    for name, layout, extra in (
+            ("flat", "flat", []), ("cpu", "auto", []),
+            ("device", "auto", ["--layout-cost", "device",
+                                "--output-verbose-statistics"])):
+        built[name] = (cpu_built if name == "cpu" and cpu_built else
+                       cli_build(work, data["tsv"], data["gdir"],
+                                 SYNCMER_FLAGS + extra, layout,
+                                 f"{label}_{name}"))
+    th = Thresholder.make(K, K, 0.04, -1.0, True)
+    seqs = bucket_reads(data["recs"], 8192)
+    packed, lengths = dsync.pack_reads(seqs, 8192)
+    steps, rows = {}, {}
+    for name, (_, index) in built.items():
+        dh = DeviceHIXF.from_hixf(index.hixf, "cuda")
+        steps[name] = (lambda dh=dh, sc=index.scheme:  # noqa: E731
+                       dh.e2e_async(packed, lengths, sc, th)())
+        levels = device_cost.hixf_levels(index.hixf)
+        rows[name] = {
+            "ixfs": len(index.hixf.ixfs),
+            "launches": [[x["route"], x["shape"]] for x in
+                         device_cost.batch_launches(levels)],
+            "model_ms_per_read": device_cost.hixf_ms_per_read(index.hixf)}
+    times = {n: [] for n in steps}
+    for name in (list(steps) + list(steps)[::-1]) * 2:
+        times[name].append(cuda_ms(steps[name], 20))
+    for name, row in rows.items():
+        row["ms"] = min(times[name])
+        row["ms_per_read"] = row["ms"] / len(seqs)
+        log(f"phase 16c [{label}] {name}: {row['ixfs']} IXF(s), launches "
+            f"{row['launches']}; model {row['model_ms_per_read'] * 1e3:.3f} "
+            f"us a read, measured {row['ms']:.4f} ms a batch of "
+            f"{len(seqs)} = {row['ms_per_read'] * 1e3:.3f} us a read "
+            f"({'/'.join(f'{t:.4f}' for t in times[name])} ms)")
+    best = min(r["ms"] for r in rows.values())
+    if rows["device"]["ms"] > CHOICE_SLACK * best:
+        raise AssertionError(f"phase 16c [{label}]: the device model's "
+                             f"layout is not within {CHOICE_SLACK} of the "
+                             f"fastest: {rows}")
+    idx = built["device"][0]
+    recs, n_reads = data["recs"], data["n_reads"]
+    sub = os.path.join(work, f"{label}_device_subset.fasta")
+    write_fasta(sub, recs[:min(CHECK_READS, n_reads)] + recs[n_reads:])
+    out_dev = os.path.join(work, f"{label}_device.tsv")
+    device_search(torch, idx, sub, out_dev, f"{label}_device")
+    host_parity(work, idx, recs, n_reads, out_dev, f"{label}_device")
+    return rows
+
+
+def new_reference_set(rng, work: str, n_genomes: int, n_reads: int) -> dict:
+    """Phase 7's recipe (genomes of GENOME_LEN, ONT-like reads and
+    LONG_READS reads of 40 kb) under work."""
+    os.makedirs(work, exist_ok=True)
+    tsv, gdir, genomes = make_genomes(rng, work, n_genomes, GENOME_LEN)
+    return {"tsv": tsv, "gdir": gdir, "n_reads": n_reads,
+            "recs": make_reads(rng, genomes, n_reads, LONG_READS)}
+
+
+def invariance_on_card() -> str:
+    """Phase 16d: tools.layout_invariance at 100 species and 400 reads
+    on the card; its table must have the device_model row."""
+    from taxor_tpu_torch.tools import layout_invariance
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "taxor_tpu_torch", "_build")
+    tmp = tempfile.mkdtemp(prefix="layout_inv_", dir=root)
+    try:
+        text = layout_invariance.table(layout_invariance.run(
+            100, 400, device="cuda", tmp=tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if "\ndevice_model " not in text:
+        raise AssertionError("phase 16d: no device_model row")
+    for line in text.splitlines():
+        if not line.startswith("  diff"):
+            log(f"phase 16d: {line}")
+    return text
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:  # one rank of a phase 14 search
         return rank_main(sys.argv[2], sys.argv[3:])
@@ -2574,6 +2760,13 @@ def main() -> int:
                 ["--mesh-bins", "2"], ("K5", "K2n"), card))
         t14 += time.perf_counter() - t0
         log(f"phase 14: {t14:.1f} s")
+        # ---- phase 16c on phase 7's data and its cpu index
+        t16 = time.perf_counter()
+        with phase(f"phase 16c ({args.hier_genomes} genomes)"):
+            choice = {args.hier_genomes: layout_choice(
+                torch, os.path.join(work, "hier"), f"g{args.hier_genomes}",
+                hier, cpu_built=(hier["idx"], hier["index"]))}
+        t16 = time.perf_counter() - t16
         for done in ("hier", "minimizer"):
             shutil.rmtree(os.path.join(work, done), ignore_errors=True)
         with phase("phase 13b"):
@@ -2599,6 +2792,27 @@ def main() -> int:
         with phase("phase 15b (the at-scale demo)"):
             atscale = atscale_path(torch, os.path.join(work, "atscale"),
                                    args.atscale_reads)
+        shutil.rmtree(os.path.join(work, "atscale"), ignore_errors=True)
+        # ---- phase 16: the layout cost model on the card
+        t0 = time.perf_counter()
+        with phase("phase 16a"):
+            check_routing(torch, probe)
+        with phase("phase 16b"):
+            fit = check_fit(torch)
+        with phase(f"phase 16c ({CHOICE_GENOMES} genomes)"):
+            choice[CHOICE_GENOMES] = layout_choice(
+                torch, os.path.join(work, "choice"), f"g{CHOICE_GENOMES}",
+                new_reference_set(np.random.default_rng(SEED + 16),
+                                  os.path.join(work, "choice"),
+                                  CHOICE_GENOMES, CHOICE_READS))
+        with phase("phase 16d"):
+            invariance_on_card()
+        t16 += time.perf_counter() - t0
+        log(f"phase 16: {t16:.1f} s; " + json.dumps({
+            "fit": {n: {rt: [r["ms"], r["model_ms"]]
+                        for rt, r in rec["routes"].items()}
+                    for n, rec in fit["shapes"].items()},
+            "choice": choice}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     runs = [flat["launches"], flat["split"], hier["launches"], hier["split"],

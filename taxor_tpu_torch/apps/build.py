@@ -39,8 +39,9 @@ class BuildConfig:
     use_syncmer: bool = False
     layout_mode: str = "auto"  # 'auto' (DP) | 'flat'
     # layout scoring: 'cpu' = reference-style expected-HIBF-query-cost;
-    # 'device' = TPU probe-pass model (hixf/binning.py
-    # _expected_query_cost_device), which also considers a flat layout
+    # 'device' = the port's probe kernels on the H100 (hixf/device_cost.py
+    # via binning._expected_query_cost_device), which also considers a
+    # flat layout
     layout_cost: str = "cpu"
     layout_file: str = "binning.out"
     tmax: int = 4096

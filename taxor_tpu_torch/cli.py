@@ -45,9 +45,11 @@ def _add_build(sub):
     p.add_argument("--layout-cost", default="cpu",
                    choices=["cpu", "device"],
                    help="layout scoring model: cpu = reference-style "
-                        "expected query cost; device = the JAX package's "
-                        "TPU probe-pass model (hixf/binning.py), which may "
-                        "choose a flat layout")
+                        "expected query cost (the JAX package's layouts); "
+                        "device = the port's probe kernels on the H100 "
+                        "(hixf/device_cost.py, device ms a read), which may "
+                        "choose a flat layout; its layouts differ from the "
+                        "JAX package's TPU model by design")
     p.add_argument("--tmax", type=int, default=4096)
     p.add_argument("--spill-dir", default="",
                    help="spill per-genome hash sets to this directory to "

@@ -38,6 +38,14 @@ def syncmer_hashes_scalar(codes: np.ndarray, k: int, s: int, t: int) -> list[int
 
     Returns hashes in emission order (duplicates kept; callers dedup).
     """
+    return [int(wyhash64(np.uint64(yk)))
+            for _, yk in syncmer_emissions_scalar(codes, k, s, t)]
+
+
+def syncmer_emissions_scalar(codes: np.ndarray, k: int, s: int,
+                             t: int) -> list[tuple[int, int]]:
+    """The scan of syncmer_hashes_scalar: (end position, canonical k-mer)
+    of each emission, in order."""
     kmask = (1 << (2 * k)) - 1
     smask = (1 << (2 * s)) - 1
     kshift = (k - 1) * 2
@@ -47,7 +55,7 @@ def syncmer_hashes_scalar(codes: np.ndarray, k: int, s: int, t: int) -> list[int
     qs_min_pos = -1
     l = 0
     xk0 = xk1 = xs0 = xs1 = 0
-    out: list[int] = []
+    out: list[tuple[int, int]] = []
     w = k - s + 1
     for i, c in enumerate(codes):
         c = int(c)
@@ -81,8 +89,7 @@ def syncmer_hashes_scalar(codes: np.ndarray, k: int, s: int, t: int) -> list[int
                     qs_min_val = ys
                     qs_min_pos = i - s + 1
             if qs_min_pos == i - k + t:
-                yk = min(xk0, xk1)
-                out.append(int(wyhash64(np.uint64(yk))))
+                out.append((i, min(xk0, xk1)))
         else:
             qs_min_val = (1 << 64) - 1
             qs_min_pos = -1

@@ -27,10 +27,11 @@ Documented deviations from chopper:
   - similarity-based user-bin rearrangement uses greedy HLL-Jaccard
     nearest-neighbor chaining (see ``rearrange_bins``) instead of
     chopper's interval-wise agglomerative clustering,
-  - the expected-query-cost model is TPU-native: probing a level with B
-    technical bins costs ``c0 + B/512`` relative units (lane tiles per
-    probe row), weighted by each user bin's share of hashes, instead of
-    chopper's CPU-measured interpolation table.
+  - the expected-query-cost model is a proxy: probing a level with B
+    technical bins costs ``c0 + B/512`` relative units, averaged over
+    user bins, instead of chopper's CPU-measured interpolation table;
+    ``cost_model="device"`` scores layouts by the port's probe kernels
+    on the H100 instead (hixf/device_cost.py).
 """
 
 from __future__ import annotations
@@ -333,10 +334,11 @@ def _build_node(bins: list[_Bin], tmax: int,
 
 
 def _expected_query_cost(node: LayoutNode, c0: float = 1.0) -> float:
-    """TPU-native proxy for chopper's expected_HIBF_query_cost: reaching a
-    user bin costs, for every level on its path, c0 + bins/512 relative
-    units (probe rows are processed in 512-bin packed lane tiles).
-    Averaged over user bins (uniform read weights)."""
+    """The ``cpu`` model, the JAX package's proxy for chopper's
+    expected_HIBF_query_cost, kept as it is so that its layouts stay the
+    JAX package's: reaching a user bin costs, for every level on its path,
+    c0 + bins/512 relative units.  Averaged over user bins (uniform read
+    weights)."""
 
     def count_leaves(n: LayoutNode) -> int:
         return len(n.records) + sum(
@@ -353,47 +355,17 @@ def _expected_query_cost(node: LayoutNode, c0: float = 1.0) -> float:
     return cost(node, 0.0) / max(1, count_leaves(node))
 
 
-def _expected_query_cost_device(node: LayoutNode) -> float:
-    """Expected per-read probe cost under the TPU engine, in units of
-    one narrow VMEM probe pass.  This is the JAX package's TPU model,
-    kept as it is; a model of the H100 kernels is ROADMAP A.10.
+def _expected_query_cost_device(node: LayoutNode, scaling: int = 1) -> float:
+    """Expected device milliseconds a read of the probe launches of a
+    search batch on the index this layout gives, on the port's H100
+    kernels: the routes and widths of the flat step's probe or of each
+    stacked descent group, each launch's host call, and a scaled scheme's
+    descend-all descent (hixf/device_cost.py).  The JAX package's
+    function of this name models the TPU; the port models its own card,
+    so ``device`` layouts differ from the JAX package's by design."""
+    from .device_cost import layout_ms_per_read
 
-    The TPU probe is SCALAR-ISSUE bound (PHASES_r04.md §1): per level a
-    read pays the column-tile count of the
-    fingerprint block it must touch, NOT the per-bin byte count the CPU
-    model rewards.  Pruning therefore only helps once a level's block
-    exceeds one VMEM tile: at the root every read is active in every
-    subgroup (full width); a descended child costs one 512-bin subgroup
-    of its level.  This flips the layout choice for mid-size references
-    — a few thousand bins fit ONE VMEM tile, where flat (one pass) beats
-    any tree (>= 2 passes) — while at GTDB scale deep trees win again.
-    """
-    from ..ixf.xor_filter import ixf_geometry
-
-    TILE = 7 * 2 ** 20  # scoped-VMEM budget per block (pallas_probe)
-    C0 = 0.25           # launch/metadata overhead per level, in passes
-
-    def tiles(n: LayoutNode, is_root: bool) -> float:
-        card = max(1.0, float(getattr(n, "est_max_card", 1.0)))
-        _, slots = ixf_geometry(int(math.ceil(card)))
-        s1 = max(3 * 1024, slots)  # p10 block padding floor
-        bins_pad = max(512, -(-n.num_technical_bins // 512) * 512)
-        width = bins_pad if is_root else min(512, bins_pad)
-        return max(1.0, (s1 * width) / TILE)
-
-    def count_leaves(n: LayoutNode) -> int:
-        return len(n.records) + sum(
-            count_leaves(ch) for ch in n.children.values()
-        )
-
-    def cost(n: LayoutNode, path_cost: float, is_root: bool) -> float:
-        here = path_cost + C0 + tiles(n, is_root)
-        total_c = len(n.records) * here
-        for ch in n.children.values():
-            total_c += cost(ch, here, False)
-        return total_c
-
-    return cost(node, 0.0, True) / max(1, count_leaves(node))
+    return layout_ms_per_read(node, scaling)
 
 
 _REARRANGE_BLOCK = 8192
@@ -482,10 +454,13 @@ def compute_layout_from_hashes(
     hibf_statistics::print_summary behind --output-verbose-statistics
     (taxor_build.cpp:213).
     cost_model: 'cpu' scores candidate layouts with the reference-style
-    expected-HIBF-query-cost proxy; 'device' scores them with the TPU
-    probe-pass model (_expected_query_cost_device) and additionally
-    considers a FLAT layout — on the device a single-VMEM-tile flat
-    index beats any tree, which the CPU model can never discover.
+    expected-HIBF-query-cost proxy (the JAX package's layouts, byte for
+    byte); 'device' scores them with the model of the port's H100 probe
+    kernels (_expected_query_cost_device, in device ms a read) and
+    additionally considers a FLAT layout, which one probe launch serves
+    where a tree pays a launch a level — a choice the CPU model can never
+    make.  Its layouts differ from the JAX package's (a TPU model) by
+    design.
     artifacts_prefix: emit the counting-stage artifacts the reference
     leaves behind (taxor_build.cpp:437-442): <prefix>.count (one line per
     cluster: files;...<TAB>estimate<TAB>accession) and
@@ -542,8 +517,12 @@ def compute_layout_from_hashes(
     )
     candidates = [t for t in candidates if t <= max(tmax, 64)] or [64]
 
-    cost_fn = (_expected_query_cost_device if cost_model == "device"
-               else _expected_query_cost)
+    if cost_model == "device":
+        def cost_fn(node):
+            return _expected_query_cost_device(node, scaling)
+        unit = " device ms a read"
+    else:
+        cost_fn, unit = _expected_query_cost, ""
     # ONE union band for the whole sweep: it depends only on the entry
     # order, so every tmax candidate and every recursion level (row
     # slices) share it — at 24.5k bins this was most of the 63-minute
@@ -566,14 +545,14 @@ def compute_layout_from_hashes(
         best_cost = cost_fn(flat)
         best_t = 0
         if verbose:
-            print(f"## flat\texpected device query cost = "
-                  f"{best_cost:.4f}", flush=True)
+            print(f"## flat\texpected query cost = {best_cost:.6f}{unit}",
+                  flush=True)
     for t in candidates:
         node = _build_node(entries, t, ubT)
         cost = cost_fn(node)
         if verbose:
-            print(f"## t_max = {t}\texpected query cost = {cost:.4f}",
-                  flush=True)
+            print(f"## t_max = {t}\texpected query cost = "
+                  f"{cost:.{6 if unit else 4}f}{unit}", flush=True)
         if cost < best_cost:
             best_cost = cost
             best_node = node
@@ -582,7 +561,8 @@ def compute_layout_from_hashes(
             break
     if verbose:
         print(f"## chosen t_max = {best_t}\t(expected query cost "
-              f"{best_cost:.4f}, {n} user bins)", flush=True)
+              f"{best_cost:.{6 if unit else 4}f}{unit}, {n} user bins)",
+              flush=True)
     return best_node
 
 

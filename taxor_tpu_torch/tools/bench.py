@@ -19,8 +19,10 @@ The port of the JAX package's bench.py, at the same configs and sizes:
   hier_1024           2,048 reads, 1,024 genomes, --layout auto --tmax 64
                       (hierarchical: the level-grouped descent)
   device_layout_1024  the same under the build's "device" layout cost
-                      model, which is the JAX package's TPU model copied
-                      (hixf/binning.py; a GPU model is ROADMAP A.10)
+                      model, the port's H100 kernels (hixf/device_cost.py;
+                      its layouts differ from the JAX package's by
+                      design), its record labelled with the card the
+                      model was fitted on
   stress_identical    1,024 reads over 64 near-identical genomes (top-k
                       truncation stress; measured again at top-k 256)
 
@@ -217,7 +219,9 @@ def bench_config(name, device, root, *, n_species, genome_len, n_reads,
                   baseline_32x_reads_per_s=baseline,
                   baseline_32thread_on_this_host_reads_per_s=r32)
     if layout_cost == "device":
-        result["layout_cost_model"] = "tpu (ROADMAP A.10)"
+        from ..hixf.device_cost import FIT_CARD
+
+        result["layout_cost_model"] = FIT_CARD
     # the index pre-seeds the top-k ladder from build-time homology; the
     # first dispatch starts there, as the pipeline's does
     sugg = int(getattr(index, "suggested_topk", 16))

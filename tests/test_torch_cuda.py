@@ -1123,3 +1123,43 @@ def test_wide_root_changes_route_when_sharded(cuda):
     torch.cuda.synchronize()
     assert probe.k2n_counts.LAUNCHES == before[1] + 2
     assert torch.equal(total, whole) and int(whole.max()) > 0
+
+
+def test_host_routing_rules_equal_the_card(cuda):
+    """The layout cost model's host copies of probe_slab_bins and
+    probe_narrow_mode (hixf/device_cost.py) on chip_smoke phase 16a's
+    grid."""
+    from taxor_tpu_torch.hixf import device_cost
+
+    bad = [(s, b) for s, b in device_cost.routing_grid()
+           if probe.slab_bins(s, b, cuda) != device_cost.slab_bins(s, b)
+           or probe.narrow_mode(s, b, cuda) != device_cost.narrow_mode(s, b)]
+    assert not bad, bad[:10]
+
+
+# bench_gather_scale's routes at reduced shapes: (route, G, S, bins,
+# active, runs)
+GATHER_ROUTES = [("k2_rows", 1, 1 << 18, 64, "all", False),
+                 ("k2_slab", 1, 3606, 1024, "all", False),
+                 ("k2n_rows", 4, 10524, 512, "one", True),
+                 ("k2n_rows", 1, 1 << 18, 256, "all", False),
+                 ("k2n_smem", 32, 216, 512, 40, True),
+                 ("k2n_smem", 8, 800, 256, "all", True),
+                 ("call", 8, 216, 512, "none", True),
+                 ("descent", 8, 216, 512, "none", True)]
+
+
+@pytest.mark.parametrize("rt,G,S,bins,active,runs", GATHER_ROUTES)
+def test_bench_gather_scale_routes_match_twins(cuda, rt, G, S, bins,
+                                               active, runs):
+    from taxor_tpu_torch.tools import bench_gather_scale as bgs
+
+    sh = bgs.Shape((rt,), G, S, bins, R=128, H=256, nvalid=200,
+                   active=active, runs=runs)
+    x = bgs.inputs(np.random.default_rng(G + S), sh, cuda)
+    got = bgs.route_fn(rt, x, sh, True)(x["hi"])
+    want = bgs.plain_of(rt, x, sh)(x["hi"])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    call, dev = bgs.model_ms(rt, x, sh)
+    assert call >= dev > 0

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of taxor_tpu_torch on one CUDA GPU (built for the H100).
 
-    python3 chip_smoke.py                 # full size, ~15-19 min on an H100
+    python3 chip_smoke.py                 # full size, ~8 min on an H100
     python3 chip_smoke.py --genomes 600 --reads 512 --hier-genomes 200 \
         --minimizer-genomes 200 --hier-reads 512 \
         --atscale-reads 2048                    # quick start check
+    python3 chip_smoke.py --only-routes   # the kernel build and phase 17
 
 Phases (any failure exits non-zero):
-  1. card and build: prints nvidia-smi's name and power limit, builds
+  1. card and build: prints nvidia-smi's name and power limit, starts
+     the background builds (below), builds
      the CUDA kernels from taxor_tpu_torch/csrc (the search's library and
      the diagnostic library of csrc/diag/, every nvcc started together)
      and times the build;
@@ -116,7 +118,8 @@ Phases (any failure exits non-zero):
      words, and on rows of L/16 - 3 words (no multiple of 4);
  12. the tooling path, with every launch count set to 0 just before it:
      ``tools.bench`` on its primary config (viral_flat_256) with its
-     parity gate (five scheme/layout families, device TSV == host TSV),
+     parity gate (eleven scheme/layout families, device TSV == host TSV;
+     narrow_syncmer's reads must all overflow the hash capacity),
      ``tools.probe_bounds``, ``tools.probe_experiments`` (its three
      experiment lists) and ``tools.profile_phases`` at the JAX tools'
      sizes (R=8192, H=512, nvalid=173; build_problem's 8,192 reads), and
@@ -156,7 +159,8 @@ Phases (any failure exits non-zero):
      ``HIXF.membership``); (b) plain k-mers (k =
      window = 20) on a flat index of 1,024 genomes (K5 at w' = 1, K2
      on a table of ~40,000
-     slots: its rows route) with 4,096 reads plus the long ones, checked
+     slots: its rows route) with 4,096 reads plus the long ones (data
+     of its own, as (a)'s), checked
      as (a).  **Cut:** from the flat cell's 4,096 genomes and 8,192
      reads, for the script's time limit; (e) the hier_scaled_minimizer
      scheme whole (k = 20, --window-size 26, --scaling 3: the FracMinHash
@@ -233,7 +237,30 @@ Phases (any failure exits non-zero):
      ``--engine host`` on the first CHECK_READS reads and the long ones;
      (d) ``tools.layout_invariance`` at 100 species and 400 reads on the
      card, its table (with the device_model row) logged.  The launches
-     of phase 16 are counted in no record.
+     of phase 16 are counted in no record;
+ 17. the routes of the device search that no main path takes, on
+     ROUTE_CLUSTERS (12) species of ROUTE_STRAINS (80) strains each
+     (the species' random 30 kb ancestor with 0.5% substitutions) and
+     ROUTE_SINGLES (64) unrelated genomes, with ROUTE_READS (4,096)
+     reads of phase 4's recipe and the long ones; every search through
+     ``cli search --engine device`` with the launch counts set to 0 just
+     before and read just after, its TSV equal to ``--engine host`` byte
+     for byte on every read (every read that took a fallback among
+     them): (a) k = 22, s = 12 syncmers, --layout flat (K1, K2's slab
+     route), as built and from a copy saved with suggested_topk = 16 and
+     searched through ``pipeline.run_search`` in batches of ROUTE_BATCH
+     (256) reads (the CLI has no batch flag; its 1,024 would start four
+     of five batches together at k = 16): the copy's top-k ladder must
+     climb 16 -> 64 -> 256 (``topk_escalations`` >= 2, truncated reads
+     decided by the host oracle); (b) the same scheme with --scaling 3,
+     --layout flat (K1, the FracMinHash keep as tensor ops, K2's slab
+     route); (c) (b)'s scheme with --layout auto --tmax 64 (the
+     count-table descent on K2n, its thresholds indexed by the count
+     kept: fewer than all (subgroup, read) pairs active), a hierarchy of
+     more than one IXF.  (b) and (c) must keep ~1/3 of (a)'s hashes
+     (0.28-0.39 on the reads both classify).  Its launches join the
+     kernels records' main-path launches.
+     ``--only-routes`` runs the kernel build and phase 17 alone.
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -241,6 +268,14 @@ once) over the H100's 3.35 TB/s and its operations over the peak rate
 for their type (the H100's dense peak rates; 64-bit key compares and
 the tracker's integer operations, which have no entry, at the 67
 TFLOP/s scalar fp32 rate; ``tracker_ops`` counts them).
+
+The host builds that phases 13a, 13b/13e, 15b, 16c and 17 search (their
+data, the indexes, the at-scale demo's gen and build stages) run from the
+start in processes of this script of their own (``--prebuild``, PREBUILDS)
+at the lowest CPU priority, while the card runs the phases before them;
+phase 16's timed gates run after all of them have ended.  The order of
+the phases: 1-4, 5 and 10, 14a/d/e, 6, 7, 8, 13c, 13a, 13d, 14b, 14c,
+13b, 13e, 15, 16 (16c on phase 7's data, then on its own), 17, 11, 12.
 
 The second-to-last line of stdout is nvidia-smi's name and power limit;
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.  The
@@ -252,6 +287,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -734,12 +770,18 @@ def check_sorts(torch, sort, rng) -> None:
 
 # ------------------------------------------------------- main path data --
 def make_genomes(rng, root: str, n: int, glen: int) -> tuple[str, str, list]:
+    return write_genomes(root, (ACGT[rng.integers(0, 4, glen)].tobytes()
+                                for _ in range(n)))
+
+
+def write_genomes(root: str, seqs) -> tuple[str, str, list]:
+    """The genomes' FASTA files and taxonomy TSV under root; returns (the
+    TSV, the genome directory, [(accession, sequence)])."""
     gdir = os.path.join(root, "genomes")
     os.makedirs(gdir)
     rows, genomes = [], []
-    for i in range(n):
+    for i, seq in enumerate(seqs):
         acc = f"GCF_{i:06d}.1"
-        seq = ACGT[rng.integers(0, 4, glen)].tobytes()
         genomes.append((acc, seq))
         with open(os.path.join(gdir, f"{acc}_genomic.fna"), "wb") as fh:
             fh.write(b">" + acc.encode() + b" chromosome\n" + seq + b"\n")
@@ -840,11 +882,13 @@ def cli_build(work: str, tsv: str, gdir: str, flags: list[str],
     return idx, index
 
 
-def device_search(torch, idx: str, reads: str, out: str,
-                  label: str) -> tuple[dict, dict, float, float]:
+def device_search(torch, idx: str, reads: str, out: str, label: str,
+                  batch_size: int = 0) -> tuple[dict, dict, float, float]:
     """``cli search --engine device`` with every launch count set to 0
     just before and read just after; (launches, routes, wall s, peak
-    device MiB)."""
+    device MiB).  batch_size: search through the function the CLI calls,
+    ``pipeline.run_search``, with the CLI's settings but batches of this
+    many reads (the CLI's are 1,024)."""
     from taxor_tpu_torch import cli
     from taxor_tpu_torch.device import launches as launch_counts
     from taxor_tpu_torch.search import pipeline
@@ -852,10 +896,17 @@ def device_search(torch, idx: str, reads: str, out: str,
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
-                   "--output-file", out, "--engine", "device",
-                   "--device", "cuda", "--write-time", "--threads",
-                   str(os.cpu_count() or 1)])
+    if batch_size:
+        pipeline.run_search(pipeline.SearchConfig(
+            index_file=idx, query_file=reads, report_file=out,
+            threads=os.cpu_count() or 1, engine="device", write_time=True,
+            batch_size=batch_size), device="cuda")
+        rc = 0
+    else:
+        rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
+                       "--output-file", out, "--engine", "device",
+                       "--device", "cuda", "--write-time", "--threads",
+                       str(os.cpu_count() or 1)])
     wall = time.perf_counter() - t0
     launches = launch_counts.read()
     routes = dict(pipeline.ROUTES.counts)
@@ -1542,10 +1593,11 @@ def kmer_data(rng, work: str, n_genomes: int, n_reads: int) -> dict:
             "n_reads": n_reads}
 
 
-def nonsyncmer_path(torch, work: str, label: str, data: dict, flags,
-                    layout: str, need) -> dict:
-    """Phase 13a/13b: ``cli build`` of a minimiser or plain k-mer index on
-    ``data``'s genomes, ``cli search --engine device`` of its reads with
+def nonsyncmer_path(torch, work: str, label: str, data: dict,
+                    need) -> dict:
+    """Phase 13a/13b: the minimiser or plain k-mer index ``label`` that a
+    background build made of ``data``'s genomes (``data["idx"]``),
+    ``cli search --engine device`` of its reads with
     the launch counts set to 0 just before and read just after; the
     kernels ``need`` must have launched, every read up to L_CAP must take
     the fused step and only the reads over it the host-hash route, and
@@ -1553,10 +1605,11 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict, flags,
     and the long ones.  The share of classified reads that name their
     source genome is logged, not gated."""
     from taxor_tpu_torch.device.hixf_search import ACTIVITY
+    from taxor_tpu_torch.hixf.index import load_index
 
     recs, n_reads = data["recs"], data["n_reads"]
-    idx, index = cli_build(work, data["tsv"], data["gdir"], flags, layout,
-                           label)
+    idx = data["idx"][label]
+    index = load_index(idx)
     out_dev = os.path.join(work, f"{label}_device.tsv")
     launches, routes, wall, peak = device_search(
         torch, idx, data["reads"], out_dev, label)
@@ -1583,6 +1636,33 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict, flags,
             "routes": routes, "peak_mib": peak, "wall": wall,
             "active_share": active, "idx": idx, "device_tsv": out_dev,
             "reads": data["reads"]}
+
+
+MM_FLAGS = ["--kmer-size", str(MM_K), "--window-size", str(MM_WINDOW),
+            "--scaling", str(MM_SCALING)]
+KMER_FLAGS = ["--kmer-size", str(MM_K), "--window-size", str(MM_K)]
+
+
+def build_minimizer(work: str, genomes: int, reads: int) -> dict:
+    """Phase 13a's data (phase 7's recipe on data of its own) and its
+    index under the bench family's whole scheme, --layout auto (a
+    background build)."""
+    data = kmer_data(np.random.default_rng(SEED + 14), work, genomes, reads)
+    data["idx"] = {"minimizer": cli_build(work, data["tsv"], data["gdir"],
+                                          MM_FLAGS, "auto", "minimizer")[0]}
+    return data
+
+
+def build_kmer(work: str, genomes: int, reads: int) -> dict:
+    """Phase 13b's data and its flat plain k-mer index, and phase 13e's
+    flat index of the same genomes under 13a's scheme (a background
+    build)."""
+    data = kmer_data(np.random.default_rng(SEED + 13), work, genomes, reads)
+    data["idx"] = {
+        label: cli_build(work, data["tsv"], data["gdir"], flags, "flat",
+                         label)[0]
+        for label, flags in (("kmer", KMER_FLAGS), ("scaled", MM_FLAGS))}
+    return data
 
 
 def time_k5(torch, state) -> dict:
@@ -2426,9 +2506,28 @@ def check_big_tables(torch, probe) -> list[dict]:
     return out
 
 
-def atscale_path(torch, work: str, n_reads: int) -> dict:
+def atscale_demo(work: str, n_reads: int):
+    """Phase 15b's ``at_scale_demo.Demo``: one block of 1,024 genomes and
+    n_reads reads under work."""
+    from taxor_tpu_torch.tools import at_scale_demo as demo
+
+    os.makedirs(work, exist_ok=True)
+    return demo.Demo(work=work, result=os.path.join(work, "atscale.json"),
+                     seq_gb=ATSCALE_SEQ_GB, n_reads=n_reads, device="cuda")
+
+
+def build_atscale(work: str, reads: int) -> dict:
+    """Phase 15b's background build: the demo's gen and build stages."""
+    from taxor_tpu_torch.tools import at_scale_demo as demo
+
+    d = atscale_demo(work, reads)
+    return {"gen": demo.gen(d), "build": demo.build(d)}
+
+
+def atscale_path(torch, work: str, n_reads: int, built: dict) -> dict:
     """Phase 15b: the port's at-scale demo (tools/at_scale_demo.py) at
-    one block of 1,024 genomes and n_reads reads, gen -> build ->
+    one block of 1,024 genomes and n_reads reads, gen -> build (``built``:
+    their records, from ``build_atscale`` in the background) ->
     search -> parity.  The search's launches are the demo's own count
     around its three ``search_single`` calls (``search_launches``: the
     cold one and both warm ones; not the burst that follows them).
@@ -2437,11 +2536,8 @@ def atscale_path(torch, work: str, n_reads: int) -> dict:
     byte and 99% of the classified reads naming their source."""
     from taxor_tpu_torch.tools import at_scale_demo as demo
 
-    os.makedirs(work, exist_ok=True)
-    d = demo.Demo(work=work, result=os.path.join(work, "atscale.json"),
-                  seq_gb=ATSCALE_SEQ_GB, n_reads=n_reads, device="cuda")
-    gen = demo.gen(d)
-    build = demo.build(d)
+    d = atscale_demo(work, n_reads)
+    gen, build = built["gen"], built["build"]
     if build["n_ixfs"] < 2 or build["depth"] < 2:
         raise AssertionError(f"phase 15: the index is not hierarchical: "
                              f"{build}")
@@ -2472,6 +2568,10 @@ SYNCMER_FLAGS = ["--kmer-size", str(K), "--syncmer-size", str(S),
                  "--use-syncmer"]
 # phase 16c's second reference set (phase 7's recipe), besides phase 7's
 CHOICE_GENOMES, CHOICE_READS = 1024, 2048
+# phase 16c's layouts: name -> (--layout, further build flags)
+LAYOUTS = {"flat": ("flat", []), "cpu": ("auto", []),
+           "device": ("auto", ["--layout-cost", "device",
+                               "--output-verbose-statistics"])}
 # the device model's layout may take at most this much longer than the
 # fastest of the three layouts (16c), and its predictions of
 # bench_gather_scale's calls must fall within MODEL_SLACK of them (16b);
@@ -2537,12 +2637,37 @@ def check_fit(torch) -> dict:
     return out
 
 
-def layout_choice(torch, work: str, label: str, data: dict,
-                  cpu_built=None) -> dict:
+def build_layouts(work: str, label: str, tsv: str, gdir: str,
+                  names) -> dict:
+    """Phase 16c's indexes of one reference set under work: {name: its
+    file} for the LAYOUTS ``names``."""
+    os.makedirs(work, exist_ok=True)
+    return {name: cli_build(work, tsv, gdir, SYNCMER_FLAGS + LAYOUTS[name][1],
+                            LAYOUTS[name][0], f"{label}_{name}")[0]
+            for name in names}
+
+
+def build_choice(work: str, genomes: int, reads: int) -> dict:
+    """Phase 16c's second reference set and its three layouts (a
+    background build)."""
+    data = new_reference_set(np.random.default_rng(SEED + 16), work,
+                             genomes, reads)
+    data["idx"] = build_layouts(work, f"g{genomes}", data["tsv"],
+                                data["gdir"], LAYOUTS)
+    return data
+
+
+def build_hier_layouts(work: str, label: str, tsv: str, gdir: str) -> dict:
+    """Phase 16c's flat and device layouts of phase 7's genomes (a
+    background build; phase 7's own index is the cpu layout)."""
+    return {"idx": build_layouts(work, label, tsv, gdir, ("flat", "device"))}
+
+
+def layout_choice(torch, work: str, label: str, data: dict) -> dict:
     """Phase 16c: three layouts of one reference set (data: tsv, gdir,
-    recs, n_reads): flat, the cpu model's and the device model's at
-    --tmax TMAX (cpu_built: the cpu model's (index file, index), built
-    already).  Each one's fused step on the L=8192 bucket (R = 512 reads,
+    recs, n_reads, and idx: {"flat", "cpu", "device": the index file},
+    built already): flat, the cpu model's and the device model's at
+    --tmax TMAX.  Each one's fused step on the L=8192 bucket (R = 512 reads,
     DeviceHIXF.e2e_async with its collect, CUDA events, the least of four
     means of 20 calls in turns a, b, c, c, b, a, a, b, c, c, b, a) beside
     the device model's ms a read of its probe launches
@@ -2552,18 +2677,12 @@ def layout_choice(torch, work: str, label: str, data: dict,
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
     from taxor_tpu_torch.hash import device_syncmer as dsync
     from taxor_tpu_torch.hixf import device_cost
+    from taxor_tpu_torch.hixf.index import load_index
     from taxor_tpu_torch.search.thresholds import Thresholder
 
     os.makedirs(work, exist_ok=True)
-    built = {}
-    for name, layout, extra in (
-            ("flat", "flat", []), ("cpu", "auto", []),
-            ("device", "auto", ["--layout-cost", "device",
-                                "--output-verbose-statistics"])):
-        built[name] = (cpu_built if name == "cpu" and cpu_built else
-                       cli_build(work, data["tsv"], data["gdir"],
-                                 SYNCMER_FLAGS + extra, layout,
-                                 f"{label}_{name}"))
+    built = {name: (data["idx"][name], load_index(data["idx"][name]))
+             for name in LAYOUTS}
     th = Thresholder.make(K, K, 0.04, -1.0, True)
     seqs = bucket_reads(data["recs"], 8192)
     packed, lengths = dsync.pack_reads(seqs, 8192)
@@ -2634,9 +2753,257 @@ def invariance_on_card() -> str:
     return text
 
 
+# ------------------------------------------------------------ phase 17 --
+# phase 17's reference set: ROUTE_CLUSTERS species of ROUTE_STRAINS
+# strains each (the species' ancestor with ROUTE_DIVERGENCE substitutions),
+# as RefSeq holds many strains of one species, and ROUTE_SINGLES genomes
+# of no cluster; ROUTE_READS reads of phase 4's recipe and LONG_READS
+ROUTE_CLUSTERS, ROUTE_STRAINS, ROUTE_SINGLES = 12, 80, 64
+ROUTE_DIVERGENCE = 0.005
+ROUTE_READS = 4096
+ROUTE_SCALING = 3  # 17b and 17c: --scaling 3 keeps ~1/3 of the hashes
+# batches of the top-k copy's search: 17 of them, so that batches start
+# after each step of the ladder (the CLI's 1,024 give 5, and the first
+# four start together at k = 16)
+ROUTE_BATCH = 256
+
+
+def strain_set(rng, work: str) -> dict:
+    """Phase 17's genomes (ROUTE_CLUSTERS x ROUTE_STRAINS strains, then
+    ROUTE_SINGLES unrelated ones, all of GENOME_LEN) and reads."""
+    os.makedirs(work)
+    seqs = []
+    for _ in range(ROUTE_CLUSTERS):
+        ancestor = ACGT[rng.integers(0, 4, GENOME_LEN)]
+        seqs += [mutate(rng, ancestor.copy(), ROUTE_DIVERGENCE)
+                 for _ in range(ROUTE_STRAINS)]
+    seqs += [ACGT[rng.integers(0, 4, GENOME_LEN)].tobytes()
+             for _ in range(ROUTE_SINGLES)]
+    tsv, gdir, genomes = write_genomes(work, seqs)
+    recs = make_reads(rng, genomes, ROUTE_READS, LONG_READS)
+    reads = os.path.join(work, "reads.fasta")
+    write_fasta(reads, recs)
+    return {"tsv": tsv, "gdir": gdir, "reads": reads, "recs": recs}
+
+
+def hash_counts(path: str) -> dict:
+    """{read id: QHASH_COUNT} of a TSV's classified reads."""
+    counts = {}
+    for row in tsv_rows(path):
+        cols = row.split("\t")
+        if len(cols) == 10:
+            counts.setdefault(cols[0], int(cols[6]))
+    return counts
+
+
+def route_search(torch, work: str, label: str, idx: str, data: dict, need,
+                 batch_size: int = 0, host_tsv: str = "") -> dict:
+    """One search of phase 17 through ``device_search``, the kernels
+    ``need`` launched, every read up to L_CAP fused and the long ones
+    hashed on the host; its TSV must equal ``--engine host`` byte for byte
+    on every read (those that took a fallback among them), run here or
+    given as ``host_tsv``."""
+    from taxor_tpu_torch import cli
+    from taxor_tpu_torch.device.hixf_search import ACTIVITY
+    from taxor_tpu_torch.search import pipeline
+
+    out_dev = os.path.join(work, f"{label}_device.tsv")
+    launches, routes, wall, peak = device_search(torch, idx, data["reads"],
+                                                 out_dev, label, batch_size)
+    active = ACTIVITY.share()
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"[{label}] the search skipped one of {need}: "
+                             f"{launches}")
+    if routes["fused"] != ROUTE_READS or routes["host_hashes"] != LONG_READS:
+        raise AssertionError(f"[{label}] routes {routes}: expected every "
+                             f"read up to L_CAP fused")
+    t0 = time.perf_counter()
+    if not host_tsv:
+        host_tsv = os.path.join(work, f"{label}_host.tsv")
+        rc = cli.main(["search", "--index-file", idx, "--query-file",
+                       data["reads"], "--output-file", host_tsv, "--engine",
+                       "host", "--device", "cuda", "--threads",
+                       str(os.cpu_count() or 1)])
+        if rc != 0:
+            raise RuntimeError(f"[{label}] host search failed ({rc})")
+    with open(out_dev, "rb") as fa, open(host_tsv, "rb") as fb:
+        if fa.read() != fb.read():
+            dev_rows, host_rows = tsv_rows(out_dev), tsv_rows(host_tsv)
+            bad = next((i for i, (a, b) in enumerate(zip(dev_rows,
+                                                         host_rows))
+                        if a != b), min(len(dev_rows), len(host_rows)))
+            raise AssertionError(f"[{label}] device TSV differs from host "
+                                 f"TSV at row {bad} ({len(dev_rows)} vs "
+                                 f"{len(host_rows)} rows)")
+    n = len(data["recs"])
+    log(f"[{label}] {n} reads in {wall:.2f} s wall; launches {launches}; "
+        f"routes {routes} (host-oracle fallback "
+        f"{routes['host_fallback'] / n:.4f}); "
+        f"active (subgroup, read) pairs {active:.4f}; peak device memory "
+        f"{peak:.1f} MiB; TSV == --engine host byte for byte on all {n} "
+        f"reads (host engine {time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "routes": routes,
+            "active_share": active, "wall": wall, "device_tsv": out_dev,
+            "host_tsv": host_tsv}
+
+
+def build_routes(work: str) -> dict:
+    """Phase 17's strain set and its indexes (a background build): 17a
+    k = 22, s = 12 syncmers flat, 17b the same with --scaling 3 flat, 17c
+    17b's scheme --layout auto --tmax 64."""
+    t0 = time.perf_counter()
+    data = strain_set(np.random.default_rng(SEED + 17), work)
+    log(f"[routes] data: {ROUTE_CLUSTERS} species x {ROUTE_STRAINS} "
+        f"strains ({ROUTE_DIVERGENCE:.1%} substitutions from the species' "
+        f"ancestor) + {ROUTE_SINGLES} genomes x {GENOME_LEN} b, "
+        f"{ROUTE_READS} reads + {LONG_READS} x 40 kb, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    scaled = SYNCMER_FLAGS + ["--scaling", str(ROUTE_SCALING)]
+    data["idx"] = {
+        label: cli_build(work, data["tsv"], data["gdir"], flags, layout,
+                         label)[0]
+        for label, flags, layout in (("17a", SYNCMER_FLAGS, "flat"),
+                                     ("17b", scaled, "flat"),
+                                     ("17c", scaled, "auto"))}
+    return data
+
+
+def routes_path(torch, work: str, data: dict) -> dict:
+    """Phase 17: the routes of the device search no main path takes, on
+    strains of one species (data: ``build_routes``'s): (a) k = 22,
+    s = 12 syncmers, --layout flat,
+    as built, then from a copy saved with suggested_topk = 16, which must
+    escalate 16 -> 64 -> 256 (truncated reads go to the host oracle);
+    (b) the same scheme with --scaling 3, --layout flat (K1, the keep as
+    tensor ops, K2's slab route); (c) (b)'s scheme with --layout auto
+    --tmax 64 (the count-table descent on K2n, thresholds indexed by the
+    count kept).  (b) and (c) must keep ~1/3 of (a)'s hashes.  Returns
+    the searches' records."""
+    import dataclasses
+
+    from taxor_tpu_torch.hixf.index import load_index, save_index
+
+    runs = {}
+    idx = data["idx"]["17a"]
+    index = load_index(idx)
+    log(f"[17a] suggested_topk of the index as built: "
+        f"{index.suggested_topk}")
+    runs["17a"] = route_search(torch, work, "17a", idx, data,
+                               ("K1", "K2 slab"))
+    copy = os.path.join(work, "17a_topk16.taxor.npz")
+    save_index(copy, dataclasses.replace(index, suggested_topk=16))
+    del index
+    runs["17a topk16"] = esc = route_search(
+        torch, work, "17a topk16", copy, data, ("K1", "K2 slab"),
+        batch_size=ROUTE_BATCH, host_tsv=runs["17a"]["host_tsv"])
+    # from k = 16, two steps of the ladder end it at 256
+    if esc["routes"]["topk_escalations"] < 2 \
+            or esc["routes"]["truncated"] <= 0:
+        raise AssertionError(f"[17a topk16] the top-k ladder did not climb "
+                             f"16 -> 64 -> 256: routes {esc['routes']}")
+    runs["17b"] = route_search(torch, work, "17b", data["idx"]["17b"],
+                               data, ("K1", "K2 slab"))
+    idx = data["idx"]["17c"]
+    if len(load_index(idx).hixf.ixfs) <= 1:
+        raise AssertionError("[17c] the scaled index is not hierarchical")
+    runs["17c"] = route_search(torch, work, "17c", idx, data, ("K1", "K2n"))
+    if not 0.0 < runs["17c"]["active_share"] < 1.0:
+        raise AssertionError(f"[17c] not the count-table descent: active "
+                             f"pairs {runs['17c']['active_share']}")
+    whole = hash_counts(runs["17a"]["device_tsv"])
+    for label in ("17b", "17c"):
+        kept = hash_counts(runs[label]["device_tsv"])
+        both = kept.keys() & whole.keys()
+        share = sum(kept[r] for r in both) / sum(whole[r] for r in both)
+        runs[label]["kept_share"] = share
+        log(f"[{label}] hashes kept by the FracMinHash keep: {share:.4f} of "
+            f"17a's on the {len(both)} reads both classify")
+        if not 0.28 < share < 0.39:
+            raise AssertionError(f"[{label}] kept {share:.4f} of the hashes, "
+                                 f"not ~1/{ROUTE_SCALING}")
+    return runs
+
+
+def only_routes(torch, cuda_build, root: str, card: str) -> int:
+    """``--only-routes``: the search's kernels built, then phase 17 alone;
+    its searches' launches, routes and ladders as one JSON line."""
+    t0 = time.perf_counter()
+    cuda_build.lib()
+    log(f"build: search kernels compiled and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    work = tempfile.mkdtemp(prefix="chip_smoke_routes_", dir=root)
+    try:
+        with phase("phase 17"):
+            routes = os.path.join(work, "routes")
+            runs = routes_path(torch, routes, build_routes(routes))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"phase 17": {
+        label: {k: v for k, v in r.items() if not k.endswith("_tsv")}
+        for label, r in runs.items()}}))
+    print(card)
+    return 0
+
+
+# ------------------------------------------------- background builds --
+# What phases 13a, 13b/13e, 15b, 16c and 17 search is built on the host
+# while the card runs the phases before them: each job is a process of
+# this script (``--prebuild JOB WORK PARAMS``) at the lowest CPU priority,
+# so the phases in front keep the cores they ask for, and writes its
+# records to WORK/JOB.pkl.
+PREBUILDS = {"minimizer": build_minimizer, "kmer": build_kmer,
+             "atscale": build_atscale, "choice": build_choice,
+             "hier_layouts": build_hier_layouts, "routes": build_routes}
+
+
+def prebuild_main(job: str, work: str, params: str) -> int:
+    """One background build: PREBUILDS[job] under WORK/JOB."""
+    os.nice(19)
+    out = PREBUILDS[job](os.path.join(work, job), **json.loads(params))
+    with open(os.path.join(work, f"{job}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+    return 0
+
+
+class Background:
+    """The background builds of one run under work."""
+
+    def __init__(self, work: str):
+        self.work, self.procs = work, {}
+
+    def start(self, job: str, **params) -> None:
+        with open(os.path.join(self.work, f"{job}.log"), "w") as fh:
+            self.procs[job] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--prebuild",
+                 job, self.work, json.dumps(params)],
+                stdout=fh, stderr=subprocess.STDOUT)
+
+    def result(self, job: str):
+        """Wait for job, echo its log, return its records."""
+        t0 = time.perf_counter()
+        rc = self.procs.pop(job).wait()
+        log(tail(os.path.join(self.work, f"{job}.log"), 20000).rstrip())
+        if rc != 0:
+            raise RuntimeError(f"background build {job} failed ({rc})")
+        log(f"background build {job}: waited {time.perf_counter() - t0:.1f}"
+            f" s for it")
+        with open(os.path.join(self.work, f"{job}.pkl"), "rb") as fh:
+            return pickle.load(fh)
+
+    def stop(self) -> None:
+        """Kill every job still running."""
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        self.procs.clear()
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:  # one rank of a phase 14 search
         return rank_main(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--prebuild"]:  # one background build
+        return prebuild_main(*sys.argv[2:5])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genomes", type=int, default=4096,
                     help="reference genomes of 30 kb in the flat index")
@@ -2660,6 +3027,9 @@ def main() -> int:
                     help="ONT-like reads of phase 13b (plus 16 of 40 kb)")
     ap.add_argument("--atscale-reads", type=int, default=20000,
                     help="reads of phase 15's at-scale demo")
+    ap.add_argument("--only-routes", action="store_true",
+                    help="build the search's kernels and run phase 17 alone "
+                         "(its records as one JSON line; no kernels line)")
     args = ap.parse_args()
 
     import torch
@@ -2672,26 +3042,36 @@ def main() -> int:
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:  # every nvcc of both libraries at once
-        for built in [ex.submit(cuda_build.lib),
-                      ex.submit(cuda_build.diag_lib)]:
-            built.result()
-    log(f"build: search and diagnostic kernels compiled and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    rng = np.random.default_rng(SEED)
-    with phase("phase 2 (K1, syncmer_track and K3 checks)"):
-        check_k1(torch, dsync, extract, sort, rng)
-    with phase("phase 3"):
-        k2_rows_checks = check_k2(torch, probe, rng)
-    with phase("phase 9 (K3 and K4 checks)"):
-        check_sorts(torch, sort, rng)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "taxor_tpu_torch", "_build")
     os.makedirs(root, exist_ok=True)
+    if args.only_routes:
+        return only_routes(torch, cuda_build, root, card)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
+    bg = Background(work)
     try:
+        # the host's builds of the later phases, while the card works
+        bg.start("minimizer", genomes=args.minimizer_genomes,
+                 reads=args.hier_reads)
+        bg.start("atscale", reads=args.atscale_reads)
+        bg.start("kmer", genomes=args.kmer_genomes, reads=args.kmer_reads)
+        bg.start("choice", genomes=CHOICE_GENOMES, reads=CHOICE_READS)
+        bg.start("routes")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as ex:  # every nvcc of both libraries
+            for built in [ex.submit(cuda_build.lib),
+                          ex.submit(cuda_build.diag_lib)]:
+                built.result()
+        log(f"build: search and diagnostic kernels compiled and loaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        rng = np.random.default_rng(SEED)
+        with phase("phase 2 (K1, syncmer_track and K3 checks)"):
+            check_k1(torch, dsync, extract, sort, rng)
+        with phase("phase 3"):
+            k2_rows_checks = check_k2(torch, probe, rng)
+        with phase("phase 9 (K3 and K4 checks)"):
+            check_sorts(torch, sort, rng)
         with phase("phase 4"):
             flat = main_path(torch, os.path.join(work, "flat"), rng,
                              args.genomes, args.reads, "flat")
@@ -2719,6 +3099,9 @@ def main() -> int:
         with phase("phase 7"):
             hier = main_path(torch, os.path.join(work, "hier"), rng,
                              args.hier_genomes, args.hier_reads, "auto")
+            g_hier = f"g{args.hier_genomes}"
+            bg.start("hier_layouts", label=g_hier, tsv=hier["tsv"],
+                     gdir=hier["gdir"])
             hier_report(torch, hier)
             check_wide_root(torch, os.path.join(work, "wide"))
         with phase("phase 8"):
@@ -2730,14 +3113,9 @@ def main() -> int:
             check_k5(torch, dsync, extract, rng)
         # 13a: phase 7's recipe on data of its own, under the bench
         # family's whole scheme (scaling 3)
-        mm_flags = ["--kmer-size", str(MM_K), "--window-size",
-                    str(MM_WINDOW), "--scaling", str(MM_SCALING)]
         with phase("phase 13a"):
-            mm_in = kmer_data(np.random.default_rng(SEED + 14),
-                              os.path.join(work, "minimizer"),
-                              args.minimizer_genomes, args.hier_reads)
             mm = nonsyncmer_path(torch, os.path.join(work, "minimizer"),
-                                 "minimizer", mm_in, mm_flags, "auto",
+                                 "minimizer", bg.result("minimizer"),
                                  ("K5", "K2n"))
         if mm["active_share"] != 1.0:
             raise AssertionError(f"[minimizer] the descend-all descent left "
@@ -2760,30 +3138,18 @@ def main() -> int:
                 ["--mesh-bins", "2"], ("K5", "K2n"), card))
         t14 += time.perf_counter() - t0
         log(f"phase 14: {t14:.1f} s")
-        # ---- phase 16c on phase 7's data and its cpu index
-        t16 = time.perf_counter()
-        with phase(f"phase 16c ({args.hier_genomes} genomes)"):
-            choice = {args.hier_genomes: layout_choice(
-                torch, os.path.join(work, "hier"), f"g{args.hier_genomes}",
-                hier, cpu_built=(hier["idx"], hier["index"]))}
-        t16 = time.perf_counter() - t16
-        for done in ("hier", "minimizer"):
-            shutil.rmtree(os.path.join(work, done), ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "minimizer"), ignore_errors=True)
         with phase("phase 13b"):
-            kmer_in = kmer_data(rng, os.path.join(work, "kmer"),
-                                args.kmer_genomes, args.kmer_reads)
+            kmer_in = bg.result("kmer")
             kmer = nonsyncmer_path(torch, os.path.join(work, "kmer"), "kmer",
-                                   kmer_in, ["--kmer-size", str(MM_K),
-                                             "--window-size", str(MM_K)],
-                                   "flat", ("K5", "K2"))
+                                   kmer_in, ("K5", "K2"))
         with phase("phase 13d (K2 at 13b's shape)"):
             rows = next(r for r in kernels if r["name"] == "probe_count_rows")
             rows["kmer_flat"] = time_k2_kmer(torch, kmer)
         # 13e: the same scheme on a flat layout of 13b's genomes
         with phase("phase 13e"):
             scaled = nonsyncmer_path(torch, os.path.join(work, "kmer"),
-                                     "scaled", kmer_in, mm_flags, "flat",
-                                     ("K5", "K2"))
+                                     "scaled", kmer_in, ("K5", "K2"))
         log(f"phase 13: {time.perf_counter() - t13:.1f} s")
         shutil.rmtree(os.path.join(work, "kmer"), ignore_errors=True)
         # ---- phase 15: tables past 2^31 bytes, the at-scale demo
@@ -2791,33 +3157,49 @@ def main() -> int:
             big = check_big_tables(torch, probe)
         with phase("phase 15b (the at-scale demo)"):
             atscale = atscale_path(torch, os.path.join(work, "atscale"),
-                                   args.atscale_reads)
+                                   args.atscale_reads, bg.result("atscale"))
         shutil.rmtree(os.path.join(work, "atscale"), ignore_errors=True)
-        # ---- phase 16: the layout cost model on the card
-        t0 = time.perf_counter()
+        # ---- phase 16: the layout cost model on the card, timed with
+        # every background build done
+        built = {job: bg.result(job)
+                 for job in ("hier_layouts", "choice", "routes")}
+        t16 = time.perf_counter()
         with phase("phase 16a"):
             check_routing(torch, probe)
         with phase("phase 16b"):
             fit = check_fit(torch)
+        choice = {}
+        with phase(f"phase 16c ({args.hier_genomes} genomes)"):
+            # on phase 7's data, its index the cpu layout
+            choice[args.hier_genomes] = layout_choice(
+                torch, os.path.join(work, "g_hier"), g_hier,
+                dict(hier, idx={**built["hier_layouts"]["idx"],
+                                "cpu": hier["idx"]}))
+        shutil.rmtree(os.path.join(work, "hier"), ignore_errors=True)
         with phase(f"phase 16c ({CHOICE_GENOMES} genomes)"):
             choice[CHOICE_GENOMES] = layout_choice(
                 torch, os.path.join(work, "choice"), f"g{CHOICE_GENOMES}",
-                new_reference_set(np.random.default_rng(SEED + 16),
-                                  os.path.join(work, "choice"),
-                                  CHOICE_GENOMES, CHOICE_READS))
+                built["choice"])
         with phase("phase 16d"):
             invariance_on_card()
-        t16 += time.perf_counter() - t0
+        t16 = time.perf_counter() - t16
         log(f"phase 16: {t16:.1f} s; " + json.dumps({
             "fit": {n: {rt: [r["ms"], r["model_ms"]]
                         for rt, r in rec["routes"].items()}
                     for n, rec in fit["shapes"].items()},
             "choice": choice}))
+        shutil.rmtree(os.path.join(work, "choice"), ignore_errors=True)
+        # ---- phase 17: the routes no main path takes
+        with phase("phase 17"):
+            route_runs = routes_path(torch, os.path.join(work, "routes"),
+                                     built["routes"])
     finally:
+        bg.stop()
         shutil.rmtree(work, ignore_errors=True)
     runs = [flat["launches"], flat["split"], hier["launches"], hier["split"],
             mm["launches"], kmer["launches"], scaled["launches"],
             atscale["launches"]]
+    runs += [r["launches"] for r in route_runs.values()]  # phase 17
     for row in kernels:  # launches on the main paths, both engines
         key = {"syncmer_extract": "K1", "probe_count": "K2 slab",
                "probe_count_rows": "K2 rows", "probe_count_narrow": "K2n",

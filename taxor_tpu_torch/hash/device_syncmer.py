@@ -65,8 +65,11 @@ def pad_len_bucket(max_len: int) -> int:
 
 def hash_cap(L: int) -> int:
     """Per-read hash capacity for length bucket L.  Open-syncmer density
-    is ~2/(k-s+1); reads denser than this fall back to the host oracle
-    through the device-reported emission count."""
+    is ~1/(k-s+1) (on random 4,000-base reads the plain twin emits ~350
+    a read at k = 22, s = 12 and ~1,390 at k = 16, s = 14), so a scheme
+    with k-s+1 <= 3 fills L/4 slots on every read of its bucket.  Reads
+    that emit more than this fall back to the host oracle through the
+    device-reported emission count."""
     return max(128, L // 4)
 
 

@@ -459,8 +459,10 @@ def compute_layout_from_hashes(
     kernels (_expected_query_cost_device, in device ms a read) and
     additionally considers a FLAT layout, which one probe launch serves
     where a tree pays a launch a level — a choice the CPU model can never
-    make.  Its layouts differ from the JAX package's (a TPU model) by
-    design.
+    make.  Its cost is not monotone in t_max (a larger t_max can save a
+    level), so its sweep scores every candidate and keeps the cheapest,
+    the smaller t_max on a tie.  Its layouts differ from the JAX
+    package's (a TPU model) by design.
     artifacts_prefix: emit the counting-stage artifacts the reference
     leaves behind (taxor_build.cpp:437-442): <prefix>.count (one line per
     cluster: files;...<TAB>estimate<TAB>accession) and
@@ -557,7 +559,7 @@ def compute_layout_from_hashes(
             best_cost = cost
             best_node = node
             best_t = t
-        else:
+        elif cost_model != "device":
             break
     if verbose:
         print(f"## chosen t_max = {best_t}\t(expected query cost "

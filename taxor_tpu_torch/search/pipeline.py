@@ -160,8 +160,9 @@ def _pairs_from_e2e(vals, users, counts, n_emit, seqs, index, scheme,
     past the hcap slice even when counts <= hcap; hcap is the capacity
     the device step used, passed through the collector), and all k
     candidate slots surviving the threshold and the 0.8*max pre-filter.
-    ``trunc_out`` receives the second set: the pipeline's top-k
-    escalation trigger (a larger k cannot fix an hcap overflow).
+    ``trunc_out`` receives the second set (the pipeline's top-k
+    escalation trigger: a larger k cannot fix an hcap overflow), then
+    the first.
 
     sums (the descend-all chain-min mode): vals are then min(leaf sum,
     ancestor merged sums), the emission test value, and sums the leaf
@@ -194,9 +195,10 @@ def _pairs_from_e2e(vals, users, counts, n_emit, seqs, index, scheme,
     else:
         trunc = (n == kk) & (
             vals[:, kk - 1].astype(f64) >= vals[:, 0].astype(f64) * 0.8)
+    over = n_emit > hcap
     if trunc_out is not None:
-        trunc_out.append(trunc)
-    need_fallback = (n_emit > hcap) | trunc
+        trunc_out += [trunc, over]
+    need_fallback = over | trunc
     # dfs ordering of the candidate slots (argsort only for multi-hit
     # reads)
     vals_l = vals.tolist()
@@ -264,11 +266,16 @@ class RouteCounts:
     the searches of the process: 'fused' (the fused step), 'host_hashes'
     (hashed on the host, probed on the device: reads over L_CAP) and
     'host_fallback' (of either, decided by the host oracle after the
-    device pass)."""
+    device pass), the sum of 'hcap_overflow' (more emissions than the
+    step's hash capacity) and 'truncated' (the rest: every top-k slot
+    passed the threshold and the 0.8*max rule); 'topk_escalations'
+    counts the steps of the 16 -> 64 -> 256 ladder."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self.counts = {"fused": 0, "host_hashes": 0, "host_fallback": 0}
+        self.counts = {"fused": 0, "host_hashes": 0, "host_fallback": 0,
+                       "hcap_overflow": 0, "truncated": 0,
+                       "topk_escalations": 0}
 
     def add(self, **kw) -> None:
         with self._lock:
@@ -350,6 +357,7 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
         with topk_state["lock"]:
             if topk_state["k"] == ran_at_k and ran_at_k < 256:
                 topk_state["k"] = min(256, ran_at_k * 4)
+                ROUTES.add(topk_escalations=1)
 
     def process(chunk):
         """One batch: reads up to L_CAP go to the fused step in
@@ -387,9 +395,11 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
                     vals, users, counts, n_emit, gseqs, index, scheme,
                     thresholder, dfs_rank, hcap, sums=sums,
                     trunc_out=trunc_out)
-                ROUTES.add(fused=len(part), host_fallback=(
-                    (n_emit[:len(part)] > hcap) | trunc_out[0]).sum())
-                if trunc_out[0].mean() > 0.02:
+                trunc, over = trunc_out
+                ROUTES.add(fused=len(part), hcap_overflow=over.sum(),
+                           truncated=(trunc & ~over).sum(),
+                           host_fallback=(over | trunc).sum())
+                if trunc.mean() > 0.02:
                     _escalate_topk(topk)
                 for j, i in enumerate(part):
                     all_pairs[i] = prs[j]
@@ -415,7 +425,8 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
                 counts, emitted = collect()
                 trunc = np.zeros(len(hash_idx), dtype=bool)
                 prs = _pairs_from_counts(counts, emitted, dfs_rank)
-            ROUTES.add(host_hashes=len(hash_idx), host_fallback=trunc.sum())
+            ROUTES.add(host_hashes=len(hash_idx), truncated=trunc.sum(),
+                       host_fallback=trunc.sum())
             for j, i in enumerate(hash_idx):
                 all_pairs[i] = prs[j]
                 hash_counts[i] = hcs[j]

@@ -33,10 +33,12 @@ as the proxy of the reference's 32-core deployment, and a literal
 on device-resident reads (DeviceHIXF.e2e_step: device/e2e.fused_e2e_step
 flat, the grouped descent hierarchical; timed by tools/timing.rolled_ms),
 the host fallback and classified fractions of one real dispatch.  The
-parity gate searches five scheme/layout families with the device and the
-host engines and compares the TSVs byte for byte; the result's
-``parity_routes`` gives each family's device-engine route counts
-(search/pipeline.ROUTES: every family's reads take the fused step).
+parity gate searches eleven scheme/layout families (PARITY_FAMILIES: every
+scheme x layout pair of the device search and the hash-capacity overflow)
+with the device and the host engines and compares the TSVs byte for byte;
+the result's ``parity_routes`` gives each family's device-engine route
+counts (search/pipeline.ROUTES: every family's reads take the fused
+step).
 """
 
 from __future__ import annotations
@@ -85,8 +87,36 @@ CONFIGS = {
                              read_len=2000, mutate=0.005,
                              baseline_sub=256),
 }
-FAMILIES = ("syncmer", "plain_kmer", "scaled_kmer", "hier_syncmer_mixedlen",
-            "hier_scaled_minimizer")
+SYNCMER = dict(kmer_size=22, syncmer_size=12, use_syncmer=True)
+MINIMIZER = dict(kmer_size=20, syncmer_size=10, window_size=26,
+                 use_syncmer=False)
+# parity family -> (layout, problem: 0 the flat set, 1 the mixed-length
+# hierarchical set, scheme); "auto" layouts are built at --tmax 64
+PARITY_FAMILIES = {
+    "syncmer": ("flat", 0, SYNCMER),
+    "plain_kmer": ("flat", 0, dict(kmer_size=20, syncmer_size=10,
+                                   use_syncmer=False)),
+    "scaled_kmer": ("flat", 0, dict(kmer_size=20, syncmer_size=10,
+                                    use_syncmer=False, scaling=4)),
+    "hier_syncmer_mixedlen": ("auto", 1, SYNCMER),
+    "hier_scaled_minimizer": ("auto", 1, dict(MINIMIZER, scaling=3)),
+    # K1, then the FracMinHash keep as tensor ops; flat and in the
+    # count-table descent, thresholds indexed by the count kept
+    "scaled_syncmer": ("flat", 0, dict(SYNCMER, scaling=3)),
+    "hier_scaled_syncmer": ("auto", 1, dict(SYNCMER, scaling=3)),
+    # unscaled minimisers: fracminhash thresholds, so the hierarchy
+    # descends in the descend-all mode
+    "minimizer": ("flat", 0, MINIMIZER),
+    "hier_minimizer": ("auto", 1, MINIMIZER),
+    # plain k-mers in the count-table descent on K5's values
+    "hier_plain_kmer": ("auto", 1, dict(kmer_size=20, window_size=20,
+                                        use_syncmer=False)),
+    # k - s + 1 = 3: ~1/3 of the positions emit, past the hash capacity
+    # of L/4, so the host oracle decides every read (hcap overflow)
+    "narrow_syncmer": ("flat", 0, dict(kmer_size=16, syncmer_size=14,
+                                       use_syncmer=True)),
+}
+FAMILIES = tuple(PARITY_FAMILIES)
 
 
 def log(msg: str) -> None:
@@ -257,8 +287,12 @@ def parity_gate(device="cuda", n_reads: int = 256, n_mixed: int = 192,
     (the numpy oracle), the TSVs compared byte for byte; None where the
     budget skipped the family.  Covers flat and hierarchical layouts,
     syncmers, plain k-mers, FracMinHash scaling, minimizers and mixed
-    500 b .. 4 kb read lengths (several length buckets).  ``routes``
-    receives each family's route counts of its device search."""
+    500 b .. 4 kb read lengths (several length buckets), the
+    count-table and descend-all descents, and the hash-capacity overflow
+    (narrow_syncmer passes only if the host oracle decided every read for
+    that reason).  ``routes`` receives each family's route counts of its
+    device search (search/pipeline.ROUTES)."""
+    routes = {} if routes is None else routes
     with tempfile.TemporaryDirectory(prefix="taxor_parity_",
                                      dir=root) as tmp:
         _, tsv, gdir, reads_file = synth.build_problem(
@@ -268,20 +302,7 @@ def parity_gate(device="cuda", n_reads: int = 256, n_mixed: int = 192,
         os.makedirs(tmp2)
         tsv2, gdir2, mixed = synth.mixed_length_reads(tmp2, n_reads=n_mixed)
         results = {}
-        for name, layout, src, kw in (
-            ("syncmer", "flat", 0,
-             dict(kmer_size=22, syncmer_size=12, use_syncmer=True)),
-            ("plain_kmer", "flat", 0,
-             dict(kmer_size=20, syncmer_size=10, use_syncmer=False)),
-            ("scaled_kmer", "flat", 0,
-             dict(kmer_size=20, syncmer_size=10, use_syncmer=False,
-                  scaling=4)),
-            ("hier_syncmer_mixedlen", "auto", 1,
-             dict(kmer_size=22, syncmer_size=12, use_syncmer=True)),
-            ("hier_scaled_minimizer", "auto", 1,
-             dict(kmer_size=20, syncmer_size=10, window_size=26,
-                  use_syncmer=False, scaling=3)),
-        ):
+        for name, (layout, src, kw) in PARITY_FAMILIES.items():
             if budget is not None and budget.left() < 90:
                 results[name] = None
                 log(f"bench[parity]: skipping {name} (budget exhausted)")
@@ -307,13 +328,20 @@ def parity_gate(device="cuda", n_reads: int = 256, n_mixed: int = 192,
                 search_single(index, reads_file if src == 0 else mixed, buf,
                               SearchConfig(engine=engine, batch_size=256),
                               dh)
-                if engine == "device" and routes is not None:
+                if engine == "device":
                     routes[name] = {r: n - before[r]
                                     for r, n in ROUTES.counts.items()}
                 texts[engine] = buf.getvalue()
             ok = texts["device"] == texts["host"]
-            results[name] = ok
             log(f"bench[parity]: {name} device==host byte parity: {ok}")
+            if ok and name == "narrow_syncmer":
+                r = routes[name]
+                ok = r["fused"] > 0 and (r["host_fallback"]
+                                         == r["hcap_overflow"] == r["fused"])
+                if not ok:
+                    log(f"bench[parity]: {name}: not every fused read "
+                        f"overflowed the hash capacity: {r}")
+            results[name] = ok
             if not ok:
                 d, h = texts["device"].splitlines(), texts["host"].splitlines()
                 for i, (a, b) in enumerate(zip(d, h)):

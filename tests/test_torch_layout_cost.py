@@ -5,6 +5,7 @@ index searches to; the ``cpu`` model still writes the JAX package's
 layout."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -104,6 +105,25 @@ def test_device_model_picks_a_tree_past_a_rows_flat(many_bins, capsys):
     flat.est_max_card = 100_000.0
     assert (binning._expected_query_cost_device(node)
             < binning._expected_query_cost_device(flat))
+
+
+def test_device_sweep_scores_every_t_max(capsys):
+    """The device model's cost is not monotone in t_max: 4,095 user bins
+    of 100 hashes and one of 100,000 give a t = 64 tree of three levels
+    that costs more than flat, and a t = 128 tree of two levels that
+    costs less.  The sweep scores every candidate and keeps the
+    cheapest, where the cpu model's sweep stops at the first worse one."""
+    fh, cl = synthetic_hashes([100_000] + [100] * 4095, seed=1)
+    node = binning.compute_layout_from_hashes(fh, cl, cost_model="device",
+                                              verbose=True)
+    out = capsys.readouterr().out
+    cost = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"## (flat|t_max = \d+)\texpected query cost = ([0-9.]+)", out)}
+    assert cost["t_max = 64"] > cost["flat"] > cost["t_max = 128"]
+    assert "## chosen t_max = 128\t" in out
+    assert node.children and node.num_technical_bins == 128
+    assert round(binning._expected_query_cost_device(node), 6) \
+        == cost["t_max = 128"]
 
 
 def tree(n_children=64, leaves=64, card=2000.0):

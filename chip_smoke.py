@@ -26,8 +26,12 @@ Phases (any failure exits non-zero):
      five probe kernels, with invalid slots whose fingerprint is 0 and
      per-bin counts above 256; K2 through the variant its shape picks
      (the slab route where a bin slab of the table fits a block's shared
-     memory, else the rows route) and, where that is the slab route,
-     through the rows route too; both variants must have run;
+     memory, 16 bins or more, or a thin slab of 8 or 4 bins for reads of
+     8,192 slots or more; else the rows route) and through every other
+     variant that fits (the slab route at its widest fit, its split
+     variant, and the rows route, forced); the slab and rows routes must
+     each have been picked by a shape (reads of 2,048 slots take no thin
+     slab) and a thin slab forced;
   4. the flat main path: a flat k=22/s=12 syncmer index of synthetic
      30 kb genomes built with ``taxor_tpu_torch.cli build``, ONT-like
      reads (log-normal lengths clipped to 500-30,000 bases, 4%
@@ -39,13 +43,18 @@ Phases (any failure exits non-zero):
      (``device.e2e.USE_FUSED_EXTRACT = False``), whose TSV must equal the
      K1 TSV on every read, with syncmer_track and K3 launched and K1 not;
   5. K1 and K2 timed against their twins at the flat path's shapes (K2
-     through both variants, with its valid hashes, row bytes and GB/s of
-     rows), and K1 on a batch tied in every window (its worst case);
+     through its slab and rows routes, with its valid hashes, row bytes
+     and GB/s of rows, and through thin slabs of 8 and 4 bins and the
+     split variant forced: the slab record's ``flat_forced``), and K1 on
+     a batch tied in every window (its worst case);
   6. K2n and K2 over stacked tables (G = 1 and 8) with a mixed activity
      mask against their twin, bit-exact, at 16..512 bins (K2n, in both
-     modes where its smem mode fits) and 4,096 bins (K2, through both
-     variants), with fingerprint-0 slots, counts above 256 and a read
-     inactive everywhere; then K2n's run sums (probe_run_sums_grouped)
+     modes where its smem mode fits) and 4,096 bins (K2, through every
+     variant), with fingerprint-0 slots, counts above 256 and a read
+     inactive everywhere; K2 on a stack of two [30,000, 528] tables with
+     a mask and reads of 8,192 slots (the thin slab of 4 bins its shape
+     takes, and the split variant); then K2n's run sums
+     (probe_run_sums_grouped)
      against their twin, bit-exact, in both modes, at G = 1, 8 and 72
      (tables of 216 slots like the widest descent group's), 16, 100 and
      512 bins, activity 0%, ~0.5%, 60% and 100%, one-bin runs, runs over
@@ -171,10 +180,15 @@ Phases (any failure exits non-zero):
      scheme with its keep; the keep as tensor ops on K5's output there,
      a call, held to K5's keep and the keep on the CPU;
      K2 at (b)'s own shape (that bucket's reads through K5, H = L hash
-     slots, on (b)'s table: the rows route), bit-exact to its twin on
-     every read of the batch and timed (the K2 rows record's
-     ``kmer_flat``); every group of one descend-all batch of (a)'s index
-     at L=8192, each run-sum launch a call and on the device alone
+     slots, on (b)'s table: a thin slab of 4 bins), bit-exact to its twin
+     on every read of the batch and timed beside the rows route and the
+     split variant (the slab record's ``kmer_thin``; the rows route
+     there: the K2 rows record's ``kmer_flat``), then the slab route
+     forced on a table past the L2 (120,000 x 1,024, a slab of 1 bin,
+     ``kmer_thin``'s ``tall_forced``) and on phase 6's stack (``stack``),
+     each beside the rows route; every group of one descend-all batch
+     of (a)'s index at L=8192, each run-sum launch a call and on the
+     device alone
      against its bound (the K2n record's ``descend_all_groups``).  K5's
      record counts the launches of (a), (b) and (e); K2's and K2n's add
      theirs;
@@ -222,8 +236,9 @@ Phases (any failure exits non-zero):
  16. the layout cost model of ``--layout-cost device``
      (hixf/device_cost.py) on the card: (a) its host copies of K2's and
      K2n's routing rules equal the card's (probe.slab_bins,
-     probe.narrow_mode) on device_cost.routing_grid(): S 1-70,000 with
-     every width's limits, Bpad 16-4,096 in steps of 16; (b)
+     its fit, probe.narrow_mode) on
+     device_cost.routing_grid(): S 1-200,000 with every width's limits,
+     Bpad 16-4,096 in steps of 16; (b)
      ``tools.bench_gather_scale`` at its default shapes: every route
      bit-exact to its twin, each call's time beside the model's
      prediction, which must fall within MODEL_SLACK (30%) of it, or
@@ -232,7 +247,8 @@ Phases (any failure exits non-zero):
      own data and cpu index: flat, the cpu model's and the device
      model's layout at --tmax 64, each one's fused step timed on the
      L=8192 bucket (R = 512, ``DeviceHIXF.e2e_async``, CUDA events)
-     beside the model's ms a read; the device layout must be the
+     beside the model's ms a read (layouts equal but for the order of
+     their bins share one timing); the device layout must be the
      fastest or within CHOICE_SLACK (10%) of it, and its TSV equal to
      ``--engine host`` on the first CHECK_READS reads and the long ones;
      (d) ``tools.layout_invariance`` at 100 species and 400 reads on the
@@ -443,6 +459,8 @@ def check_k2(torch, probe, rng) -> int:
     R, H = 8, 2048
     variants = probe.k2_counts.VARIANTS
     start = dict(variants)
+    picked = set()  # the variants the shapes took
+    thin = set()  # the thin slabs forced
     for label, ref, bl, B in geoms:
         S_ = 3 * bl
         Bp = probe.pad_bins(B)
@@ -475,26 +493,49 @@ def check_k2(torch, probe, rng) -> int:
                 f"{grew}; expected one launch of one kernel")
         kernel = "K2n" if probe.k2n_counts.LAUNCHES > n2n else \
             f"K2 ({next(iter(grew))})"
+        if grew:
+            picked |= set(grew)
         if not torch.equal(got, want):
             raise AssertionError(f"{kernel} {label}: counts differ from the "
                                  "twin")
         if int(got.max()) <= 256 or int(got[1].abs().sum()) != 0:
             raise AssertionError(f"K2 {label}: case did not exercise "
                                  "counts > 256 / all-invalid reads")
-        also = ""
-        if kernel == "K2 (slab)":  # the same counts through the rows route
-            if not torch.equal(probe.k2_counts(*args, tbl[None], None, seed,
-                                               bl, variant="rows")[0], want):
-                raise AssertionError(f"K2 (rows) {label}: counts differ "
-                                     "from the twin")
-            also = "; K2 (rows) bit-exact too"
+        also = []
+        if kernel.startswith("K2 "):  # the same counts through the others
+            for v in k2_forced(probe, S_, Bp, bl, dev, next(iter(grew))):
+                if not torch.equal(probe.k2_counts(*args, tbl[None], None,
+                                                   seed, bl, variant=v)[0],
+                                   want):
+                    raise AssertionError(f"K2 ({v}) {label}: counts differ "
+                                         "from the twin")
+                w = probe.slab_bins(S_, Bp, H, dev, fit=True)
+                if v == "slab" and w < 16:
+                    thin.add(w)
+                also.append(f"slab of {w}" if v == "slab" else v)
         log(f"{kernel} {label} (S={S_}, Bpad={Bp}; TPU {ref}): bit-exact vs "
-            f"twin, max count {int(got.max())}{also}")
+            f"twin, max count {int(got.max())}"
+            + (f"; K2 ({', '.join(also)}) bit-exact too" if also else ""))
     ran = {v: n - start.get(v, 0) for v, n in variants.items()}
-    if not (ran.get("slab", 0) > 0 and ran.get("rows", 0) > 0):
-        raise AssertionError(f"phase 3 did not run both K2 variants: {ran}")
-    log(f"phase 3: K2 launches by variant {ran}")
+    if not (ran.get("slab", 0) > 0 and ran.get("rows", 0) > 0) or not thin:
+        raise AssertionError(f"phase 3 did not run both K2 routes and a thin "
+                             f"slab: {ran}, thin slabs {thin}")
+    if picked != {"slab", "rows"}:  # 2,048 slots a read: no thin slab
+        raise AssertionError(f"phase 3: the shapes picked {picked}")
+    log(f"phase 3: K2 launches by variant {ran}; thin slabs of "
+        f"{sorted(thin)} bins forced")
     return ran["rows"]
+
+
+def k2_forced(probe, S: int, Bpad: int, bl: int, dev, took: str) -> list:
+    """K2's variants other than ``took`` that fit tables [S, Bpad], to be
+    forced on the same inputs: the slab route at the widest slab that
+    fits (a thin one where no 16-bin slab fits), the split variant where
+    a cluster holds its 16-bin slab, the rows route always."""
+    fits = {"slab": probe.slab_bins(S, Bpad, 0, dev, fit=True) > 0,
+            "split": probe.split_cluster(S, Bpad, bl, dev) > 0,
+            "rows": True}
+    return [v for v, ok in fits.items() if ok and v != took]
 
 
 def check_grouped(torch, probe, rng) -> int:
@@ -534,11 +575,13 @@ def check_grouped(torch, probe, rng) -> int:
             if kernel.LAUNCHES != n + 1 or not torch.equal(got, want):
                 raise AssertionError(f"grouped probe Bpad={Bp} G={G}: "
                                      "kernel differs from the twin")
-            if kernel is probe.k2_counts and not torch.equal(
-                    probe.k2_counts(*args, tb, act, seed, bl,
-                                    variant="rows"), want):
-                raise AssertionError(f"grouped K2 (rows) Bpad={Bp} G={G}: "
-                                     "kernel differs from the twin")
+            if kernel is probe.k2_counts:
+                for v in k2_forced(probe, 3 * bl, Bp, bl, dev, "slab"):
+                    if not torch.equal(probe.k2_counts(
+                            *args, tb, act, seed, bl, variant=v), want):
+                        raise AssertionError(f"grouped K2 ({v}) Bpad={Bp} "
+                                             f"G={G}: kernel differs from "
+                                             "the twin")
             k2n_modes = []
             if kernel is probe.k2n_counts:  # each mode that fits
                 k2n_modes = ["rows"] + (
@@ -557,16 +600,78 @@ def check_grouped(torch, probe, rng) -> int:
                                      "inactive reads")
             name = (f"K2n ({' and '.join(k2n_modes)})"
                     if kernel is probe.k2n_counts else
-                    f"K2 (slab of {probe.slab_bins(3 * bl, Bp, dev)} bins, "
-                    "and rows)")
+                    f"K2 (slab of {probe.slab_bins(3 * bl, Bp, H, dev)} "
+                    "bins, and split and rows)")
             log(f"{name} grouped Bpad={Bp} G={G} (S={3 * bl}, R={R}, H={H}, "
                 f"{int(active.sum())}/{G * R} active): bit-exact vs twin, "
                 f"max count {int(got.max())}")
+    # a generator of its own, so that the data drawn later stay as they were
+    check_thin_stack(torch, probe, np.random.default_rng(SEED + 61))
     ran = {v: n - start.get(v, 0) for v, n in probe.k2_counts.VARIANTS.items()}
-    if not (ran.get("slab", 0) > 0 and ran.get("rows", 0) > 0):
-        raise AssertionError(f"phase 6 did not run both K2 variants: {ran}")
+    if not all(ran.get(v, 0) > 0 for v in ("slab", "split", "rows")):
+        raise AssertionError(f"phase 6 did not run every K2 variant: {ran}")
     log(f"phase 6: K2 launches by variant {ran}")
     return ran["rows"]
+
+
+# the thin slabs' grouped case: a stack of two [30,000, 528] tables (no
+# 16-bin slab fits; thin slabs of 4 bins), R reads of H slots with NVALID
+# valid (phase 13b's batch), a mask like the descent's of a group past
+# 512 bins
+STACK_BL, STACK_BINS, STACK_R, STACK_H, STACK_NVALID = 10_000, 528, 512, \
+    8192, 5712
+
+
+def stack_problem(torch, rng):
+    """(hi, lo, valid, tables [2, 30,000, 528], active, seed, bl): random
+    keys, the first 5,712 slots of a read valid, read 0's all valid and
+    of fingerprint 0 (counts above 256 in the zero columns), a mixed
+    mask."""
+    from taxor_tpu_torch.utils.u64np import fingerprint8, mix_split
+
+    dev = torch.device("cuda")
+    R, H, bl = STACK_R, STACK_H, STACK_BL
+    seed = int(rng.integers(0, 2**63))
+    pool = rng.integers(0, 2**64, 1 << 22, dtype=np.uint64)
+    keys = rng.integers(0, 2**64, (R, H), dtype=np.uint64)
+    keys[0] = pool[fingerprint8(mix_split(pool, seed)) == 0][:H]
+    valid = np.zeros((R, H), dtype=bool)
+    valid[:, :STACK_NVALID] = True
+    valid[0] = True
+    tables = rng.integers(0, 256, (2, 3 * bl, STACK_BINS), dtype=np.uint8)
+    tables[:, :, ::7] = 0
+    active = rng.random((2, R)) < 0.6
+    active[:, 0], active[:, R - 1] = True, False
+    hi = (keys >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return (*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in (hi, lo, valid, tables, active)), seed, bl)
+
+
+def check_thin_stack(torch, probe, rng) -> None:
+    """Phase 6: stack_problem through the route its shape takes (a thin
+    slab of 4 bins; thin slabs divide Bpad, so none is ragged) and its
+    split variant forced, bit-exact."""
+    x = stack_problem(torch, rng)
+    want = probe.probe_counts_grouped_plain(*x)
+    before = probe.k2_counts.VARIANTS.get("slab", 0)
+    got = probe.probe_counts_grouped(*x)
+    W = probe.slab_bins(*x[3].shape[1:], STACK_H, x[3].device)
+    split = probe.k2_counts(*x, variant="split")
+    torch.cuda.synchronize()
+    if probe.k2_counts.VARIANTS.get("slab", 0) != before + 1 or W != 4:
+        raise AssertionError(f"phase 6: the stack {list(x[3].shape)} did not "
+                             f"take a thin slab of 4 bins ({W})")
+    for name, y in (("slab", got), ("split", split)):
+        if not torch.equal(y, want):
+            raise AssertionError(f"phase 6: K2 ({name}) on the stack "
+                                 f"{list(x[3].shape)} differs from the twin")
+    if int(got[:, 0].max()) <= 256 or int(got[:, STACK_R - 1].abs().sum()):
+        raise AssertionError("phase 6: the stack case did not exercise "
+                             "counts > 256 / inactive reads")
+    log(f"K2 (slab of {W} bins, and split) on the stack {list(x[3].shape)} "
+        f"with {int(x[4].sum())}/{x[4].numel()} active: bit-exact vs twin, "
+        f"max count {int(got.max())}")
 
 
 def run_csr(rng, G: int, bins: int):
@@ -1260,7 +1365,22 @@ def time_kernels(torch, state) -> list[dict]:
         if name.startswith("probe_count"):
             rows[-1].update(valid_hashes=n_valid, row_bytes=row_bytes,
                             rows_gbps=row_bytes / ms / 1e6)
-    rows[1]["slab_bins"] = probe.slab_bins(S_, Bp, dev)
+    rows[1]["slab_bins"] = probe.slab_bins(S_, Bp, H, dev)
+    # thin slabs of 8 and 4 bins and the split variant forced on the
+    # same table (the slab record's flat_forced)
+    forced = {"table": [S_, Bp], "valid_hashes": n_valid,
+              "slab_ms": rows[1]["ms"], "rows_ms": rows[2]["ms"]}
+    k2s = (hi, lo, valid, tables, None, dh.seed, dh.block_length)
+    for v, fn in (("thin8", lambda: probe._launch(*k2s, 8)[0]),
+                  ("thin4", lambda: probe._launch(*k2s, 4)[0]),
+                  ("split", lambda: probe.k2_counts(*k2s,
+                                                    variant="split")[0])):
+        forced[f"{v}_ms"], forced["plain_ms"], _, each = time_pair(
+            torch, fn, k2p, 10)
+        log(f"time K2 ({v}, forced) at the flat table [{S_}, {Bp}]: kernel "
+            f"{each[0]:.4f}/{each[1]:.4f} ms, plain {each[2]:.3f}/"
+            f"{each[3]:.3f} ms; bit-exact vs twin")
+    rows[1]["flat_forced"] = forced
     log(f"time K2 at the flat table [{S_}, {Bp}]: {n_valid} valid hashes "
         f"({n_valid / R:.1f} a read), {row_bytes / 1e9:.3f} GB of rows; slab "
         f"route ({rows[1]['slab_bins']} bins a slab) {rows[1]['ms']:.4f} ms "
@@ -1504,7 +1624,7 @@ def time_hier(torch, state) -> list[dict]:
                         widest_bound_by=row["bound_by"],
                         max_abs_err=max(record["max_abs_err"], err))
             if gi in (0, stacked):
-                b = probe.slab_bins(*tables.shape[1:], dev)
+                b = probe.slab_bins(*tables.shape[1:], a[0].shape[1], dev)
                 ms, _, _, each = time_pair(
                     torch, lambda: probe.k2_counts(*a, *sk),  # noqa: B023
                     lambda: probe.probe_counts_grouped_plain(  # noqa: B023
@@ -1517,6 +1637,9 @@ def time_hier(torch, state) -> list[dict]:
 
 
 # ------------------------------------------------------------ phase 13 --
+# phase 13d's table past the L2 for a forced slab: 120,000 slots x
+# 1,024 bins (123 MB), phase 13b's batch of 5,712 valid slots a read
+TALL_SLOTS, TALL_NVALID = 120_000, 5712
 # the bench's hier_scaled_minimizer family's scheme (phases 13a and 13e)
 MM_K, MM_WINDOW, MM_SCALING = 20, 26, 3
 K5_SCHEMES = ((20, 20), (20, 26), (18, 26), (32, 40))  # (k, window)
@@ -1749,12 +1872,42 @@ def time_keep(torch, extract, packed, lengths, thresh: int) -> float:
     return min(ms1, ms2)
 
 
-def time_k2_kmer(torch, state) -> dict:
+def k2_bound(R: int, H: int, tables, n_valid: int) -> dict:
+    """K2's least time: hashes in, the tables once, counts out; one
+    fingerprint-byte compare per valid hash (of an active pair) and bin."""
+    G, S_, Bp = tables.shape
+    return bound(9 * R * H + G * S_ * Bp + 4 * G * R * Bp,
+                 float(n_valid) * Bp, PEAK_INT8)
+
+
+def time_variants(torch, label: str, fn, plain, variants: dict,
+                  reps: int) -> dict:
+    """{name: kernel ms} of K2 ``variants`` ({name: fn() of the variant})
+    on one shape, each held bit-exact to ``plain`` and timed against it
+    (time_pair); the route ``fn`` first, as "route", with the plain ms."""
+    out = {}
+    for name, f in {"route": fn, **variants}.items():
+        ms, plain_ms, _, each = time_pair(torch, f, plain, reps)
+        out[name] = ms
+        out.setdefault("plain_ms", plain_ms)
+        log(f"time K2 {label} {name}: kernel {each[0]:.4f}/{each[1]:.4f} "
+            f"ms, plain {each[2]:.3f}/{each[3]:.3f} ms; bit-exact vs twin")
+    return out
+
+
+def time_k2_kmer(torch, state) -> tuple[dict, dict]:
     """Phase 13d: K2 at phase 13b's own shape: the L=8192 bucket of its
     reads through K5 (plain k-mers: H = L hash slots, hundreds of hits a
     bin on a read's source genome), probed as the path probes them on
-    its flat table, too tall for a slab (the rows route); bit-exact to
-    the twin on every read of the batch, then timed against it."""
+    its flat table, too tall for a 16-bin slab (a thin slab of 4 bins);
+    bit-exact to the twin on every read of the batch, then timed against
+    it beside the rows route and the split variant forced on the same
+    inputs; then the slab route forced on a table past the L2
+    (TALL_SLOTS x 1,024 bins, random keys of phase 13b's batch size: a
+    slab of 1 bin, which the rule leaves on the rows route) and on phase
+    6's stack of two [30,000, 528] tables with a mask, each beside the
+    rows route and held to the twin.  Returns the slab route's record at
+    13b's shape and the rows route's."""
     from taxor_tpu_torch.device import e2e, probe
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
     from taxor_tpu_torch.hash import device_syncmer as dsync
@@ -1768,33 +1921,88 @@ def time_k2_kmer(torch, state) -> dict:
                                       0, MM_K, L, 0)
     R, H = hi.shape
     S_, Bp = dh.table.shape
+    tables = dh.table[None]
+    sb = (dh.seed, dh.block_length)
     fn = lambda: probe.probe_counts(hi, lo, valid, dh.table,  # noqa: E731
-                                    dh.seed, dh.block_length)
+                                    *sb)
     plain = lambda: probe.probe_counts_plain(  # noqa: E731
-        hi, lo, valid, dh.table, dh.seed, dh.block_length)
-    before = probe.k2_counts.VARIANTS.get("rows", 0)
+        hi, lo, valid, dh.table, *sb)
+    W = probe.slab_bins(S_, Bp, H, dev)
+    before = probe.k2_counts.VARIANTS.get("slab", 0)
     got = fn()
-    if probe.k2_counts.VARIANTS.get("rows", 0) != before + 1:
+    if probe.k2_counts.VARIANTS.get("slab", 0) != before + 1 or W != 4:
         raise AssertionError(f"K2 at phase 13b's table {(S_, Bp)} did not "
-                             f"take the rows route")
-    assert_equal(torch, f"K2 (rows) at phase 13b's shape R={R}, H={H}",
-                 ("counts",), (got,), (plain(),))
+                             f"take a thin slab of 4 bins ({W})")
+    assert_equal(torch, f"K2 (slab of {W} bins) at phase 13b's shape R={R}, "
+                 f"H={H}", ("counts",), (got,), (plain(),))
     top = int(got.max())
     if top <= 256:
         raise AssertionError(f"K2 at phase 13b's shape: max count {top}, "
                              f"no count past 256")
-    ms, plain_ms, err, each = time_pair(torch, fn, plain, 10)
+
+    def forced(v, *args):
+        return lambda: probe.k2_counts(*args, variant=v)[0]
+
+    k2 = (hi, lo, valid, tables, None, *sb)
+    kmer = time_variants(torch, f"at phase 13b's shape {(S_, Bp)}", fn,
+                         plain, {"rows": forced("rows", *k2),
+                                 "split": forced("split", *k2)}, 10)
     n_valid = int(valid.sum())
-    b = bound(9 * R * H + S_ * Bp + 4 * R * Bp, float(n_valid) * Bp,
-              PEAK_INT8)
-    log(f"time probe_count_rows (K2 rows) at phase 13b's shape R={R}, "
-        f"L=H={H}, table {(S_, Bp)}: bit-exact vs twin on every read "
-        f"(max count {top}, {n_valid} valid hashes); kernel "
-        f"{each[0]:.4f}/{each[1]:.4f} ms, plain {each[2]:.3f}/{each[3]:.3f} "
-        f"ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"R": R, "H": H, "table": [S_, Bp], "ms": ms,
-            "plain_ms": plain_ms, "max_abs_err": err, "max_count": top,
-            "valid_hashes": n_valid, **b}
+    b = k2_bound(R, H, tables, n_valid)
+    log(f"time probe_count (K2 slab, {W} bins a slab) at phase 13b's shape "
+        f"R={R}, L=H={H}, table {(S_, Bp)}: bit-exact vs twin on every read "
+        f"(max count {top}, {n_valid} valid hashes); {kmer['route']:.4f} ms "
+        f"against the rows route's {kmer['rows']:.4f} and the split "
+        f"variant's {kmer['split']:.4f}; plain {kmer['plain_ms']:.3f} ms; "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    rec = {"R": R, "H": H, "table": [S_, Bp], "slab_bins": W,
+           "ms": kmer["route"], "plain_ms": kmer["plain_ms"],
+           "max_abs_err": 0.0, "max_count": top, "valid_hashes": n_valid,
+           **b, "rows_ms": kmer["rows"], "split_ms": kmer["split"]}
+    rows_rec = {"R": R, "H": H, "table": [S_, Bp], "ms": kmer["rows"],
+                "plain_ms": kmer["plain_ms"], "max_abs_err": 0.0,
+                "max_count": top, "valid_hashes": n_valid, **b}
+    del got, dh, tables
+    # a table past the L2, forced
+    rng = np.random.default_rng(SEED + 62)
+    keys = rng.integers(0, 2**64, (R, H), dtype=np.uint64)
+    tv = torch.zeros((R, H), dtype=torch.bool, device=dev)
+    tv[:, :TALL_NVALID] = True
+    th, tl = (torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
+              for x in ((keys >> np.uint64(32)).astype(np.uint32),
+                        (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+    tall = torch.randint(0, 256, (1, TALL_SLOTS, 1024), dtype=torch.uint8,
+                         device=dev, generator=torch.Generator(
+                             device=dev).manual_seed(SEED + 62))
+    tsb = (int(rng.integers(0, 2**63)), TALL_SLOTS // 3)
+    targs = (th, tl, tv, tall, None, *tsb)
+    tplain = lambda: probe.probe_counts_grouped_plain(  # noqa: E731
+        *targs)[0]
+    tall_ms = time_variants(torch, f"past the L2 {list(tall.shape)}",
+                            forced("rows", *targs), tplain,
+                            {"slab": forced("slab", *targs)}, 5)
+    rec["tall_forced"] = {
+        "table": list(tall.shape), "R": R, "H": H,
+        "slab_fit": probe.slab_bins(TALL_SLOTS, 1024, H, dev, fit=True),
+        "slab_ms": tall_ms["slab"], "rows_ms": tall_ms["route"],
+        "plain_ms": tall_ms["plain_ms"],
+        **k2_bound(R, H, tall, R * TALL_NVALID)}
+    del tall, targs
+    # phase 6's stack of two tables with a mask
+    x = stack_problem(torch, np.random.default_rng(SEED + 61))
+    sp = lambda: probe.probe_counts_grouped_plain(*x)  # noqa: E731
+    stack = time_variants(
+        torch, f"on the stack {list(x[3].shape)}",
+        lambda: probe.probe_counts_grouped(*x), sp,
+        {"rows": lambda: probe.k2_counts(*x, variant="rows"),
+         "split": lambda: probe.k2_counts(*x, variant="split")}, 10)
+    pairs = x[4].long() * x[2].sum(1)[None]
+    rec["stack"] = {"tables": list(x[3].shape),
+                    "active": int(x[4].sum()), "slab_ms": stack["route"],
+                    "rows_ms": stack["rows"], "split_ms": stack["split"],
+                    "plain_ms": stack["plain_ms"],
+                    **k2_bound(STACK_R, STACK_H, x[3], int(pairs.sum()))}
+    return rec, rows_rec
 
 
 def time_descend_all(torch, state) -> list[dict]:
@@ -2476,7 +2684,7 @@ def check_big_tables(torch, probe) -> list[dict]:
         sb = (p["seed"], p["block_length"])
         runs = p["runs"]
         if probe.narrow_mode(S, Bp, "cuda") != "rows" or probe.slab_bins(
-                S, Bp, "cuda"):
+                S, Bp, p["hi"].shape[1], "cuda"):
             raise AssertionError(f"[{G}, {S}, {Bp}] takes no rows route")
         plain = {
             "K2n rows (run sums)": lambda: probe.probe_run_sums_grouped_plain(
@@ -2584,11 +2792,16 @@ MODEL_SLACK = 0.30
 HOST_SLACK = 0.50
 
 
+# phase 16a's hash slots a read: either side of the thin slabs' least
+ROUTE_SLOTS = (2048, 8191, 8192, 32768)
+
+
 def check_routing(torch, probe) -> None:
     """Phase 16a: the layout cost model's host copies of K2's and K2n's
-    routing rules (hixf/device_cost.py: slab_bins, narrow_mode, with the
-    H100's opt-in shared memory a block as a constant) equal the card's
-    (probe.slab_bins, probe.narrow_mode) on device_cost.routing_grid()."""
+    routing rules (hixf/device_cost.py: slab_bins at ROUTE_SLOTS hash
+    slots a read, slab_fit and narrow_mode, with the H100's opt-in shared
+    memory a block as a constant) equal the card's (probe.slab_bins and
+    its fit, probe.narrow_mode) on device_cost.routing_grid()."""
     from taxor_tpu_torch.hixf import device_cost
 
     dev = torch.device("cuda")
@@ -2596,14 +2809,18 @@ def check_routing(torch, probe) -> None:
                     "shared_memory_per_block_optin", None)
     grid = device_cost.routing_grid()
     bad = [(s, b) for s, b in grid
-           if probe.slab_bins(s, b, dev) != device_cost.slab_bins(s, b)
-           or probe.narrow_mode(s, b, dev) != device_cost.narrow_mode(s, b)]
+           if probe.narrow_mode(s, b, dev) != device_cost.narrow_mode(s, b)
+           or any(probe.slab_bins(s, b, h, dev)
+                  != device_cost.slab_bins(s, b, h) for h in ROUTE_SLOTS)
+           or probe.slab_bins(s, b, 0, dev, fit=True)
+           != device_cost.slab_fit(s, b)]
     if bad or optin not in (None, device_cost.SMEM_OPTIN):
         raise AssertionError(f"phase 16a: the host routing rules differ "
                              f"from the card's at {bad[:10]} ({len(bad)} "
                              f"points); opt-in shared memory {optin}")
     slots = sorted({s for s, _ in grid})
-    log(f"phase 16a: host slab_bins and narrow_mode == the card's at "
+    log(f"phase 16a: host slab_bins, slab_fit and narrow_mode == the "
+        f"card's at "
         f"{len(grid)} (S, Bpad) points (S {slots[0]}-{slots[-1]}, Bpad "
         f"16-4096); opt-in shared memory a block {optin} B")
 
@@ -2663,6 +2880,33 @@ def build_hier_layouts(work: str, label: str, tsv: str, gdir: str) -> dict:
     return {"idx": build_layouts(work, label, tsv, gdir, ("flat", "device"))}
 
 
+def layout_key(index) -> str:
+    """A digest of what a search reads of an index, blind to the order of
+    each IXF's bins: the hash scheme and, from the root down, each IXF's
+    block length and seed and the sorted digests of its bins, a bin's
+    fingerprint column with its user bin's file or its child IXF's digest.
+    Two builds that place the same bins in another order do the same work
+    on the card."""
+    import hashlib
+
+    hixf = index.hixf
+
+    def ixf_key(i: int) -> bytes:
+        ixf = hixf.ixfs[i]
+        cols = []
+        for b in range(ixf.bin_count):
+            user = int(hixf.bin_to_user[i][b])
+            below = (hixf.user_bin_filenames[user].encode() if user >= 0
+                     else ixf_key(int(hixf.next_ixf_id[i][b])))
+            cols.append(hashlib.sha256(np.ascontiguousarray(
+                ixf.fingerprints[:, b]).tobytes() + below).digest())
+        head = repr((ixf.slots, ixf.block_length, ixf.seed)).encode()
+        return hashlib.sha256(head + b"".join(sorted(cols))).digest()
+
+    return hashlib.sha256(repr(index.scheme).encode()
+                          + ixf_key(0)).hexdigest()
+
+
 def layout_choice(torch, work: str, label: str, data: dict) -> dict:
     """Phase 16c: three layouts of one reference set (data: tsv, gdir,
     recs, n_reads, and idx: {"flat", "cpu", "device": the index file},
@@ -2673,7 +2917,10 @@ def layout_choice(torch, work: str, label: str, data: dict) -> dict:
     the device model's ms a read of its probe launches
     (device_cost.hixf_ms_per_read); the device layout must be the fastest
     or within CHOICE_SLACK of it, and its TSV equal to --engine host on
-    the first CHECK_READS reads and the long ones."""
+    the first CHECK_READS reads and the long ones.  Layouts equal but for
+    the order of their bins (``layout_key``) are one layout: they share
+    one step and its times, so that two timings of the same layout never
+    stand for two layouts."""
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
     from taxor_tpu_torch.hash import device_syncmer as dsync
     from taxor_tpu_torch.hixf import device_cost
@@ -2686,11 +2933,14 @@ def layout_choice(torch, work: str, label: str, data: dict) -> dict:
     th = Thresholder.make(K, K, 0.04, -1.0, True)
     seqs = bucket_reads(data["recs"], 8192)
     packed, lengths = dsync.pack_reads(seqs, 8192)
-    steps, rows = {}, {}
+    steps, rows, same, first = {}, {}, {}, {}
     for name, (_, index) in built.items():
-        dh = DeviceHIXF.from_hixf(index.hixf, "cuda")
-        steps[name] = (lambda dh=dh, sc=index.scheme:  # noqa: E731
-                       dh.e2e_async(packed, lengths, sc, th)())
+        same[name] = first.setdefault(layout_key(index), name)
+        if same[name] == name:
+            same[name] = None
+            dh = DeviceHIXF.from_hixf(index.hixf, "cuda")
+            steps[name] = (lambda dh=dh, sc=index.scheme:  # noqa: E731
+                           dh.e2e_async(packed, lengths, sc, th)())
         levels = device_cost.hixf_levels(index.hixf)
         rows[name] = {
             "ixfs": len(index.hixf.ixfs),
@@ -2701,13 +2951,17 @@ def layout_choice(torch, work: str, label: str, data: dict) -> dict:
     for name in (list(steps) + list(steps)[::-1]) * 2:
         times[name].append(cuda_ms(steps[name], 20))
     for name, row in rows.items():
-        row["ms"] = min(times[name])
+        timed = same[name] or name
+        row["ms"] = min(times[timed])
         row["ms_per_read"] = row["ms"] / len(seqs)
+        if same[name]:
+            row["same_as"] = same[name]
         log(f"phase 16c [{label}] {name}: {row['ixfs']} IXF(s), launches "
             f"{row['launches']}; model {row['model_ms_per_read'] * 1e3:.3f} "
             f"us a read, measured {row['ms']:.4f} ms a batch of "
             f"{len(seqs)} = {row['ms_per_read'] * 1e3:.3f} us a read "
-            f"({'/'.join(f'{t:.4f}' for t in times[name])} ms)")
+            f"({'/'.join(f'{t:.4f}' for t in times[timed])} ms"
+            f"{f'; the {timed} layout itself' if same[name] else ''})")
     best = min(r["ms"] for r in rows.values())
     if rows["device"]["ms"] > CHOICE_SLACK * best:
         raise AssertionError(f"phase 16c [{label}]: the device model's "
@@ -3144,8 +3398,9 @@ def main() -> int:
             kmer = nonsyncmer_path(torch, os.path.join(work, "kmer"), "kmer",
                                    kmer_in, ("K5", "K2"))
         with phase("phase 13d (K2 at 13b's shape)"):
-            rows = next(r for r in kernels if r["name"] == "probe_count_rows")
-            rows["kmer_flat"] = time_k2_kmer(torch, kmer)
+            slab, rows = (next(r for r in kernels if r["name"] == n)
+                          for n in ("probe_count", "probe_count_rows"))
+            slab["kmer_thin"], rows["kmer_flat"] = time_k2_kmer(torch, kmer)
         # 13e: the same scheme on a flat layout of 13b's genomes
         with phase("phase 13e"):
             scaled = nonsyncmer_path(torch, os.path.join(work, "kmer"),

@@ -16,10 +16,12 @@
 // at most 512 bins take K2n instead (probe_narrow.cu).
 //
 // Two routes, chosen by shape alone (probe_slab_bins in probe_slab.cu):
-// where an [S, 16]-byte slab of the table fits one block's shared memory
-// the slab route (probe_slab.cu) holds the table on chip one bin slab at a
-// time, the Hopper form of the TPU kernels' VMEM bin tile; elsewhere (S
-// above ~14,500 slots) this file's rows route reads the rows from L2.
+// where a slab of the table fits one block's shared memory, 16 bins or
+// more of it, or a thin slab of 8 or 4 bins of every slot for reads of
+// 8,192 hash slots or more, the slab route (probe_slab.cu) holds the table
+// on chip one bin slab at a time, the Hopper form of the TPU kernels' VMEM
+// bin tile; elsewhere this file's rows route reads the rows from L2 or
+// HBM.
 //
 // The rows route computes each hash's probe slots and fingerprint itself
 // (probe_stage.cuh).  Invalid slots are dropped when a tile is staged, so
@@ -101,8 +103,8 @@ extern "C" int launch_probe_slab(const void* hi, const void* lo,
 // tables: G contiguous uint8 [S, Bpad] tables; active: uint8 [G, R] or
 // null (every read active); out: int32 [G, R, Bpad].  slab_bins 0 takes
 // the rows route, else the slab route with slabs of slab_bins bins
-// (probe_slab_bins) and the scratch rec (uint64 [R, H]) and nrec (int32
-// [R]).
+// (probe_slab_bins or probe_slab_fit) and the scratch rec (uint64 [R, H])
+// and nrec (int32 [R]).
 extern "C" int launch_probe_count(const void* hi, const void* lo,
                                   const void* valid, int R, int H,
                                   const void* table, int G, int S, int Bpad,

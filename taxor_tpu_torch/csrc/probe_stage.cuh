@@ -47,7 +47,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 // then has (R + per - 1) / per groups.  Sets the kernel's dynamic shared
 // memory first: a slab that does not fit fails here.  The slab width
 // itself is picked by probe_slab_bins (probe_slab.cu) for K2 and by
-// device/diag.py's slab_bins for the diagnostics: one rule, kept alike.
+// device/diag.py's slab_bins for the diagnostics: one rule for slabs of
+// 16 bins or more, kept alike.
 template <typename Kernel>
 cudaError_t slab_read_groups(Kernel kern, int threads, int smem, long blocks,
                              int R, int min_reads, int& per) {

@@ -13,13 +13,14 @@ first use (never at import) into ``taxor_tpu_torch/_build/``, which
 edited source rebuilds.  Each C launcher enqueues on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
 into an exception.  ``syncmer_extract_smem``, ``probe_slab_bins``,
-``probe_narrow_mode``, ``minimizer_max_len``, ``diag_smem_per_block`` and
-``extract_stage_smem`` are no launchers: they return the shared memory K1
-takes, the slab width of K2's slab route (0 for its rows route), K2n's
-mode (1 smem, 0 rows), the longest read K5 takes, the
-shared memory a block may take (the diagnostics' slab route) and the
-dynamic shared memory of an extract_stage launch, so that the wrappers
-never repeat a kernel's layout.
+``probe_slab_fit``, ``probe_cluster_split``, ``probe_narrow_mode``,
+``minimizer_max_len``, ``diag_smem_per_block`` and ``extract_stage_smem``
+are no launchers: they return the shared memory K1 takes, the slab width
+of K2's slab route (0 for its rows route) and the widest that fits, the
+cluster of its split variant, K2n's mode (1 smem, 0 rows), the longest
+read K5 takes, the shared memory a block may take (the diagnostics' slab
+route) and the dynamic shared memory of an extract_stage launch, so that
+the wrappers never repeat a kernel's layout.
 """
 
 from __future__ import annotations
@@ -56,8 +57,17 @@ _SIGNATURES = {
     "launch_probe_count": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                            ctypes.c_uint64, ctypes.c_uint32, _I, _P, _P, _P,
                            _P],
-    # (S, Bpad, device) -> K2's slab width in bins, 0: the rows route
-    "probe_slab_bins": [_I, _I, _I],
+    # (S, Bpad, H, device) -> K2's slab width in bins, 0: the rows route
+    "probe_slab_bins": [_I, _I, _I, _I],
+    # (S, Bpad, device) -> the widest slab that fits, 0: none
+    "probe_slab_fit": [_I, _I, _I],
+    # (hi, lo, valid, R, H, tables, G, S, Bpad, active, seed,
+    #  block_length, C, rec, nrec, out, stream)
+    "launch_probe_split": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
+                           ctypes.c_uint64, ctypes.c_uint32, _I, _P, _P, _P,
+                           _P],
+    # (S, Bpad, block_length, device) -> the split variant's cluster
+    "probe_cluster_split": [_I, _I, _I, _I],
     # (hi, lo, valid, R, H, tables, G, S, Bpad, active, seed,
     #  block_length, run_off, run_s, run_e, n_runs, mode, out, stream)
     "launch_probe_narrow": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
@@ -96,6 +106,9 @@ _DIAG_SIGNATURES = {
     "launch_extract_stage": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # (x, R, Wd, phases: host int32 (d, sh) pairs, P, out, stream)
     "launch_window_shift": [_P, _I, _I, _P, _I, _P, _P],
+    # (mode, C, clusters, rows_log2, iters, out, stream); clusters 0:
+    # minus the clusters resident at once
+    "launch_dsmem_rows": [_I, _I, _I, _I, _I, _P, _P],
 }
 
 

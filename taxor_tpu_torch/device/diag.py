@@ -162,9 +162,9 @@ def slab_bins(S1: int, B: int, smem_per_block: int) -> int:
     table [S1, B] on a card whose blocks may take ``smem_per_block``
     bytes of shared memory (the H100: 232,448): the widest of
     SLAB_WIDTHS, no wider than B needs, whose [S1, b] slab fits; 0 where
-    none fits, the rows route.  K2's rule (csrc/probe_slab.cu,
-    probe_slab_bins; a change to one is made to both), for any B that is
-    a multiple of 4.  A function of the shape and the card alone, never
+    none fits, the rows route.  The 16- to 128-bin part of K2's rule
+    (csrc/probe_slab.cu, probe_slab_fit; a change to one is made to
+    both), for any B that is a multiple of 4.  A function of the shape and the card alone, never
     of a launch's outcome."""
     if S1 <= 0 or B <= 0:
         return 0
@@ -475,3 +475,83 @@ def window_shift(x: torch.Tensor, phases=range(16)) -> torch.Tensor:
 
 
 window_shift.LAUNCHES = 0
+
+
+# ----------------------------------------------------------- DSMEM rate --
+DSMEM_MODES = ("local", "remote", "spread", "word", "stream")
+DSMEM_THREADS = 1024  # kThreads of csrc/diag/dsmem.cu
+
+
+def _xs32(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ ((x << 13) & M32)
+    x = x ^ (x >> 17)
+    return x ^ ((x << 5) & M32)
+
+
+def dsmem_rows_plain(mode: str, C: int, clusters: int, rows_log2: int,
+                     iters: int) -> torch.Tensor:
+    """Plain twin of dsmem_rows (same contract), on the CPU."""
+    rows = 1 << rows_log2
+    T = DSMEM_THREADS
+    w = torch.arange(4 * rows, dtype=torch.int64)
+    buf = ((((torch.arange(C, dtype=torch.int64)[:, None] + 1) * 0x9E3779B1)
+            ^ (w[None, :] * 0x85EBCA77)) & M32).view(C, rows, 4)
+    gid = torch.arange(clusters * C * T, dtype=torch.int64)
+    rank, tid = (gid // T) % C, gid % T
+    s = ((gid * 0x9E3779B9) & M32) | 1
+    acc = torch.zeros((gid.numel(), 4), dtype=torch.int64)
+    for it in range(iters):
+        s = _xs32(s)
+        if mode == "word":
+            word = s & (4 * rows - 1)
+            acc[:, 0] ^= buf.view(C, -1)[rank, word]
+            continue
+        src, row = (rank + 1) % C, s & (rows - 1)
+        if mode == "local":
+            src = rank
+        elif mode == "spread":
+            g = s & (C * rows - 1)
+            src, row = g >> rows_log2, g & (rows - 1)
+        elif mode == "stream":
+            row = (it * T + tid) & (rows - 1)
+        acc ^= buf[src, row]
+    return _to_i32(acc).view(clusters * C, T, 4)
+
+
+def dsmem_clusters(mode: str, C: int, rows_log2: int,
+                   device: torch.device) -> int:
+    """The clusters of C blocks of dsmem_rows that CUDA ``device`` holds
+    at once (cudaOccupancyMaxActiveClusters)."""
+    n = cuda_build.diag_lib().launch_dsmem_rows(
+        DSMEM_MODES.index(mode), C, 0, rows_log2, 0, None,
+        cuda_build.stream_of(torch.empty(0, device=device)))
+    if n > 0:
+        raise RuntimeError(f"launch_dsmem_rows: CUDA error {n}")
+    return -n
+
+
+def dsmem_rows(mode: str, C: int, clusters: int, rows_log2: int,
+               iters: int, device) -> torch.Tensor:
+    """int32 [clusters * C, DSMEM_THREADS, 4]: the XOR of the ``iters``
+    16-byte rows (mode "word": 4-byte words, in word 0) each thread of
+    csrc/diag/dsmem.cu reads in ``mode`` (DSMEM_MODES; local, a remote
+    rank, spread over the cluster, words, a coalesced stream) from
+    clusters of C blocks (a power of two up to 16) of 2^rows_log2 rows
+    each.  Kernel on a CUDA device, twin on "cpu"; the measurement of the
+    rate of distributed shared memory against the block's own."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return dsmem_rows_plain(mode, C, clusters, rows_log2, iters)
+    if mode not in DSMEM_MODES or clusters < 1:
+        raise ValueError(f"dsmem_rows: unknown mode {mode!r} or no cluster")
+    out = torch.empty((clusters * C, DSMEM_THREADS, 4), dtype=torch.int32,
+                      device=device)
+    err = cuda_build.diag_lib().launch_dsmem_rows(
+        DSMEM_MODES.index(mode), C, clusters, rows_log2, iters,
+        out.data_ptr(), cuda_build.stream_of(out))
+    cuda_build.check(err, "launch_dsmem_rows")
+    cuda_build.count_launch(dsmem_rows)
+    return out
+
+
+dsmem_rows.LAUNCHES = 0

@@ -35,8 +35,10 @@ the port of the other five probe kernels (``_probe_call_chunked``'s
 kernels); on a CPU tensor both take the gather twins.  The shape picks each kernel's variant: K2's slab route
 (``csrc/probe_slab.cu``) holds the table in shared memory one bin slab
 at a time, as the TPU kernels held a bin tile in VMEM, where a slab fits
-one block (``slab_bins``), else its rows route (``csrc/probe.cu``) reads
-the rows from L2; K2n's smem mode holds a whole subgroup table in a
+one block (``slab_bins``: 16 bins or more, or for reads of at least
+8,192 hash slots a thin slab of 8 or 4 bins of every slot, up to 58,112
+slots), else its rows route (``csrc/probe.cu``) reads the rows from L2
+or HBM; K2n's smem mode holds a whole subgroup table in a
 block's shared memory where it fits (``narrow_mode``), else its rows
 mode reads the rows from L2.
 """
@@ -56,6 +58,10 @@ from . import cuda_build
 LANE = 16
 # K2n's domain: B4 <= 128 words, the bound of pallas_probe._repl_eligible
 NARROW_MAX_BINS = 512
+# K2's slab route: u16 positions within a segment of S / 3 slots
+SLAB_MAX_SLOTS = 196_608
+# k2_counts' variants (None: the shape's pick)
+K2_VARIANTS = (None, "slab", "split", "rows")
 
 
 def pad_bins(n_bins: int, lane: int = LANE) -> int:
@@ -194,9 +200,10 @@ def _launch(hi, lo, valid, tables, active, seed: int, block_length: int,
     out = torch.empty((G, R, Bp), dtype=torch.int32, device=tables.device)
     rec = nrec = None
     if slab:
-        if Bp % 16 or tables.data_ptr() % 16:
+        if Bp % 16 or tables.data_ptr() % 16 or S >= SLAB_MAX_SLOTS:
             raise ValueError(f"{name}: the slab route takes a Bpad that is "
-                             "a multiple of 16 on 16-byte aligned rows")
+                             "a multiple of 16 on 16-byte aligned rows and "
+                             f"fewer than {SLAB_MAX_SLOTS} slots")
         # one 8-byte record a slot: 32 MB at the fused step's R x H =
         # POS_BUDGET (H = L for minimisers and plain k-mers)
         rec = torch.empty((R, H), dtype=torch.int64, device=out.device)
@@ -212,18 +219,71 @@ def _launch(hi, lo, valid, tables, active, seed: int, block_length: int,
     return out
 
 
-def slab_bins(S: int, Bpad: int, device: torch.device) -> int:
-    """Slab width in bins of K2's slab route for tables [S, Bpad] on CUDA
-    ``device`` (probe_slab_bins of csrc/probe_slab.cu: the widest of 128,
-    64, 32 and 16 bins whose [S, b] slab fits one block's shared memory);
-    0 where none fits, the rows route.  A function of the shape and of the
-    card's shared memory a block, never of a launch's outcome."""
+def _launch_split(hi, lo, valid, tables, active, seed: int,
+                  block_length: int, C: int) -> torch.Tensor:
+    """Launch K2's split variant (launch_probe_split, csrc/probe_cluster.cu)
+    in clusters of C blocks after the checks; int32 [G, R, Bpad].  The
+    scratch of its records is allocated here."""
+    name = "launch_probe_split"
+    G, S, Bp, R, H = _check(name, hi, lo, valid, tables, active,
+                            block_length)
+    if Bp % 16 or tables.data_ptr() % 16 or S >= SLAB_MAX_SLOTS:
+        raise ValueError(f"{name}: the split variant takes a Bpad that is "
+                         "a multiple of 16 on 16-byte aligned rows and fewer "
+                         f"than {SLAB_MAX_SLOTS} slots")
+    out = torch.empty((G, R, Bp), dtype=torch.int32, device=tables.device)
+    rec = torch.empty((R, H), dtype=torch.int64, device=out.device)
+    nrec = torch.empty(R, dtype=torch.int32, device=out.device)
+    err = cuda_build.lib().launch_probe_split(
+        hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, H,
+        tables.data_ptr(), G, S, Bp,
+        None if active is None else active.data_ptr(),
+        int(seed) & (2**64 - 1), int(block_length), C, rec.data_ptr(),
+        nrec.data_ptr(), out.data_ptr(), cuda_build.stream_of(tables))
+    cuda_build.check(err, name)
+    return out
+
+
+def _index(device) -> int:
     idx = torch.device(device).index
-    b = cuda_build.lib().probe_slab_bins(
-        S, Bpad, torch.cuda.current_device() if idx is None else idx)
+    return torch.cuda.current_device() if idx is None else idx
+
+
+def slab_bins(S: int, Bpad: int, H: int, device: torch.device,
+              fit: bool = False) -> int:
+    """Slab width in bins of K2's slab route for tables [S, Bpad] and
+    reads of H hash slots on CUDA ``device`` (probe_slab_bins of
+    csrc/probe_slab.cu): the widest of 128, 64, 32, 16, 8, 4, 2 and 1
+    bins whose [S, b] slab fits one block's shared memory, where it has
+    16 bins or more, or 8 or 4 and H is at least 8,192 (a thin slab of
+    every slot, which the card measured faster than the rows route only
+    for reads of many hashes); 0 where none, the rows route.  ``fit``:
+    the widest that fits, whatever H (probe_slab_fit).  A function of the
+    shape and of the card's shared memory a block, never of a launch's
+    outcome."""
+    return _slab_bins(S, Bpad, -1 if fit else H, _index(device))
+
+
+@functools.lru_cache(maxsize=4096)
+def _slab_bins(S: int, Bpad: int, H: int, index: int) -> int:
+    lib = cuda_build.lib()
+    b = (lib.probe_slab_fit(S, Bpad, index) if H < 0
+         else lib.probe_slab_bins(S, Bpad, H, index))
     if b < 0:
         raise RuntimeError("probe_slab_bins: CUDA error")
     return b
+
+
+def split_cluster(S: int, Bpad: int, block_length: int,
+                  device: torch.device) -> int:
+    """The cluster of K2's split variant (never the shape's pick): 3m
+    blocks, each [ceil(block_length / m), 16] rows of one segment; 0
+    where no m up to 5 fits (probe_cluster_split)."""
+    C = cuda_build.lib().probe_cluster_split(S, Bpad, int(block_length),
+                                             _index(device))
+    if C < 0:
+        raise RuntimeError("probe_cluster_split: CUDA error")
+    return C
 
 
 def k2_counts(hi, lo, valid, tables, active, seed: int, block_length: int,
@@ -233,22 +293,37 @@ def k2_counts(hi, lo, valid, tables, active, seed: int, block_length: int,
     uint8 [G, S, Bpad] of any width; active bool [G, R] or None (every
     read active).  The shape picks the variant: "slab" (csrc/probe_slab.cu,
     the table in shared memory one bin slab at a time) where slab_bins
-    finds a slab that fits, else "rows" (csrc/probe.cu, rows from L2).
-    ``variant`` forces one ("slab" raises where no slab fits).  route: the
-    caller's route, counted in k2_counts.ROUTES; the variant in
-    k2_counts.VARIANTS, both beside k2_counts.LAUNCHES."""
-    if variant not in (None, "slab", "rows"):
+    finds a slab for the tables and the reads' H hash slots, else "rows"
+    (csrc/probe.cu, rows from L2 or HBM).  ``variant`` forces one:
+    "slab" takes the widest slab that fits whatever H (slab_bins' fit),
+    "split" (csrc/probe_cluster.cu: a 16-bin slab held across a
+    thread-block cluster, timed beside the slab route, never the shape's
+    pick) its cluster; both raise where none fits.  route: the caller's
+    route, counted in k2_counts.ROUTES; the variant in k2_counts.VARIANTS,
+    both beside k2_counts.LAUNCHES.  No variant falls back to another: a
+    failed launch raises."""
+    if variant not in K2_VARIANTS:
         raise ValueError(f"k2_counts: unknown variant {variant!r}")
-    b = 0
-    if variant != "rows" and tables.dim() == 3:
-        b = slab_bins(tables.shape[1], tables.shape[2], tables.device)
-        if variant == "slab" and not b:
-            raise ValueError(f"k2_counts: no slab of tables "
-                             f"{list(tables.shape)} fits shared memory")
-    out = _launch(hi, lo, valid, tables, active, seed, block_length, b)
+    b = C = 0
+    if tables.dim() == 3:
+        S, Bp = tables.shape[1:]
+        if variant in (None, "slab"):
+            b = slab_bins(S, Bp, hi.shape[-1], tables.device,
+                          fit=variant == "slab")
+        elif variant == "split":
+            C = split_cluster(S, Bp, block_length, tables.device)
+        if (variant == "slab" and not b) or (variant == "split" and not C):
+            raise ValueError(f"k2_counts: tables {list(tables.shape)} do not "
+                             f"fit the {variant} route")
+    if C:
+        out = _launch_split(hi, lo, valid, tables, active, seed,
+                            block_length, C)
+    else:
+        variant = "slab" if b else "rows"
+        out = _launch(hi, lo, valid, tables, active, seed, block_length, b)
     if out.numel():
         cuda_build.count_launch(k2_counts, route, k2_counts.VARIANTS,
-                                "slab" if b else "rows")
+                                variant)
     return out
 
 

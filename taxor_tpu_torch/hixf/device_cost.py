@@ -17,12 +17,15 @@ model rebuilds, on the host, what the search will run:
   - the route each launch takes: K2n (``csrc/probe_narrow.cu``) for at
     most 512 bins, in smem mode where a whole table fits a block's shared
     memory (``narrow_mode``); K2 (``csrc/probe.cu``,
-    ``csrc/probe_slab.cu``) for wider tables, on its slab route where a
-    bin slab fits a block (``slab_bins``), else its rows route.  These
-    are host copies of ``probe_narrow_mode`` and ``probe_slab_bins``
-    with the H100's opt-in shared memory a block as a constant, so that
-    a build needs no card; ``chip_smoke.py`` phase 16a and the GPU tests
-    hold them equal to the card's.
+    ``csrc/probe_slab.cu``) for wider tables,
+    on its slab route where a bin slab fits a block (``slab_bins``: 16
+    bins or more, or a thin slab of 8 or 4 bins of every slot for reads
+    of 8,192 hash slots or more, never at the model's batch of 2,048
+    slots a read), else its rows route.  These are host copies of
+    ``probe_narrow_mode`` and ``probe_slab_bins`` with the H100's opt-in
+    shared memory a block as a constant, so that a build needs no card;
+    ``chip_smoke.py`` phase 16a and the GPU tests hold them equal to the
+    card's.
 
 A launch then costs the larger of its host call (``CALL_MS`` for the
 flat step's probe, ``GROUP_MS`` for a descent group, which adds the
@@ -70,21 +73,38 @@ _NARROW_THREADS, _NARROW_WARPS, _NARROW_TILE = 256, 8, 1024
 SMS = 132
 SMEM_PER_SM = 233_472
 
+# K2's slab route (csrc/probe_slab.cu): no slot count from 196,608 (u16
+# positions within a segment); a thin slab (fewer than 16 bins) of no
+# fewer than 4 bins, for reads of no fewer than 8,192 hash slots (the
+# card measured thin slabs slower than the rows route elsewhere).  The
+# model's batch, the L = 8,192 bucket of a syncmer scheme, has
+# hash_cap(8,192) = 2,048 slots a read, so it never takes a thin slab:
+# the model prices syncmer batches, and the plain k-mer and minimiser
+# schemes' batches of 8,192 slots only as syncmer batches (ROADMAP D.5).
+SLAB_MAX_SLOTS = 196_608
+THIN_MIN_BINS = 4
+THIN_MIN_SLOTS = 8192
+BATCH_SLOTS = 2048
+
 # Fitted coefficients, ns, on an NVIDIA H100 80GB HBM3 at 700.00 W
-# (FIT_CARD; tools/bench_gather_scale.py --shapes all --fit; the host
+# (FIT_CARD; tools/bench_gather_scale.py --shapes all --fit, K2's thin
+# slabs with --shapes thin --fit --fit-only k2_thin; the host
 # floors from its default shapes over three runs).  A probed hash costs
 # "a" + "b" x Bpad on a rows route, its L2 part and its HBM part weighed
 # by the share of the table the L2 keeps (L2_EFF over the table's
 # bytes); on K2's slab route "a" + slabs x ("c0" + "c1" x the slab's
-# bins).  K2n's rows mode pays "pair" a (subgroup, read) block, its smem
-# mode "block" a block of its wave; outputs and smem mode's table copies
-# cost their bytes over WRITE_BPS.
+# bins); on its thin slabs slabs x ("c0" + "c1" x W), a slab for every W
+# bins, and each slab's block pays "read" an active read.  K2n's rows
+# mode pays "pair" a (subgroup, read) block, its smem mode "block" a
+# block of its wave; outputs and smem mode's table copies cost their
+# bytes over WRITE_BPS.
 CALL_MS = 0.040  # a probe launch's host call (0.028-0.059 measured)
 GROUP_MS = 0.30  # a descent group's step as a call (0.19-0.36 measured)
 L2_EFF = 25.26 * 2**20
 WRITE_BPS = 1.518e12
 COEF = {
     "k2_slab": {"a": 0.03839, "c0": 0.004712, "c1": 8.601e-05},
+    "k2_thin": {"c0": 8.885e-04, "c1": 1.713e-04, "read": 0.9470},
     "k2_rows": {"l2": (0.1433, 0.0003891), "hbm": (0.1383, 0.0007495)},
     "k2n_rows": {"l2": (0.03254, 0.0005078), "hbm": (0.07005, 0.0008544),
                  "pair": 1.944},
@@ -97,20 +117,30 @@ def pad_bins(n_bins: int) -> int:
     return max(LANE, -(-n_bins // LANE) * LANE)
 
 
-def slab_bins(S: int, Bpad: int) -> int:
-    """Host copy of probe_slab_bins (csrc/probe_slab.cu): the widest of
-    128, 64, 32 and 16 bins, no wider than Bpad needs, whose [S, b] slab
-    fits one block's shared memory; 0 where none fits (the rows route)."""
-    if S <= 0 or S >= 65536 or Bpad <= 0 or Bpad % 16:
+def slab_fit(S: int, Bpad: int) -> int:
+    """Host copy of probe_slab_fit (csrc/probe_slab.cu): the widest of 128,
+    64, 32, 16 bins (no wider than Bpad needs), 8, 4, 2 and 1 whose [S, b]
+    slab fits one block's shared memory; 0 from SLAB_MAX_SLOTS slots or
+    where none fits."""
+    if not 0 < S < SLAB_MAX_SLOTS or Bpad <= 0 or Bpad % 16:
         return 0
     b = 128
     while b > 16 and b // 2 >= Bpad:
         b //= 2
-    while b >= 16:
+    while b >= 1:
         if S * b <= SMEM_OPTIN:
             return b
         b //= 2
     return 0
+
+
+def slab_bins(S: int, Bpad: int, H: int) -> int:
+    """Host copy of probe_slab_bins for reads of H hash slots: slab_fit
+    where it has 16 bins or more, or THIN_MIN_BINS or more and H is at
+    least THIN_MIN_SLOTS; else 0 (the rows route)."""
+    b = slab_fit(S, Bpad)
+    return b if b >= 16 or (b >= THIN_MIN_BINS and H >= THIN_MIN_SLOTS) \
+        else 0
 
 
 def _align16(x: int) -> int:
@@ -139,12 +169,15 @@ def narrow_mode(S: int, Bpad: int) -> str:
             else "rows")
 
 
-def route(S: int, Bpad: int) -> str:
-    """The probe route of a launch over tables [G, S, Bpad]: "k2n_smem"
-    or "k2n_rows" for at most 512 bins, else "k2_slab" or "k2_rows"."""
+def route(S: int, Bpad: int, H: int = BATCH_SLOTS) -> str:
+    """The probe route of a launch over tables [G, S, Bpad] and reads of
+    H hash slots (the model's batch: BATCH_SLOTS): "k2n_smem" or
+    "k2n_rows" for at most 512 bins, else "k2_slab" (16 bins or more),
+    "k2_thin" (a thin slab) or "k2_rows"."""
     if Bpad <= NARROW_MAX_BINS:
         return "k2n_" + narrow_mode(S, Bpad)
-    return "k2_slab" if slab_bins(S, Bpad) else "k2_rows"
+    b = slab_bins(S, Bpad, H)
+    return "k2_rows" if not b else "k2_slab" if b >= 16 else "k2_thin"
 
 
 def narrow_blocks(G: int, S: int, Bpad: int, R: int) -> int:
@@ -174,8 +207,12 @@ def device_ms(rt: str, G: int, S: int, Bpad: int, R: int, pairs: float,
     c = COEF[rt]
     nbytes = 4.0 * out_elems
     if rt == "k2_slab":
-        b = slab_bins(S, Bpad)
+        b = slab_fit(S, Bpad)
         ns = hashes * (c["a"] + -(-Bpad // b) * (c["c0"] + c["c1"] * b))
+    elif rt == "k2_thin":
+        W = slab_fit(S, Bpad)
+        ns = Bpad // W * (hashes * (c["c0"] + c["c1"] * W)
+                          + pairs * c["read"])
     elif rt == "k2n_smem":
         ns = (hashes * (c["a"] + c["b"] * Bpad)
               + narrow_blocks(G, S, Bpad, R) * c["block"])
@@ -320,17 +357,19 @@ def hixf_ms_per_read(hixf, scaling: int = 1) -> float:
 def routing_grid() -> list[tuple[int, int]]:
     """The (S, Bpad) points on which chip_smoke.py phase 16a and the GPU
     tests hold the host copies of the routing rules to the card's: Bpad
-    16 to 4,096 in steps of 16; S from 1 to 70,000 on a geometric grid,
-    with each slab width's limit and each narrow width's smem limit
-    (411/412 at 512 bins) and their neighbours, and 65,535/65,536."""
-    slots = {1, 2, 3, 65535, 65536, 70000}
+    16 to 4,096 in steps of 16; S from 1 to 200,000 on a geometric grid,
+    with each slab width's limit, each narrow width's smem limit (411/412
+    at 512 bins) and their neighbours, 65,535/65,536 and
+    196,607/196,608."""
+    top = 200_000
+    slots = {1, 2, 3, 65535, 65536, SLAB_MAX_SLOTS - 1, SLAB_MAX_SLOTS, top}
     x = 1.0
-    while x < 70000:
+    while x < top:
         slots.add(int(x))
         x *= 1.05
-    lims = [SMEM_OPTIN // b for b in (16, 32, 64, 128)]
+    lims = [SMEM_OPTIN // b for b in (1, 2, 4, 8, 16, 32, 64, 128)]
     lims += [(SMEM_OPTIN - narrow_block_bytes(True, 0, b)) // b
              for b in range(16, NARROW_MAX_BINS + 1, 16)]
     slots |= {s + d for s in lims for d in (-1, 0, 1)}
-    return [(s, b) for s in sorted(slots) if 1 <= s <= 70000
+    return [(s, b) for s in sorted(slots) if 1 <= s <= top
             for b in range(16, 4097, 16)]

@@ -392,6 +392,7 @@ def group_routes(dhixf) -> list[dict]:
     IXFs and the kernel its shape takes (K2n smem or rows, K2 slab or
     rows; on the CPU the plain twin)."""
     from ..device import probe
+    from ..hash import device_syncmer as dsync
 
     out = []
     for g in dhixf.groups:
@@ -401,8 +402,9 @@ def group_routes(dhixf) -> list[dict]:
         elif Bp <= probe.NARROW_MAX_BINS:
             route = "K2n " + probe.narrow_mode(S, Bp, g["tables"].device)
         else:
+            # as the L = 8,192 bucket's batch takes it
             route = "K2 " + ("slab" if probe.slab_bins(
-                S, Bp, g["tables"].device) else "rows")
+                S, Bp, dsync.hash_cap(8192), g["tables"].device) else "rows")
         out.append(dict(shape=[G, S, Bp], ixfs=len(g["members"]),
                         route=route))
     return out

@@ -2,15 +2,16 @@
 held to its plain twin first; the fit of ``hixf/device_cost.py``.
 
     python -m taxor_tpu_torch.tools.bench_gather_scale [--shapes a,b|all|
-        sweep|tiny] [--device cuda]
+        sweep|thin|tiny] [--device cuda]
 
 The port of the JAX package's bench_gather_scale.py, which timed the XLA
 gather probe at root-class tables (R = 2,048 reads of H = 192 hashes,
 [2^20, 64], [2^23, 64] and [2^23, 256] uint8 tables with positions in
 the three blocks of the filter) to give the TPU layout model its ns/hash.
 Here each shape goes through the port's own routes: K2's rows route
-(``probe.k2_counts(variant="rows")``) and slab route, K2n's rows and smem
-modes (``probe.k2n_counts`` / ``k2n_run_sums`` with ``mode=``), the
+(``probe.k2_counts(variant="rows")``) and slab route (its slabs of 16
+bins or more, ``k2_slab``, and its thin slabs, ``k2_thin``), K2n's rows
+and smem modes (``probe.k2n_counts`` / ``k2n_run_sums`` with ``mode=``), the
 probe of an empty descent group as the descent calls it, and one step of
 ``device/e2e.descend`` over an empty group.  Keys are uniform random, so
 the kernels' positions fall in the three blocks as the JAX tool drew
@@ -18,14 +19,17 @@ them; the first ``nvalid`` slots of a read are valid.
 
 Default shapes (``DEFAULT``): the JAX tool's [2^20, 64] and [2^23, 64]
 (the [2^23, 256] table, 2 GiB, is ``jax_2^23x256``), the flat cell's
-[3,606, 4,096] table (K2's slab route and its rows route), the widest
+[3,606, 4,096] table (K2's slab route and its rows route), chip_smoke
+phase 13b's [39,621, 1,024] plain k-mer table with its batch's 5,712
+valid hashes a read of H = 8,192 (a thin slab of 4 bins), the widest
 syncmer descent group's stack [474, 216, 512] (K2n smem run sums) with a
 descent's sparse mask (293 active pairs) and with every pair active (the
 descend-all mode), the [8, 10,524, 512] level (K2n rows run sums, each
 read active in one subgroup), and an empty [8, 216, 512] group: its
 probe a call and its whole descent step.  ``sweep`` adds the shapes the
 coefficients were fitted on (widths 16-16,384, tables in and past the L2,
-sparse and full masks); ``all`` is every named shape.
+sparse and full masks); ``all`` is every named shape; ``thin`` the
+thin slabs' default shape and their fit's shapes.
 
 Each route is held bit-exact to ``probe_counts_grouped_plain`` /
 ``probe_run_sums_grouped_plain`` (the descent step to ``descend`` on the
@@ -40,7 +44,8 @@ timed as means of 200) with the measured-over-model ratio; exit
 code 1 when a route differs from its twin.  ``--fit`` adds the least
 squares fit of device_cost's coefficients to the run's device times
 (``fit_coefficients``: how the frozen ones were made, from ``--shapes
-all``).  With ``--device cpu`` every
+all``; ``--fit-only k2_thin`` fits that route's alone, the others held
+as they are, from ``--shapes thin``).  With ``--device cpu`` every
 route is the twin (a check of the tool, no device time); there is no
 fallback to the CPU when ``--device cuda`` finds no card.
 """
@@ -90,6 +95,8 @@ SHAPES = {
     "jax_2^23x256": Shape(("k2_rows", "k2n_rows"), 1, 1 << 23, 256, JAX_R,
                           JAX_H, JAX_H),
     "slab_3606x4096": Shape(("k2_slab", "k2_rows"), 1, 3606, 4096),
+    "thin_39621x1024": Shape(("k2_thin",), 1, 39621, 1024, H=8192,
+                             nvalid=5712),
     "smem_474x216x512_sparse": Shape(("k2n_smem",), 474, 216, 512,
                                      active=293, runs=True),
     "smem_474x216x512_all": Shape(("k2n_smem",), 474, 216, 512, runs=True),
@@ -101,6 +108,7 @@ SHAPES = {
                   32, 20, active="one", runs=True),
 }
 DEFAULT = ("jax_2^20x64", "jax_2^23x64", "slab_3606x4096",
+           "thin_39621x1024",
            "smem_474x216x512_sparse", "smem_474x216x512_all",
            "rows_8x10524x512", "empty_group")
 
@@ -134,7 +142,21 @@ def _sweep() -> dict:
     for s, b in ((1800, 1024), (3606, 1024), (7000, 1024), (14000, 1024),
                  (3606, 2048), (3606, 8192), (1800, 16384)):
         out[f"fit_k2_slab_{s}x{b}"] = Shape(("k2_slab",), 1, s, b)
+    out.update(_thin_sweep())
     return out
+
+
+def _thin_sweep() -> dict:
+    """The thin slabs' fit: slabs of 8 and 4 bins at 1,024 to 4,096 bins,
+    the batch as phase 13b's or the fit's default one; each beside the
+    rows route on the same inputs."""
+    return {f"fit_k2_thin_{s}x{b}{tag}": Shape(("k2_thin", "k2_rows"),
+                                               1, s, b, **kw)
+            for s, b, tag, kw in (
+                (15000, 4096, "", {}), (20000, 1024, "", {}),
+                (28000, 2048, "", {}), (39621, 2048, "", {}),
+                (50000, 1024, "", {}),
+                (20000, 1024, "_long", dict(H=8192, nvalid=5712)))}
 
 
 def shape_names(spec: str) -> list[str]:
@@ -144,6 +166,8 @@ def shape_names(spec: str) -> list[str]:
         return list(DEFAULT) + list(_sweep())
     if spec == "default":
         return list(DEFAULT)
+    if spec == "thin":
+        return ["thin_39621x1024"] + list(_thin_sweep())
     return spec.split(",")
 
 
@@ -248,8 +272,9 @@ def route_fn(rt: str, x: dict, sh: Shape, cuda: bool):
             return lambda h: probe.probe_counts_grouped(*_args(x, h), *sk)
         return lambda h: probe.probe_run_sums_grouped(*_args(x, h), *runs,
                                                       *sk)
-    if rt.startswith("k2_"):
-        return lambda h: probe.k2_counts(*_args(x, h), *sk, variant=rt[3:])
+    if rt.startswith("k2_"):  # a thin slab: the widest slab that fits
+        variant = "rows" if rt == "k2_rows" else "slab"
+        return lambda h: probe.k2_counts(*_args(x, h), *sk, variant=variant)
     mode = rt[4:]
     if sh.runs:
         return lambda h: probe.k2n_run_sums(*_args(x, h), *runs, *sk,
@@ -298,18 +323,26 @@ def _fit_rows(out: dict) -> list[tuple]:
     return rows
 
 
-def fit_coefficients(out: dict) -> dict:
+# fit_coefficients' parameter vector: each route's places in it (15 and 16
+# are L2_EFF and WRITE_BPS, which every route shares)
+_PARAMS = {"k2_slab": (0, 1, 2), "k2_rows": (3, 4, 5, 6),
+           "k2n_rows": (7, 8, 9, 10, 11), "k2n_smem": (12, 13, 14),
+           "k2_thin": (17, 18, 19)}
+
+
+def fit_coefficients(out: dict, only: tuple = ()) -> dict:
     """device_cost's fitted coefficients (COEF, L2_EFF, WRITE_BPS) from a
     run's device times: least squares of log(model / measured), the
-    DEFAULT shapes weighted twice; device_cost is left as it was.  With
-    each fitted value its measured-over-model ratio a launch, and the
-    medians of the run's host calls (CALL_MS) and descent steps
-    (GROUP_MS)."""
+    DEFAULT shapes weighted twice; device_cost is left as it was.
+    ``only``: the routes whose coefficients to fit, from their launches
+    alone, every other value held as device_cost has it.  With each
+    fitted value its measured-over-model ratio a launch, and the medians
+    of the run's host calls (CALL_MS) and descent steps (GROUP_MS)."""
     import math
 
     from scipy.optimize import least_squares
 
-    rows = _fit_rows(out)
+    rows = [r for r in _fit_rows(out) if not only or r[1] in only]
     keep = (dict(device_cost.COEF), device_cost.L2_EFF,
             device_cost.WRITE_BPS)
     c = device_cost.COEF
@@ -317,29 +350,36 @@ def fit_coefficients(out: dict) -> dict:
           *c["k2_rows"]["l2"], *c["k2_rows"]["hbm"], *c["k2n_rows"]["l2"],
           *c["k2n_rows"]["hbm"], c["k2n_rows"]["pair"], c["k2n_smem"]["a"],
           c["k2n_smem"]["b"], c["k2n_smem"]["block"],
-          device_cost.L2_EFF / 2**20, device_cost.WRITE_BPS / 1e12]
+          device_cost.L2_EFF / 2**20, device_cost.WRITE_BPS / 1e12,
+          c["k2_thin"]["c0"], c["k2_thin"]["c1"], c["k2_thin"]["read"]]
+    free = (sorted(i for rt in only for i in _PARAMS[rt]) if only
+            else list(range(len(x0))))
 
-    def setp(x):
-        x = [abs(v) for v in x]
+    def setp(xf):
+        x = list(x0)
+        for i, v in zip(free, xf):
+            x[i] = abs(v)
         device_cost.COEF = {
             "k2_slab": {"a": x[0], "c0": x[1], "c1": x[2]},
             "k2_rows": {"l2": (x[3], x[4]), "hbm": (x[5], x[6])},
             "k2n_rows": {"l2": (x[7], x[8]), "hbm": (x[9], x[10]),
                          "pair": x[11]},
-            "k2n_smem": {"a": x[12], "b": x[13], "block": x[14]}}
+            "k2n_smem": {"a": x[12], "b": x[13], "block": x[14]},
+            "k2_thin": {"c0": x[17], "c1": x[18], "read": x[19]}}
         device_cost.L2_EFF = x[15] * 2**20
         device_cost.WRITE_BPS = x[16] * 1e12
 
-    def logs(x):
-        setp(x)
+    def logs(xf):
+        setp(xf)
         return [math.log(device_cost.device_ms(*r[1:10]) / r[10])
                 for r in rows]
 
     weight = [1.0 if r[0] in _sweep() else 2.0 for r in rows]
     try:
-        fit = least_squares(lambda x: [w * e for w, e in
-                                       zip(weight, logs(x))],
-                            x0, x_scale=[abs(v) for v in x0])
+        fit = least_squares(lambda xf: [w * e for w, e in
+                                        zip(weight, logs(xf))],
+                            [x0[i] for i in free],
+                            x_scale=[abs(x0[i]) for i in free])
         ratios = {f"{r[0]} {r[1]}": math.exp(-e)
                   for r, e in zip(rows, logs(fit.x))}
         got = dict(COEF=device_cost.COEF, L2_EFF=device_cost.L2_EFF,
@@ -406,6 +446,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--fit", action="store_true",
                     help="also fit device_cost's coefficients to the run's "
                          "device times (scipy; with --shapes sweep or all)")
+    ap.add_argument("--fit-only", default="",
+                    help="comma-separated routes whose coefficients --fit "
+                         "fits, the others held (e.g. k2_thin, with "
+                         "--shapes thin)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, cuda:N, or cpu for the "
@@ -413,7 +457,8 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     out = run(args)
     if args.fit:
-        out["fit"] = fit_coefficients(out)
+        out["fit"] = fit_coefficients(
+            out, tuple(filter(None, args.fit_only.split(","))))
     print(json.dumps(out), flush=True)
     return 0 if out["equal"] else 1
 

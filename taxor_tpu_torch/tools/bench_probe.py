@@ -1,8 +1,9 @@
 """K2 alone on random hashes: each route held to the plain twin, then
 timed.
 
-    python -m taxor_tpu_torch.tools.bench_probe [--preset tool|flat|wide]
-        [--reads R] [--hashes H] [--valid N] [--slots S] [--bins B]
+    python -m taxor_tpu_torch.tools.bench_probe
+        [--preset tool|flat|wide|kmer|tall] [--reads R] [--hashes H]
+        [--valid N] [--slots S] [--bins B] [--widths W,...]
         [--device cuda]
 
 The port of the JAX package's bench_probe.py (the probe kernel alone on
@@ -16,18 +17,26 @@ synthetic inputs shaped like a search batch).  Presets:
         whose count phase 5 logs), the flat cell's 3,609 x 4,096 table
   wide  a table shaped like tools.bench's flat_16384: 402 slots x 16,384
         bins, R = 2,048 reads of H = 512 slots with 173 valid
+  kmer  chip_smoke's phase 13b: R = 512 reads of H = L = 8,192 slots with
+        5,712 valid (2,924,851 over the batch in phase 13d), the plain
+        k-mer flat table of 39,621 x 1,024 (a thin slab of 4 bins)
+  tall  kmer's batch on a table past the L2: 120,000 slots x 1,024 bins
+        (123 MB)
 
 and every size can be set apart.  The first N slots of a read are valid
-and hold uniform random keys; the table is uniform random bytes.  Both
-variants of K2 (device/probe.k2_counts: the slab route where a slab fits,
-and the rows route) are held bit-exact to probe_counts_grouped_plain on
-the whole batch, then timed with tools/timing.rolled_ms.  One JSON
-line goes to stdout: nvidia-smi's name and power limit, the geometry, the
-valid hashes, the row bytes (valid hashes x 3 rows x Bpad: what the rows
-route reads from L2, and the slab route from shared memory) and per route
-its milliseconds and GB/s of row bytes; exit code 1 when a route differs
-from the twin.  With ``--device cpu`` it times the twin (a check of the
-tool, no device time).
+and hold uniform random keys; the table is uniform random bytes.  Every
+variant of K2 that fits the shape (device/probe.k2_counts: the slab route
+at the widest slab that fits a block, its "split" variant where a
+cluster holds a 16-bin slab, and the rows route) is held bit-exact to
+probe_counts_grouped_plain on the whole batch, then timed with
+tools/timing.rolled_ms; ``--widths W,...`` adds the slab route at slabs
+of W bins (labels "slab W").  One JSON line goes to stdout: nvidia-smi's
+name and power limit, the geometry, the valid hashes, the row bytes
+(valid hashes x 3 rows x Bpad: what the rows route reads from L2, and
+the slab route from shared memory)
+and per route its milliseconds and GB/s of row bytes; exit code 1 when a
+route differs from the twin.  With ``--device cpu`` it times the twin (a
+check of the tool, no device time).
 
 To compare two checkouts, run this file from each in turns (parent,
 change, change, parent) in one call to the card:
@@ -53,6 +62,8 @@ PRESETS = {  # R, H, valid, S, bins
     "tool": (8192, 512, 190, 2418, 512),
     "flat": (512, 2048, 500, 3609, 4096),
     "wide": (2048, 512, 173, 402, 16384),
+    "kmer": (512, 8192, 5712, 39621, 1024),
+    "tall": (512, 8192, 5712, 120000, 1024),
 }
 
 
@@ -70,11 +81,12 @@ def inputs(rng, R: int, H: int, nvalid: int, S: int, bins: int,
             torch.from_numpy(table).to(dev)[None], seed, S // 3)
 
 
-def variants(slab: bool) -> dict:
+def variants(slab: bool, split: bool = False) -> dict:
     """{label: k2_counts keyword arguments} of the routes to time."""
     if not hasattr(probe.k2_counts, "VARIANTS"):  # before the slab route
         return {"rows": {}}
-    return ({"slab": {"variant": "slab"}} if slab else {}) | {
+    fits = {"slab": slab, "split": split}
+    return {v: {"variant": v} for v, ok in fits.items() if ok} | {
         "rows": {"variant": "rows"}}
 
 
@@ -96,11 +108,22 @@ def run(args) -> dict:
     want = probe.probe_counts_grouped_plain(hi, lo, valid, tables, None,
                                             seed, bl)
     if dev.type == "cuda":
-        if hasattr(probe, "slab_bins"):
-            out["slab_bins"] = probe.slab_bins(S, Bp, dev)
+        fit = {}
+        if hasattr(probe, "split_cluster"):  # since the thin slabs
+            out["slab_bins"] = probe.slab_bins(S, Bp, H, dev)
+            out["slab_fit"] = fit["slab"] = probe.slab_bins(S, Bp, H, dev,
+                                                            fit=True)
+            out["split_cluster"] = fit["split"] = probe.split_cluster(
+                S, Bp, bl, dev)
+        elif hasattr(probe, "slab_bins"):
+            out["slab_bins"] = fit["slab"] = probe.slab_bins(S, Bp, dev)
         fns = {label: (lambda h, kw=kw: probe.k2_counts(
             h, lo, valid, tables, None, seed, bl, **kw))
-            for label, kw in variants(bool(out.get("slab_bins"))).items()}
+            for label, kw in variants(**fit).items()}
+        for W in (int(w) for w in filter(None, args.widths.split(","))):
+            if W <= fit.get("slab", 0):  # narrower than the widest fit
+                fns[f"slab {W}"] = (lambda h, W=W: probe._launch(
+                    h, lo, valid, tables, None, seed, bl, W))
     else:
         fns = {"twin": lambda h: probe.probe_counts_grouped(
             h, lo, valid, tables, None, seed, bl)}
@@ -110,7 +133,7 @@ def run(args) -> dict:
         out["routes"][label] = {"ms": ms, "equal": equal,
                                 "rows_gbps": 3 * n * Bp / ms / 1e6}
         out["equal"] &= equal
-        log(f"bench_probe {args.preset} {label:4s} {ms:9.4f} ms "
+        log(f"bench_probe {args.preset} {label:7s} {ms:9.4f} ms "
             f"({out['routes'][label]['rows_gbps']:9.1f} GB/s of rows; "
             f"== twin: {equal})")
     return out
@@ -126,6 +149,10 @@ def main(argv: list[str] | None = None) -> int:
         ap.add_argument(f"--{name}", type=int, default=0,
                         help=f"{what} (default: the preset's)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--widths", default="",
+                    help="W,... the slab route at slabs of W bins (1 to "
+                         "128, a power of two, where the slab fits a "
+                         "block), timed beside the routes")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, cuda:N, or cpu for the "
                          "plain twin)")

@@ -231,12 +231,14 @@ def test_grouped_probe_matches_twin(cuda, bins, G):
         assert torch.equal(probe.k2_counts(*args, seed, bl), want)
 
 
-@pytest.mark.parametrize("variant", ["slab", "rows"])
+@pytest.mark.parametrize("variant", ["slab", "thin", "split", "rows"])
 @pytest.mark.parametrize("bl,bins,G", [(1203, 4096, 1), (1000, 1000, 8),
                                        (300, 1000, 8), (3000, 4096, 8),
                                        (2000, 5000, 1), (134, 16384, 1)])
 def test_k2_routes_match_twin(cuda, variant, bl, bins, G):
-    """Both K2 routes over G stacked tables: a read of 2,048 valid
+    """Every K2 route over G stacked tables (a thin slab of 4 bins and the
+    split variant forced where a wider slab would take the shape; 1,000
+    and 5,000 bins leave a ragged last slab): a read of 2,048 valid
     fingerprint-0 hashes (counts above 256 in the zero columns, several
     flushes of the slab route's byte counters), invalid fingerprint-0
     slots, a mixed activity mask and a read inactive everywhere."""
@@ -260,14 +262,19 @@ def test_k2_routes_match_twin(cuda, variant, bl, bins, G):
     lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
     args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
             for x in (hi, lo, valid, tables, active)]
-    b = probe.slab_bins(3 * bl, Bp, cuda)
+    b = probe.slab_bins(3 * bl, Bp, H, cuda)
     assert b == {1203: 64, 1000: 64, 300: 128, 3000: 16, 2000: 32,
                  134: 128}[bl]
     before = dict(probe.k2_counts.VARIANTS)
-    got = probe.k2_counts(*args, seed, bl, variant=variant)
+    if variant == "thin":
+        got = probe._launch(*args, seed, bl, 4)
+    else:
+        got = probe.k2_counts(*args, seed, bl, variant=variant)
     want = probe.probe_counts_grouped_plain(*args, seed, bl)
     torch.cuda.synchronize()
-    assert probe.k2_counts.VARIANTS[variant] == before.get(variant, 0) + 1
+    if variant != "thin":
+        assert probe.k2_counts.VARIANTS[variant] == before.get(variant,
+                                                               0) + 1
     assert torch.equal(got, want)
     assert int(got[:, 0].max()) > 256 and int(got[:, 1:].max()) < 256
     assert int(got[:, R - 1].abs().sum()) == 0
@@ -398,15 +405,37 @@ def test_k2n_run_sums_check_inputs(cuda):
 
 
 def test_k2_takes_the_rows_route_where_no_slab_fits(cuda):
-    z = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    """Past a 16-bin slab a table takes a thin slab for reads of 8,192
+    hash slots and the rows route for shorter ones, and past the thin
+    slabs' rule (2-byte slabs) or the slab route's reach (196,608 slots:
+    u16 positions within a segment) the rows route."""
+    z = torch.zeros((2, 8192), dtype=torch.int32, device=cuda)
     table = torch.zeros((1, 15000, 2000), dtype=torch.uint8, device=cuda)
-    assert probe.slab_bins(15000, 2000, cuda) == 0
-    before = probe.k2_counts.VARIANTS.get("rows", 0)
+    assert probe.slab_bins(15000, 2000, 8192, cuda) == 8
+    assert probe.slab_bins(15000, 2000, 8191, cuda) == 0
+    before = dict(probe.k2_counts.VARIANTS)
     out = probe.probe_counts_grouped(z, z, z.bool(), table, None, 1, 5000)
-    assert probe.k2_counts.VARIANTS["rows"] == before + 1
+    assert probe.k2_counts.VARIANTS["slab"] == before.get("slab", 0) + 1
     assert int(out.abs().sum()) == 0
-    with pytest.raises(ValueError, match="no slab"):
-        probe.k2_counts(z, z, z.bool(), table, None, 1, 5000, variant="slab")
+    short = z[:, :2048].contiguous()
+    probe.probe_counts_grouped(short, short, short.bool(), table, None, 1,
+                               5000)
+    rows = before.get("rows", 0)
+    assert probe.k2_counts.VARIANTS["rows"] == rows + 1
+    # past the rule (2-byte slabs, which the card measured slower than
+    # the rows route) and past the slab route's reach
+    wide = torch.zeros((1, 80_000, 528), dtype=torch.uint8, device=cuda)
+    assert probe.slab_bins(80_000, 528, 8192, cuda) == 0
+    assert probe.slab_bins(80_000, 528, 8192, cuda, fit=True) == 2
+    probe.probe_counts_grouped(z, z, z.bool(), wide, None, 1, 26000)
+    assert probe.k2_counts.VARIANTS["rows"] == rows + 2
+    tall = torch.zeros((1, 196_608, 528), dtype=torch.uint8, device=cuda)
+    assert probe.slab_bins(196_608, 528, 8192, cuda, fit=True) == 0
+    out = probe.probe_counts_grouped(z, z, z.bool(), tall, None, 1, 65536)
+    assert probe.k2_counts.VARIANTS["rows"] == rows + 3
+    assert int(out.abs().sum()) == 0
+    with pytest.raises(ValueError, match="do not fit the slab route"):
+        probe.k2_counts(z, z, z.bool(), tall, None, 1, 65536, variant="slab")
 
 
 def test_fused_step_matches_cpu_twins(cuda):
@@ -1050,7 +1079,7 @@ def test_k2_on_half_a_flat_table(cuda, variant):
         mesh = shard(2, b)
         tbl = sharding.shard_ixf(mesh, table)
         assert tbl.shape == (3 * bl, 2048)
-        assert probe.slab_bins(3 * bl, 2048, cuda) > 0
+        assert probe.slab_bins(3 * bl, 2048, H, cuda) > 0
         got = probe.k2_counts(*args, tbl[None], None, seed, bl,
                               variant=variant)[0]
         want = probe.probe_counts_plain(*args, tbl, seed, bl)
@@ -1126,14 +1155,19 @@ def test_wide_root_changes_route_when_sharded(cuda):
 
 
 def test_host_routing_rules_equal_the_card(cuda):
-    """The layout cost model's host copies of probe_slab_bins and
+    """The layout cost model's host copies of probe_slab_bins (at 2,048,
+    8,191 and 8,192 hash slots a read), probe_slab_fit and
     probe_narrow_mode (hixf/device_cost.py) on chip_smoke phase 16a's
     grid."""
     from taxor_tpu_torch.hixf import device_cost
 
     bad = [(s, b) for s, b in device_cost.routing_grid()
-           if probe.slab_bins(s, b, cuda) != device_cost.slab_bins(s, b)
-           or probe.narrow_mode(s, b, cuda) != device_cost.narrow_mode(s, b)]
+           if probe.narrow_mode(s, b, cuda) != device_cost.narrow_mode(s, b)
+           or any(probe.slab_bins(s, b, h, cuda)
+                  != device_cost.slab_bins(s, b, h)
+                  for h in (2048, 8191, 8192))
+           or probe.slab_bins(s, b, 0, cuda, fit=True)
+           != device_cost.slab_fit(s, b)]
     assert not bad, bad[:10]
 
 
@@ -1141,6 +1175,7 @@ def test_host_routing_rules_equal_the_card(cuda):
 # active, runs)
 GATHER_ROUTES = [("k2_rows", 1, 1 << 18, 64, "all", False),
                  ("k2_slab", 1, 3606, 1024, "all", False),
+                 ("k2_thin", 1, 39621, 1024, "all", False),
                  ("k2n_rows", 4, 10524, 512, "one", True),
                  ("k2n_rows", 1, 1 << 18, 256, "all", False),
                  ("k2n_smem", 32, 216, 512, 40, True),

@@ -140,6 +140,41 @@ def test_bench_gather_scale_knows_its_shapes():
     assert "jax_2^23x256" in bench_gather_scale.shape_names("all")
 
 
+def test_bench_gather_scale_fits_one_route():
+    """--fit-only k2_thin: the thin slabs' coefficients recovered from
+    device times their model gives, every other value as it was."""
+    from taxor_tpu_torch.hixf import device_cost
+
+    names = bench_gather_scale.shape_names("thin")
+    assert names[0] == "thin_39621x1024" and len(names) == 7
+    truth = {"c0": 9e-4, "c1": 3e-4, "read": 0.7}
+    keep = dict(device_cost.COEF)
+    out = {"shapes": {}}
+    for name in names:
+        sh = bench_gather_scale.SHAPES.get(name) or \
+            bench_gather_scale._sweep()[name]
+        Bp = -(-sh.bins // 16) * 16
+        hashes = float(sh.R * sh.nvalid)
+        device_cost.COEF = dict(keep, k2_thin=truth)
+        try:
+            dms = device_cost.device_ms("k2_thin", 1, sh.S, Bp, sh.R,
+                                        sh.R, hashes, sh.R * Bp, 1.0)
+        finally:
+            device_cost.COEF = keep
+        out["shapes"][name] = {
+            "tables": [1, sh.S, Bp], "R": sh.R, "active_pairs": sh.R,
+            "valid_hashes": hashes, "runs": False,
+            "routes": {"k2_thin": {"device_ms": dms, "ms": dms}}}
+    fit = bench_gather_scale.fit_coefficients(out, ("k2_thin",))
+    assert device_cost.COEF == keep
+    got = fit["COEF"]["k2_thin"]
+    assert all(abs(got[k] - v) < 1e-3 * v for k, v in truth.items()), got
+    assert {k: v for k, v in fit["COEF"].items() if k != "k2_thin"} == \
+        {k: v for k, v in keep.items() if k != "k2_thin"}
+    assert fit["L2_EFF"] == device_cost.L2_EFF
+    assert all(abs(r - 1) < 1e-6 for r in fit["measured_over_model"].values())
+
+
 @pytest.mark.parametrize("tool", ["bench_gather_scale", "layout_invariance",
                                   "debug_parity"])
 def test_tools_refuse_a_missing_card(tool, monkeypatch):

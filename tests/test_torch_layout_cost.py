@@ -22,14 +22,26 @@ from .util import make_reads, make_ref_set
 SMEM = 232_448  # the H100's opt-in shared memory a block
 
 
-def slab_closed_form(S, Bpad):
+def slab_closed_form(S, Bpad, H=0):
     """The widest slab of 128, 64, 32, 16 bins, no wider than Bpad needs,
-    that fits SMEM; 0 past 65,535 slots."""
-    if S >= 65536:
+    that fits SMEM, else, for reads of 8,192 hash slots or more, the
+    widest thin slab of 8 or 4 bins that fits; 0 past 196,607 slots."""
+    if S >= 196_608:
         return 0
     first = next(b for b in (16, 32, 64, 128) if b >= Bpad or b == 128)
-    return next((b for b in (128, 64, 32, 16) if b <= first and S * b <= SMEM),
-                0)
+    thin = (8, 4) if H >= 8192 else ()
+    return next((b for b in (128, 64, 32, 16, *thin)
+                 if b <= first and S * b <= SMEM), 0)
+
+
+def fit_closed_form(S, Bpad):
+    """The widest slab of any width down to 1 bin that fits SMEM; 0 past
+    196,607 slots."""
+    if S >= 196_608:
+        return 0
+    first = next(b for b in (16, 32, 64, 128) if b >= Bpad or b == 128)
+    return next((b for b in (128, 64, 32, 16, 8, 4, 2, 1)
+                 if b <= first and S * b <= SMEM), 0)
 
 
 def smem_closed_form(S, Bpad):
@@ -45,16 +57,23 @@ def test_host_routing_rules_on_the_grid(lo, hi):
     grid = [(s, b) for s, b in device_cost.routing_grid() if lo <= b <= hi]
     assert grid
     for s, b in grid:
-        assert device_cost.slab_bins(s, b) == slab_closed_form(s, b), (s, b)
         assert device_cost.narrow_mode(s, b) == smem_closed_form(s, b), (s, b)
+        assert device_cost.slab_fit(s, b) == fit_closed_form(s, b), (s, b)
+        for h in (2048, 8191, 8192):
+            assert device_cost.slab_bins(s, b, h) == \
+                slab_closed_form(s, b, h), (s, b, h)
 
 
 @pytest.mark.parametrize("S,Bpad,want", [
     (411, 512, "k2n_smem"), (412, 512, "k2n_rows"), (3632, 4096, "k2_slab"),
-    (14528, 4096, "k2_slab"), (14529, 4096, "k2_rows"),
-    (65535, 528, "k2_rows"), (1, 16, "k2n_smem")])
+    (14528, 4096, "k2_slab"), (14529, 4096, "k2_thin"),
+    (39621, 1024, "k2_thin"), (58112, 528, "k2_thin"),
+    (58113, 528, "k2_rows"), (65535, 528, "k2_rows"), (1, 16, "k2n_smem")])
 def test_routes_at_the_limits(S, Bpad, want):
-    assert device_cost.route(S, Bpad) == want
+    """The route of reads of 8,192 hash slots; the model's batch of
+    2,048 slots a read takes no thin slab."""
+    assert device_cost.route(S, Bpad, 8192) == want
+    assert device_cost.route(S, Bpad) == want.replace("thin", "rows")
     assert device_cost.SMEM_OPTIN == SMEM
 
 

@@ -132,21 +132,34 @@ def test_wrapper_refuses_other_devices():
 # ------------------------------------------- K2's slab route, modelled --
 SMEM_OPTIN = 232_448  # the H100's shared memory a block (opt-in)
 FLUSH = 255  # kFlush of csrc/probe_slab.cu
+# csrc/probe_slab.cu: u16 positions within a segment; the thinnest slab
+# probe_slab_bins takes and the fewest hash slots a read it takes it for
+SLAB_MAX_SLOTS, THIN_MIN_BINS, THIN_MIN_SLOTS = 196_608, 4, 8192
 
 
-def model_slab_bins(S, Bpad, smem=SMEM_OPTIN):
-    """probe_slab_bins of csrc/probe_slab.cu: the widest of 128, 64, 32,
-    16 bins (no wider than Bpad needs) whose [S, b] slab fits; 0 = rows."""
-    if not 0 < S < 65536 or Bpad % 16:
+def model_slab_fit(S, Bpad, smem=SMEM_OPTIN):
+    """probe_slab_fit of csrc/probe_slab.cu: the widest of 128, 64, 32, 16
+    bins (no wider than Bpad needs), 8, 4, 2 and 1 whose [S, b] slab
+    fits; 0 from 196,608 slots (u16 positions within a segment)."""
+    if not 0 < S < SLAB_MAX_SLOTS or Bpad % 16:
         return 0
     b = 128
     while b > 16 and b // 2 >= Bpad:
         b //= 2
-    while b >= 16:
+    while b >= 1:
         if S * b <= smem:
             return b
         b //= 2
     return 0
+
+
+def model_slab_bins(S, Bpad, H=0, smem=SMEM_OPTIN):
+    """probe_slab_bins of csrc/probe_slab.cu for reads of H hash slots:
+    the fit where it has 16 bins or more, or THIN_MIN_BINS or more and H
+    is at least THIN_MIN_SLOTS (a thin slab); 0 = rows."""
+    b = model_slab_fit(S, Bpad, smem)
+    return b if b >= 16 or (b >= THIN_MIN_BINS and H >= THIN_MIN_SLOTS) \
+        else 0
 
 
 def zero_bytes(x):
@@ -155,48 +168,67 @@ def zero_bytes(x):
     return (~(((x & low7) + low7) | x) & sign) >> np.uint32(7)
 
 
-def slab_model(keys, valid, tables, active, seed, bl, b, reads_per_block):
-    """numpy transcription of csrc/probe_slab.cu with slabs of b bins:
-    records with u16 positions (probe_records_kernel), then per (slab,
-    read group, g) block a warp a read, lane = hash-lane x CH + chunk,
-    zero bytes of the XOR added into packed byte counters flushed every
-    FLUSH records of a lane, and the hash-lanes summed by an xor
-    butterfly.  Returns the counts and the
-    most records any lane counted between two flushes' starts."""
-    G, S, Bp = tables.shape
+def slab_records(keys, valid, seed, bl):
+    """probe_records_kernel of csrc/probe_slab.cu: rec uint64 [R, H] (p_i
+    - i bl in bits 16 i: each position relative to its segment; the
+    fingerprint in bits 48-55), nrec [R]."""
     R, H = keys.shape
-    CH, HL = b // 16, 32 // (b // 16)
     pos, fpr, _ = compute_probes(keys.reshape(-1), seed, bl)
     pos, fpr = pos.reshape(R, H, 3), fpr.reshape(R, H)
     rec = np.zeros((R, H), dtype=np.uint64)
     nrec = valid.sum(axis=1)
     for r in range(R):
-        p, f = pos[r][valid[r]].astype(np.uint64), fpr[r][valid[r]]
-        assert p.max(initial=0) < 2**16
-        rec[r, :nrec[r]] = (p[:, 0] | p[:, 1] << np.uint64(16)
-                            | p[:, 2] << np.uint64(32)
-                            | f.astype(np.uint64) << np.uint64(48))
+        rel = pos[r][valid[r]].astype(np.int64) - np.array([0, bl, 2 * bl])
+        assert ((rel >= 0) & (rel < 2**16)).all()
+        rel = rel.astype(np.uint64)
+        rec[r, :nrec[r]] = (
+            rel[:, 0] | rel[:, 1] << np.uint64(16) | rel[:, 2] << np.uint64(32)
+            | fpr[r][valid[r]].astype(np.uint64) << np.uint64(48))
+    return rec, nrec
+
+
+def unpack_records(t):
+    """(rel0, rel1, rel2, fprint) int64 arrays of uint64 records."""
+    return [((t >> np.uint64(16 * i)) & np.uint64(0xFFFF)).astype(np.int64)
+            for i in range(4)]
+
+
+def slab_model(keys, valid, tables, active, seed, bl, b, reads_per_block):
+    """numpy transcription of csrc/probe_slab.cu with slabs of b bins:
+    records with positions relative to their segment
+    (probe_records_kernel), then per (slab, read group, g) block a warp a
+    read, lane = hash-lane x CH + chunk of CW = min(b, 16) bytes, zero
+    bytes of the XOR added into packed byte counters (bytes past CW never
+    zero) flushed every FLUSH records of a lane, and the hash-lanes summed
+    by an xor butterfly.  Returns the counts and the most records any lane
+    counted between two flushes' starts."""
+    G, S, Bp = tables.shape
+    R, H = keys.shape
+    CW = min(b, 16)
+    CH, NC = b // CW, max(4, CW)
+    HL = 32 // CH
+    rec, nrec = slab_records(keys, valid, seed, bl)
     out = np.full((G, R, Bp), -1, dtype=np.int64)
     most = 0
     for g in range(G):
         for s0 in range(0, Bp, b):
-            nch = min(CH, (Bp - s0) // 16)
+            nch = min(CH, (Bp - s0) // CW)
             slab = np.zeros((S, b), dtype=np.uint8)  # ragged: unused chunks
-            slab[:, :16 * nch] = tables[g, :, s0:s0 + 16 * nch]
-            words = slab.view(np.uint32).reshape(S, CH, 4)
+            slab[:, :CW * nch] = tables[g, :, s0:s0 + CW * nch]
             for r0 in range(0, R, reads_per_block):  # the read groups
                 for r in range(r0, min(R, r0 + reads_per_block)):
                     if active is not None and not active[g, r]:
-                        out[g, r, s0:s0 + 16 * nch] = 0
+                        out[g, r, s0:s0 + CW * nch] = 0
                         continue
-                    q = rec[r, :nrec[r]]
-                    p = [((q >> np.uint64(16 * i)) & np.uint64(0xFFFF))
-                         .astype(np.int64) for i in range(3)]
-                    f4 = ((q >> np.uint64(48)).astype(np.uint32)
-                          * np.uint32(0x01010101))
-                    x = words[p[0]] ^ words[p[1]] ^ words[p[2]]
-                    hits = zero_bytes(x ^ f4[:, None, None])  # [n, CH, 4]
-                    cnt = np.zeros((HL, CH, 16), dtype=np.int64)
+                    r_0, r_1, r_2, f = unpack_records(rec[r, :nrec[r]])
+                    x = (slab[r_0] ^ slab[r_1 + bl] ^ slab[r_2 + 2 * bl]
+                         ^ f[:, None].astype(np.uint8)).reshape(-1, CH, CW)
+                    if CW < 4:
+                        x = np.concatenate([x, np.full(
+                            (*x.shape[:2], 4 - CW), 0xFF, np.uint8)], axis=2)
+                    hits = zero_bytes(np.ascontiguousarray(x).view(
+                        np.uint32))  # [n, CH, NC / 4]
+                    cnt = np.zeros((HL, CH, NC), dtype=np.int64)
                     for hl in range(HL):
                         mine = hits[hl::HL]
                         for e0 in range(0, mine.shape[0], FLUSH):
@@ -204,12 +236,13 @@ def slab_model(keys, valid, tables, active, seed, bl, b, reads_per_block):
                                                         dtype=np.uint32)
                             most = max(most, min(FLUSH, mine.shape[0] - e0))
                             cnt[hl] += k.view(np.uint8).reshape(
-                                CH, 16).astype(np.int64)
+                                CH, NC).astype(np.int64)
                     m = 1
                     while m < HL:  # __shfl_xor_sync over the hash-lanes
                         cnt = cnt + cnt[np.arange(HL) ^ m]
                         m *= 2
-                    out[g, r, s0:s0 + 16 * nch] = cnt[0, :nch].reshape(-1)
+                    out[g, r, s0:s0 + CW * nch] = \
+                        cnt[0, :nch, :CW].reshape(-1)
     assert (out >= 0).all()
     return out.astype(np.int32), most
 
@@ -624,3 +657,143 @@ def test_narrow_model_rounds(mode):
     np.testing.assert_array_equal(
         got, jax_run_sums(tables, keys, valid, active, runs, seed, bl))
     assert (got[:, 256:] != 0).any() and (got[:, ~active.any(0)] == 0).all()
+
+
+# ------------------------------ K2's thin slabs and split variant, modelled --
+@pytest.mark.parametrize("S,Bpad,fit,thin", [
+    (39621, 1024, 4, 4), (3609, 4096, 64, 64), (120000, 1024, 1, 0),
+    (15000, 2000, 8, 8), (80000, 1024, 2, 0), (402, 16384, 128, 128),
+    (3 * 65535, 528, 1, 0), (196_608, 528, 0, 0), (58_112, 1024, 4, 4),
+    (58_113, 1024, 2, 0), (29_056, 528, 8, 8), (29_057, 528, 4, 4),
+    (14_529, 4096, 8, 8), (100, 1000, 0, 0), (100, 16, 16, 16),
+    (20000, 16, 8, 8)])
+def test_thin_slab_rule(S, Bpad, fit, thin):
+    """The slabs of chip_smoke's and bench_probe's shapes (13b's [39,621,
+    1,024], the flat cell's, bench_probe's kmer table at 80,000 slots and
+    its tall table), each width's limit and the u16 bound: reads of 8,192
+    hash slots or more take a thin slab of 8 or 4 bins where no 16-bin
+    slab fits; shorter reads (a syncmer batch's 2,048) and slabs of 2 or
+    1 bin, which the card measured slower than the rows route, none."""
+    assert model_slab_fit(S, Bpad) == fit
+    assert model_slab_bins(S, Bpad, 8192) == thin
+    assert model_slab_bins(S, Bpad, 32768) == thin
+    wide = fit if fit >= 16 else 0
+    assert model_slab_bins(S, Bpad, 8191) == wide
+    assert model_slab_bins(S, Bpad, 2048) == wide
+
+
+def split_model(keys, valid, tables, active, seed, bl, m):
+    """numpy transcription of csrc/probe_cluster.cu's split variant: the
+    [S, 16] slab of each 16-bin slab over C = 3m blocks, block k holding
+    part k % m (of ceil(bl / m) rows) of segment k / m; a hash's row i
+    from block i m + j at local row rel_i - j part, j = (rel_i * magic) >>
+    32 with magic = ceil(2^32 / part); a lane's records flushed every
+    FLUSH, the lanes summed.  Returns the counts."""
+    G, S, Bp = tables.shape
+    R, H = keys.shape
+    part = -(-bl // m)
+    magic = -(-(1 << 32) // part)
+    rec, nrec = slab_records(keys, valid, seed, bl)
+    out = np.zeros((G, R, Bp), dtype=np.int64)
+    for g in range(G):
+        for s0 in range(0, Bp, 16):
+            blocks = [tables[g, (k // m) * bl + (k % m) * part:
+                             (k // m) * bl + min(bl, (k % m + 1) * part),
+                             s0:s0 + 16] for k in range(3 * m)]
+            for r in range(R):
+                if active is not None and not active[g, r]:
+                    continue
+                *rel, f = unpack_records(rec[r, :nrec[r]])
+                x = np.zeros((nrec[r], 16), dtype=np.uint8)
+                for i in range(3):
+                    j = (rel[i].astype(object) * magic) >> 32
+                    j = np.array(j, dtype=np.int64)
+                    assert (j == rel[i] // part).all()
+                    for k in np.unique(j):
+                        sel = j == k
+                        x[sel] ^= blocks[i * m + k][rel[i][sel] - k * part]
+                hits = zero_bytes((x ^ f[:, None].astype(np.uint8)).view(
+                    np.uint32))
+                for lane in range(32):
+                    mine = hits[lane::32]
+                    for e0 in range(0, mine.shape[0], FLUSH):
+                        k = mine[e0:e0 + FLUSH].sum(axis=0, dtype=np.uint32)
+                        out[g, r, s0:s0 + 16] += k.view(np.uint8)
+    return out.astype(np.int32)
+
+
+def thin_case(bl, bins, H, G, seed):
+    """Tables with zero columns (G > 1: the later ones half zeros) and
+    keys: read 0 H fingerprint-0 hashes, all valid (counts H in the zero
+    columns), read 3 all invalid; a mask for G > 1."""
+    rng = np.random.default_rng(seed)
+    R = 4
+    table, _, _, ixf_seed = hashes_case(seed, bl, bins, R=R, H=8)
+    keys = rng.integers(0, 2**64, (R, H), dtype=np.uint64)
+    pool = rng.integers(0, 2**64, max(1 << 20, 400 * H), dtype=np.uint64)
+    keys[0] = pool[fingerprint8(mix_split(pool, ixf_seed)) == 0][:H]
+    mask = rng.random((R, H)) < 0.8
+    mask[0], mask[3] = True, False
+    tables = np.stack([probe.pad_fingerprints(table)] + [
+        probe.pad_fingerprints(np.where(rng.random(table.shape) < 0.5,
+                                        table, 0).astype(np.uint8))
+        for _ in range(G - 1)])
+    active = None
+    if G > 1:
+        active = np.array([[True, True, False, True],
+                           [True, False, False, True]])
+    return keys, mask, tables, active, ixf_seed
+
+
+@pytest.mark.parametrize("bl,bins,H,G,W,per", [
+    (300, 1000, 9000, 1, 8, 3),  # lanes of 281 records: a flush mid-read
+    (500, 200, 600, 2, 4, 4),    # G = 2 with a mask
+    (250, 100, 520, 1, 2, 2),    # 2-byte rows, read groups
+    (400, 64, 700, 2, 1, 4),     # 1-byte rows, G = 2
+    (25000, 32, 300, 1, 4, 4)])  # 75,000 slots: u16 relative positions
+def test_thin_slab_model_matches_count_xla(bl, bins, H, G, W, per):
+    keys, mask, tables, active, seed = thin_case(bl, bins, H, G, bins)
+    got, most = slab_model(keys, mask, tables, active, seed, bl, W, per)
+    want = np.stack([xla_counts(t, keys, mask, seed, bl) for t in tables])
+    if active is not None:
+        want = want * active[:, :, None]
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0].max() > 256 and (got[:, 3] == 0).all()
+    if H // 32 > FLUSH:
+        assert most == FLUSH  # a lane flushed mid-read
+    hi, lo = torch_keys(keys)
+    twin = probe.probe_counts_grouped_plain(
+        hi, lo, torch.from_numpy(mask), torch.from_numpy(tables),
+        None if active is None else torch.from_numpy(active), seed, bl)
+    np.testing.assert_array_equal(twin.numpy(), got)
+
+
+@pytest.mark.parametrize("bl,bins,H,G,m", [
+    (300, 200, 9000, 1, 1),  # lanes of 281 records: a flush mid-read
+    (700, 64, 500, 2, 3),    # 9 blocks, parts of 234 rows, a mask
+    (1001, 48, 400, 1, 5)])  # 15 blocks (non-portable), a ragged part
+def test_split_model_matches_count_xla(bl, bins, H, G, m):
+    keys, mask, tables, active, seed = thin_case(bl, bins, H, G, bl)
+    got = split_model(keys, mask, tables, active, seed, bl, m)
+    want = np.stack([xla_counts(t, keys, mask, seed, bl) for t in tables])
+    if active is not None:
+        want = want * active[:, :, None]
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0].max() > 256 and (got[:, 3] == 0).all()
+
+
+def test_thin_slab_model_matches_pallas_interpret():
+    """The p16 geometry of test_twin_matches_pallas_interpret through thin
+    slabs of 4 bins (608 bins: 152 slabs)."""
+    bl, bins = 900, 600
+    table, keys, mask, seed = hashes_case(bins, bl, bins, R=3, H=320)
+    mask[0] = True  # 320 fingerprint-0 hashes: counts above 256
+    R, H = keys.shape
+    pos, fpr, _ = compute_probes(keys.reshape(-1), seed, bl)
+    want = np.asarray(probe_counts_pallas(
+        jnp.asarray(prepare_fingerprints(table)),
+        pos.reshape(R, H, 3), fpr.reshape(R, H), mask, interpret=True))
+    tables = probe.pad_fingerprints(table)[None]
+    got, _ = slab_model(keys, mask, tables, None, seed, bl, 4, 2)
+    np.testing.assert_array_equal(got[0, :, :bins], want[:, :bins])
+    assert got[0, 0].max() > 256 and (got[0, 2] == 0).all()

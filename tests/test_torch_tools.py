@@ -31,7 +31,8 @@ from taxor_tpu_torch.hash.schemes import search_hashes
 from taxor_tpu_torch.io.fastx import read_all
 from taxor_tpu_torch.native.baseline import baseline_search
 from taxor_tpu_torch.search.thresholds import Thresholder
-from taxor_tpu_torch.tools import (bench, bench_probe, debug_extract,
+from taxor_tpu_torch.tools import (bench, bench_dsmem, bench_probe,
+                                   debug_extract,
                                    debug_min,
                                    probe_bounds, probe_experiments,
                                    profile_phases, synth, time_extract,
@@ -592,3 +593,55 @@ def test_bench_probe_runs_on_the_twin(capsys, preset):
     assert out["valid_hashes"] == 6 * 20 and out["equal"]
     assert out["row_bytes"] == 3 * 6 * 20 * bins
     assert list(out["routes"]) == ["twin"] and out["routes"]["twin"]["ms"] > 0
+
+
+def dsmem_thread(mode, C, rows_log2, iters, gid):
+    """One thread of csrc/diag/dsmem.cu, scalar: its block's rank, its
+    xorshift32 stream and the four words it XORs from the cluster's rows
+    (word i of rank q's rows ((q + 1) 0x9E3779B1) ^ (i 0x85EBCA77))."""
+    M = 0xFFFFFFFF
+    T = diag.DSMEM_THREADS
+    rows, rank, tid = 1 << rows_log2, (gid // T) % C, gid % T
+
+    def word(q, i):
+        return (((q + 1) * 0x9E3779B1) ^ (i * 0x85EBCA77)) & M
+
+    s = ((gid * 0x9E3779B9) & M) | 1
+    acc = [0, 0, 0, 0]
+    for it in range(iters):
+        s ^= (s << 13) & M
+        s ^= s >> 17
+        s ^= (s << 5) & M
+        if mode == "word":
+            acc[0] ^= word(rank, s & (4 * rows - 1))
+            continue
+        q, row = (rank + 1) % C, s & (rows - 1)
+        if mode == "local":
+            q = rank
+        elif mode == "spread":
+            g = s & (C * rows - 1)
+            q, row = g >> rows_log2, g & (rows - 1)
+        elif mode == "stream":
+            row = (it * T + tid) & (rows - 1)
+        acc = [a ^ word(q, 4 * row + j) for j, a in enumerate(acc)]
+    return [a - (1 << 32) if a >= 1 << 31 else a for a in acc]
+
+
+@pytest.mark.parametrize("mode", diag.DSMEM_MODES)
+def test_dsmem_twin_matches_a_scalar_model(mode):
+    C, clusters, rows_log2, iters = 4, 2, 5, 40
+    got = diag.dsmem_rows(mode, C, clusters, rows_log2, iters, "cpu")
+    assert got.shape == (clusters * C, diag.DSMEM_THREADS, 4)
+    flat = got.view(-1, 4)
+    for gid in (0, 1, 31, 1023, 1024, 4097, 8191):
+        assert flat[gid].tolist() == dsmem_thread(mode, C, rows_log2, iters,
+                                                  gid), gid
+
+
+def test_bench_dsmem_runs_on_the_twin(capsys):
+    assert bench_dsmem.main(["--device", "cpu", "--clusters", "2,16",
+                             "--rows-log2", "6"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and out["equal"]
+    assert set(out["rates"]) == {f"{C}/{m}" for C in (2, 16)
+                                 for m in diag.DSMEM_MODES}

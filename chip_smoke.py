@@ -156,16 +156,23 @@ Phases (any failure exits non-zero):
      ``--hier-reads`` reads of phase 7's recipe, drawn apart from
      phase 7's, under the bench's hier_scaled_minimizer scheme whole
      (k = 20, --window-size 26, --scaling 3, --layout auto --tmax 64)
-     searched with ``--engine device``: its fracminhash thresholds take the descend-all descent
-     (every pair active), K5 and K2n must launch, every read up to L_CAP
-     must take the fused step and only the long ones the host-hash
-     route, and the TSV must equal ``--engine host`` on the first
-     CHECK_READS reads and the long ones; the share of classified reads
-     that name their source genome is logged.  All of its reads:
-     the ~3.5% that the scaled scheme leaves so few hashes that their
-     fracminhash threshold is 0 fall back to the host oracle, which
-     walks every IXF of the hierarchy for each (in C++,
-     ``HIXF.membership``); (b) plain k-mers (k =
+     searched with ``--engine device``: its fracminhash thresholds take
+     the per-read descent (each read's hash count copied to the host
+     after K5, its exact threshold computed there and uploaded), K5 and
+     K2n must launch, every read up to L_CAP must take the fused step
+     and only the long ones the host-hash route, and the TSV must equal
+     ``--engine host`` on the first CHECK_READS reads and the long
+     ones; the share of classified reads that name their source genome
+     is logged.  All of its reads.  The share of active (subgroup, read)
+     pairs must be below 1 and equal the share that a CPU walk of the
+     same thresholds gives (``HIXF.walk``, the host oracle's C++ walk,
+     on the host's hashes of every fused read; the ~3% of the reads
+     that the scaled scheme leaves so few hashes that their threshold is
+     0 walk every IXF); the same reads are searched again with the JAX
+     step's descend-all mode forced (every pair active; no search path
+     takes it), whose TSV must equal the per-read one on every read;
+     both runs' walls, truncation fallbacks and the per-read mode's
+     copy-and-threshold host seconds are logged; (b) plain k-mers (k =
      window = 20) on a flat index of 1,024 genomes (K5 at w' = 1, K2
      on a table of ~40,000
      slots: its rows route) with 4,096 reads plus the long ones (data
@@ -186,10 +193,13 @@ Phases (any failure exits non-zero):
      there: the K2 rows record's ``kmer_flat``), then the slab route
      forced on a table past the L2 (120,000 x 1,024, a slab of 1 bin,
      ``kmer_thin``'s ``tall_forced``) and on phase 6's stack (``stack``),
-     each beside the rows route; every group of one descend-all batch
-     of (a)'s index at L=8192, each run-sum launch a call and on the
-     device alone
-     against its bound (the K2n record's ``descend_all_groups``).  K5's
+     each beside the rows route; every group of one batch of (a)'s index
+     at L=8192 in both modes, the per-read mode's activity (from the
+     batch's own thresholds) and descend-all's (every pair), each
+     run-sum launch a call and on the device alone, bit-exact to its
+     twin, against its bound (the K2n record's ``per_read_groups`` and
+     ``descend_all_groups``), and each mode's whole step a call
+     (``minimizer_batch``).  K5's
      record counts the launches of (a), (b) and (e); K2's and K2n's add
      theirs;
  14. the sharded engine on the card, through ``search --engine sharded
@@ -202,7 +212,7 @@ Phases (any failure exits non-zero):
      share the card run their collectives on gloo, one rank on NCCL.
      (a) phase 4's flat cell, all its reads, 4 ranks on a 2 x 2 mesh; (b)
      phase 7's hierarchy, all its reads, 4 ranks on a 2 x 2 mesh; (c)
-     phase 13a's scaled minimiser hierarchy (descend-all), 2 ranks with
+     phase 13a's scaled minimiser hierarchy (per-read), 2 ranks with
      --mesh-bins 2; (d) phase 4's flat cell on one rank (NCCL); (e)
      ``tools.dryrun_multichip`` over 4 ranks.  Every rank must exit 0,
      each TSV must equal the phase's single-device ``--engine device``
@@ -945,13 +955,15 @@ def tsv_rows(path: str, ids: set | None = None) -> list[str]:
 
 
 def reset_counts() -> None:
-    """Every launch count, the descent's activity and the pipeline's
-    routes to 0."""
+    """Every launch count, the descent's activity and host thresholds and
+    the pipeline's routes to 0."""
     from taxor_tpu_torch.device import launches as launch_counts
+    from taxor_tpu_torch.device.e2e import THRESHOLDS
     from taxor_tpu_torch.device.hixf_search import ACTIVITY
     from taxor_tpu_torch.search import pipeline
 
     ACTIVITY.reset()
+    THRESHOLDS.reset()
     launch_counts.reset()
     pipeline.ROUTES.reset()
 
@@ -1726,7 +1738,9 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict,
     the fused step and only the reads over it the host-hash route, and
     the TSV must equal ``--engine host`` on the first CHECK_READS reads
     and the long ones.  The share of classified reads that name their
-    source genome is logged, not gated."""
+    source genome is logged, not gated, and so are the activity share
+    and the per-read mode's copy-and-threshold host seconds."""
+    from taxor_tpu_torch.device.e2e import THRESHOLDS
     from taxor_tpu_torch.device.hixf_search import ACTIVITY
     from taxor_tpu_torch.hixf.index import load_index
 
@@ -1737,6 +1751,7 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict,
     launches, routes, wall, peak = device_search(
         torch, idx, data["reads"], out_dev, label)
     active = ACTIVITY.share()
+    thresholds = THRESHOLDS.summary()
     if any(launches[k] <= 0 for k in need):
         raise AssertionError(f"[{label}] the path skipped one of {need}: "
                              f"{launches}")
@@ -1749,7 +1764,8 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict,
     log(f"[{label}] main path: {len(recs)} reads in {wall:.2f} s wall = "
         f"{len(recs) / wall:.1f} reads/s; .time [{phases}]; launches "
         f"{launches}; routes {routes}; active (subgroup, read) pairs "
-        f"{active:.4f}; peak device memory {peak:.1f} MiB")
+        f"{active:.4f}; per-read thresholds {thresholds}; peak device "
+        f"memory {peak:.1f} MiB")
     host_parity(work, idx, recs, n_reads, out_dev, label)
     hits, right = accuracy(out_dev, recs)
     log(f"[{label}] accuracy (reported, not gated): {hits}/{len(recs)} "
@@ -1757,7 +1773,8 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict,
         f"their source genome")
     return {"index": index, "recs": recs, "launches": launches,
             "routes": routes, "peak_mib": peak, "wall": wall,
-            "active_share": active, "idx": idx, "device_tsv": out_dev,
+            "active_share": active, "thresholds": thresholds, "idx": idx,
+            "device_tsv": out_dev,
             "reads": data["reads"]}
 
 
@@ -1767,12 +1784,23 @@ KMER_FLAGS = ["--kmer-size", str(MM_K), "--window-size", str(MM_K)]
 
 
 def build_minimizer(work: str, genomes: int, reads: int) -> dict:
-    """Phase 13a's data (phase 7's recipe on data of its own) and its
-    index under the bench family's whole scheme, --layout auto (a
+    """Phase 13a's data (phase 7's recipe on data of its own), its index
+    under the bench family's whole scheme, --layout auto, and the
+    activity share a CPU walk of its reads gives (``walk_share``; a
     background build)."""
+    from taxor_tpu_torch.hash import schemes
+
     data = kmer_data(np.random.default_rng(SEED + 14), work, genomes, reads)
-    data["idx"] = {"minimizer": cli_build(work, data["tsv"], data["gdir"],
-                                          MM_FLAGS, "auto", "minimizer")[0]}
+    idx, index = cli_build(work, data["tsv"], data["gdir"], MM_FLAGS,
+                           "auto", "minimizer")
+    data["idx"] = {"minimizer": idx}
+    t0 = time.perf_counter()
+    schemes.NUM_THREADS = os.cpu_count() or 1
+    data["walk_share"] = walk_share(index, [s for _, s in data["recs"][
+        :reads]])
+    log(f"[minimizer] CPU walk of the per-read thresholds: active share "
+        f"{data['walk_share']:.6f} over {reads} reads "
+        f"({time.perf_counter() - t0:.1f} s)")
     return data
 
 
@@ -2005,63 +2033,201 @@ def time_k2_kmer(torch, state) -> tuple[dict, dict]:
     return rec, rows_rec
 
 
-def time_descend_all(torch, state) -> list[dict]:
-    """Phase 13d: every group of one descend-all batch of the minimiser
-    hierarchy at L=8192 (R=512): all (subgroup, read) pairs active, the
-    run-sum launch of each group a call (cuda_ms) and on the device alone
-    (device_ms), bit-exact to the twin on the batch's first 16 reads."""
+def walk_share(index, seqs) -> float:
+    """The share of active (subgroup, read) pairs that a CPU walk of the
+    per-read thresholds gives for the reads ``seqs`` (each its own
+    batch row): the host's hashes and exact thresholds
+    (search/thresholds.device_thresholds), the IXFs the host oracle's
+    C++ walk visits (``HIXF.walk``), and the subgroup of the descent's
+    groups (``DeviceHIXF.groups``, on the CPU) that holds each; over every
+    subgroup of every group a read."""
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.hash.schemes import search_hashes
+    from taxor_tpu_torch.search.thresholds import (Thresholder,
+                                                   device_thresholds)
+
+    sch = index.scheme
+    th = Thresholder.make(sch.kmer_size, sch.window_size, 0.04, -1.0,
+                          sch.use_syncmer)
+    hl = search_hashes(seqs, sch)
+    thr = device_thresholds(th, [h.shape[0] for h in hl],
+                            [len(s) for s in seqs], sch.kmer_size).tolist()
+    dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
+    pos = {ixf: p for p, ixf in enumerate(dh.bfs_order)}
+    sub_of = np.empty(len(dh.bfs_order), dtype=np.int64)
+    n_subs = 0
+    for g in dh.groups:
+        sub_of[g["member_bfs"].numpy()] = n_subs + g["member_sub"].numpy()
+        n_subs += g["tables"].shape[0]
+    sub_of = sub_of[[pos[i] for i in range(len(dh.bfs_order))]]  # by IXF
+
+    def active(rows) -> int:
+        return sum(np.unique(sub_of[index.hixf.walk(hl[r], thr[r])]).size
+                   for r in rows)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        n_active = sum(ex.map(active, np.array_split(
+            np.arange(len(seqs)), 8 * (os.cpu_count() or 1))))
+    return n_active / (n_subs * len(seqs))
+
+
+def minimizer_descents(torch, work: str, state: dict, walk: float) -> dict:
+    """Phase 13a after its search: the per-read descent's activity share
+    must be below 1 and equal ``walk``, the share a CPU walk of the same
+    thresholds gives on every fused read (``walk_share``, computed by the
+    background build); the same reads searched again with the
+    JAX step's descend-all mode forced (``DeviceHIXF.e2e_async`` with
+    descend_all=True: no search path takes it) must write the per-read
+    TSV byte for byte, with every pair active.  Logs both runs' walls and
+    fallbacks and the per-read mode's copy-and-threshold host seconds;
+    returns both runs' records."""
+    import functools
+
+    from taxor_tpu_torch.device.e2e import THRESHOLDS
+    from taxor_tpu_torch.device.hixf_search import ACTIVITY, DeviceHIXF
+
+    label = "minimizer"
+    if not state["active_share"] < 1.0 or state["active_share"] != walk:
+        raise AssertionError(f"[{label}] the per-read descent's active "
+                             f"share {state['active_share']} is not the CPU "
+                             f"walk's {walk} below 1")
+    log(f"[{label}] per-read active share {state['active_share']:.6f} == "
+        f"the CPU walk's")
+    per_read = dict(state["routes"], wall=state["wall"],
+                    thresholds=state["thresholds"])
+    out_all = os.path.join(work, f"{label}_descend_all.tsv")
+    real = DeviceHIXF.e2e_async
+    DeviceHIXF.e2e_async = functools.partialmethod(real, descend_all=True)
+    try:
+        _, routes, wall, peak = device_search(torch, state["idx"],
+                                              state["reads"], out_all,
+                                              f"{label} descend-all")
+    finally:
+        DeviceHIXF.e2e_async = real
+    share = ACTIVITY.share()
+    with open(out_all, "rb") as fa, open(state["device_tsv"], "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"[{label}] the descend-all TSV differs "
+                                 f"from the per-read TSV")
+    if share != 1.0 or THRESHOLDS.batches:
+        raise AssertionError(f"[{label}] descend-all left pairs inactive "
+                             f"({share}) or computed per-read thresholds")
+    all_rec = dict(routes, wall=wall, peak_mib=peak)
+    for mode, rec in (("per-read", per_read), ("descend-all", all_rec)):
+        log(f"[{label}] {mode}: wall {rec['wall']:.2f} s; fallbacks "
+            f"{rec['host_fallback']}/{rec['fused']} "
+            f"({rec['host_fallback'] / rec['fused']:.4%}: truncated "
+            f"{rec['truncated']}, hcap overflow {rec['hcap_overflow']}); "
+            f"top-k escalations {rec['topk_escalations']}"
+            + (f"; copy and thresholds {rec['thresholds']}"
+               if "thresholds" in rec else "; active share 1.0"))
+    log(f"[{label}] descend-all TSV == per-read TSV byte for byte on every "
+        f"read")
+    return {"per_read": per_read, "descend_all": all_rec,
+            "walk_share": walk}
+
+
+def time_descents(torch, state) -> dict:
+    """Phase 13d: every group of one batch of the minimiser hierarchy at
+    L=8192 (R=512) in both modes of its fracminhash thresholds: the
+    per-read mode's activity (the descent with the thresholds of the
+    batch's hash counts, copied to the host and computed there,
+    ``e2e.descend(..., upto=g)``) and descend-all's, every pair active.
+    Each group's run-sum launch a call (cuda_ms) and on the device alone
+    (device_ms), bit-exact to the twin on 16 reads (per-read: the 16 with
+    the most active pairs there); then each mode's whole step a call
+    (``DeviceHIXF.e2e_step``, CUDA events around it, the per-read mode's
+    copy and host thresholds included)."""
+    import functools
+
     from taxor_tpu_torch.device import e2e, probe
-    from taxor_tpu_torch.device.hixf_search import DeviceHIXF, _scale_thresh
+    from taxor_tpu_torch.device.hixf_search import _scale_thresh
     from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.search.thresholds import (Thresholder,
+                                                   device_thresholds)
     from taxor_tpu_torch.tools.time_sort import device_ms
+
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 
     dev = torch.device("cuda")
     index = state["index"]
     dh = DeviceHIXF.from_hixf(index.hixf, dev)
+    sch = index.scheme
+    th = Thresholder.make(sch.kmer_size, sch.window_size, 0.04, -1.0,
+                          sch.use_syncmer)
     L = 8192
     packed, lengths = dsync.pack_reads(bucket_reads(state["recs"], L), L)
-    hi, lo, valid, _, _ = e2e._hashes(
-        torch.from_numpy(packed).to(dev), torch.from_numpy(lengths).to(dev),
-        "minimizer", MM_K, 0, 0, MM_WINDOW, L, _scale_thresh(index.scheme))
+    pk = torch.from_numpy(packed).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    hi, lo, valid, n_unique, _ = e2e._hashes(
+        pk, ln, "minimizer", MM_K, 0, 0, MM_WINDOW, L, _scale_thresh(sch))
+    thr = e2e.read_thresholds(functools.partial(
+        device_thresholds, th, kmer_size=sch.kmer_size), n_unique, lengths)
     R = hi.shape[0]
-    rows = []
+    n_nodes = len(dh.bfs_order)
+    rows = {"per_read": [], "descend_all": []}
     for gi, g in enumerate(dh.groups):
         tables = g["tables"]
-        act = torch.ones((tables.shape[0], R), dtype=torch.bool, device=dev)
         runs = (g["run_off"], g["run_s"], g["run_e"])
         sk = (g["seed"], g["bl"])
-        fused = lambda: probe.probe_run_sums_grouped(  # noqa: E731
-            hi, lo, valid, tables, act, *runs, *sk)
-        got = fused()
-        want = probe.probe_run_sums_grouped_plain(
-            hi[:16], lo[:16], valid[:16], tables, act[:, :16], *runs, *sk)
-        assert_equal(torch, f"descend-all group {gi}", ("sums",),
-                     (got[:, :16],), (want,))
-        first = cuda_ms(fused, 1)
-        reps = max(1, min(20, int(40.0 / max(first, 1e-3))))
-        a1, a2 = cuda_ms(fused, reps), cuda_ms(fused, reps)
-        d1, d2 = device_ms(fused, reps, 1), device_ms(fused, reps, 1)
         n_runs = int(g["run_s"].shape[0])
         Bp = tables.shape[2]
-        row = {"L": L, "R": R, "shape": list(tables.shape),
-               "active_pairs": int(act.sum()), "pairs": act.numel(),
-               "n_runs": n_runs,
-               "mode": (probe.narrow_mode(*tables.shape[1:], dev)
-                        if Bp <= probe.NARROW_MAX_BINS else "K2"),
-               "ms": min(a1, a2), "device_ms": min(d1, d2),
-               **narrow_bound(hi, valid, tables, act, n_runs)}
-        rows.append(row)
-        log(f"time descend-all group {gi} at L={L}, R={R}: tables "
-            f"{tuple(tables.shape)}, {row['active_pairs']}/{row['pairs']} "
-            f"pairs active, {n_runs} runs, mode {row['mode']}: run sums "
-            f"{a1:.4f}/{a2:.4f} ms a call, {d1:.4f}/{d2:.4f} on the device "
-            f"alone; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-    log(f"time descend-all batch at L={L}, R={R}: "
-        f"{sum(r['device_ms'] for r in rows):.4f} ms on the device, "
-        f"{sum(r['ms'] for r in rows):.4f} a call, bound "
-        f"{sum(r['bound_ms'] for r in rows):.4f}; {int(valid.sum())} valid "
-        f"hashes")
-    return rows
+        for mode, act in (
+                ("per_read", e2e.descend(dh.groups, n_nodes, hi, lo, valid,
+                                         thr, upto=gi)),
+                ("descend_all", torch.ones((tables.shape[0], R),
+                                           dtype=torch.bool, device=dev))):
+            fused = lambda: probe.probe_run_sums_grouped(  # noqa: E731
+                hi, lo, valid, tables, act, *runs, *sk)
+            got = fused()
+            pick = torch.argsort(act.sum(0), descending=True,
+                                 stable=True)[:16]
+            want = probe.probe_run_sums_grouped_plain(
+                hi[pick], lo[pick], valid[pick], tables, act[:, pick], *runs,
+                *sk)
+            assert_equal(torch, f"{mode} group {gi}", ("sums",),
+                         (got[:, pick],), (want,))
+            first = cuda_ms(fused, 1)
+            reps = max(1, min(20, int(40.0 / max(first, 1e-3))))
+            a1, a2 = cuda_ms(fused, reps), cuda_ms(fused, reps)
+            d1, d2 = device_ms(fused, reps, 1), device_ms(fused, reps, 1)
+            row = {"L": L, "R": R, "shape": list(tables.shape),
+                   "active_pairs": int(act.sum()), "pairs": act.numel(),
+                   "n_runs": n_runs,
+                   "mode": (probe.narrow_mode(*tables.shape[1:], dev)
+                            if Bp <= probe.NARROW_MAX_BINS else "K2"),
+                   "ms": min(a1, a2), "device_ms": min(d1, d2),
+                   **narrow_bound(hi, valid, tables, act, n_runs)}
+            rows[mode].append(row)
+            log(f"time {mode} group {gi} at L={L}, R={R}: tables "
+                f"{tuple(tables.shape)}, {row['active_pairs']}/"
+                f"{row['pairs']} pairs active, {n_runs} runs, mode "
+                f"{row['mode']}: run sums {a1:.4f}/{a2:.4f} ms a call, "
+                f"{d1:.4f}/{d2:.4f} on the device alone; bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    batch = {}
+    for mode, da in (("per_read", False), ("descend_all", True)):
+        step, _, got = dh.e2e_step(sch, th, 16, L, descend_all=da)
+        if got != mode:
+            raise AssertionError(f"e2e_step took {got}, not {mode}")
+        run = lambda: step(pk, ln, lengths)  # noqa: E731
+        step_ms = min(cuda_ms(run, 5), cuda_ms(run, 5))
+        batch[mode] = {
+            "device_ms": sum(r["device_ms"] for r in rows[mode]),
+            "ms": sum(r["ms"] for r in rows[mode]),
+            "bound_ms": sum(r["bound_ms"] for r in rows[mode]),
+            "active_pairs": sum(r["active_pairs"] for r in rows[mode]),
+            "pairs": sum(r["pairs"] for r in rows[mode]),
+            "step_ms": step_ms}
+        log(f"time {mode} batch at L={L}, R={R}: run sums "
+            f"{batch[mode]['device_ms']:.4f} ms on the device, "
+            f"{batch[mode]['ms']:.4f} a call, bound "
+            f"{batch[mode]['bound_ms']:.4f}; {batch[mode]['active_pairs']}/"
+            f"{batch[mode]['pairs']} pairs active; the whole step "
+            f"{step_ms:.4f} ms a call; {int(valid.sum())} valid hashes")
+    return {"per_read_groups": rows["per_read"],
+            "descend_all_groups": rows["descend_all"],
+            "minimizer_batch": batch}
 
 
 # -------------------------------------------------- diagnostic kernels --
@@ -3361,24 +3527,25 @@ def main() -> int:
         with phase("phase 8"):
             kernels += time_hier(torch, hier)
 
-        # ---- phase 13: K5, minimisers and plain k-mers, descend-all
+        # ---- phase 13: K5, minimisers and plain k-mers, both descents
         t13 = time.perf_counter()
         with phase("phase 13c"):
             check_k5(torch, dsync, extract, rng)
         # 13a: phase 7's recipe on data of its own, under the bench
         # family's whole scheme (scaling 3)
         with phase("phase 13a"):
+            mm_in = bg.result("minimizer")
             mm = nonsyncmer_path(torch, os.path.join(work, "minimizer"),
-                                 "minimizer", bg.result("minimizer"),
-                                 ("K5", "K2n"))
-        if mm["active_share"] != 1.0:
-            raise AssertionError(f"[minimizer] the descend-all descent left "
-                                 f"pairs inactive: {mm['active_share']}")
-        with phase("phase 13d (K5, the keep, descend-all)"):
+                                 "minimizer", mm_in, ("K5", "K2n"))
+            mm_modes = minimizer_descents(
+                torch, os.path.join(work, "minimizer"), mm,
+                mm_in["walk_share"])
+        with phase("phase 13d (K5, the keep, both descents)"):
             kernels.append(time_k5(torch, mm))
             narrow = next(r for r in kernels
                           if r["name"] == "probe_count_narrow")
-            narrow["descend_all_groups"] = time_descend_all(torch, mm)
+            narrow.update(time_descents(torch, mm))
+            narrow["minimizer_search"] = mm_modes
         # ---- phase 14 on phase 7's and phase 13a's hierarchies
         t0 = time.perf_counter()
         with phase("phase 14b"):
@@ -3477,7 +3644,9 @@ def main() -> int:
                 m: atscale["launches"][f"K2n {m}"] for m in ("smem", "rows")}
             row["peak_mib"] = {"hierarchical": hier["peak_mib"],
                                "hierarchical split": hier["split_peak_mib"],
-                               "minimizer descend-all": mm["peak_mib"]}
+                               "minimizer": mm["peak_mib"],
+                               "minimizer descend-all":
+                                   mm_modes["descend_all"]["peak_mib"]}
         if key == "K4":  # as in the JAX package, no search path sorts pairs
             row["launches_in"] = "not on a main path"
             row["check_launches"] = flat["k4_check"]  # sort.dedup_pairs

@@ -167,7 +167,8 @@ def run_prewarm(index_file: str, lengths: str, topk: str,
     print(f"prewarm: index uploaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
     # as search does: the thresholder's kind picks the hierarchy's descent
-    # mode (the count table, or descend-all for length-dependent models)
+    # mode (the count table, or per-read host thresholds for the
+    # length-dependent models)
     if not dhixf.e2e_capable(thresholder, scheme):
         print("prewarm: the index's scheme takes no fused step; nothing "
               "more to warm")

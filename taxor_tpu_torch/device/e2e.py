@@ -8,9 +8,11 @@ Counterpart of ``taxor_tpu/device/e2e.py``: ``fused_e2e_step`` on a flat
       -> K2 (probe positions, probe/count) -> run sums -> top-k
 
 and ``make_hixf_e2e_grouped_fn`` on a hierarchical index, where the
-probe runs once per group of IXFs with a per-read descent mask, or on
-every pair in the descend-all mode of length-dependent thresholds (see
-its docstring).
+probe runs once per group of IXFs with a per-read descent mask: the
+threshold of a read from a count-indexed table, or, for length-dependent
+thresholds, computed on the host from the read's downloaded hash count
+(the per-read mode); the descend-all mode of the JAX step, which probes
+every pair, stays beside them (see its docstring).
 
 The packed int32 [R, 2*topk + 2] result is the reference's: top-k raw
 run sums descending, their user bins, the per-read hash count and the
@@ -45,7 +47,9 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
+import numpy as np
 import torch
 
 from ..hash.device_syncmer import emission_min_gap
@@ -215,11 +219,74 @@ class ActivityStats:
                     else int(self.active) / self.total)
 
 
+class ThresholdStats:
+    """Host seconds of the per-read mode's thresholds, over the process:
+    ``wait_s`` from queuing the copy of n_unique until it is on the host
+    (the extraction still running on the card included), ``host_s`` the
+    thresholds and their upload; ``batches`` the steps."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.batches = 0
+            self.wait_s = 0.0
+            self.host_s = 0.0
+
+    def add(self, wait_s: float, host_s: float) -> None:
+        with self._lock:
+            self.batches += 1
+            self.wait_s += wait_s
+            self.host_s += host_s
+
+    def summary(self) -> dict:
+        with self._lock:
+            return {"batches": self.batches, "wait_s": self.wait_s,
+                    "host_s": self.host_s}
+
+
+THRESHOLDS = ThresholdStats()
+
+
+def host_copy(x: torch.Tensor) -> np.ndarray:
+    """x on the host.  From a card: one non_blocking copy into pinned
+    memory, waited on with a CUDA event, which waits for the stream up to
+    the copy and not for the whole device."""
+    if x.device.type != "cuda":
+        return x.numpy()
+    buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    buf.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return buf.numpy()
+
+
+def read_thresholds(thresholds_of, n_unique: torch.Tensor,
+                    host_lengths: np.ndarray) -> torch.Tensor:
+    """int32 [R] on n_unique's device: the per-read mode's thresholds,
+    ``thresholds_of(n_unique on the host, host_lengths)`` (exact host
+    math, int32), uploaded as they are; timed into THRESHOLDS."""
+    if host_lengths is None or len(host_lengths) != n_unique.shape[0]:
+        raise ValueError("the per-read descent needs the host lengths of "
+                         f"its {n_unique.shape[0]} reads")
+    t0 = time.perf_counter()
+    counts = host_copy(n_unique)
+    t1 = time.perf_counter()
+    thr = torch.from_numpy(thresholds_of(counts, host_lengths)).to(
+        n_unique.device)
+    THRESHOLDS.add(t1 - t0, time.perf_counter() - t1)
+    return thr
+
+
 def descend(groups, n_nodes: int, hi, lo, valid, thr,
             stats: ActivityStats | None = None, upto: int | None = None,
             descend_all: bool = False, reduce_sums=None):
     """The level-grouped descent of the extracted hashes (hi, lo, valid
-    [R, H]) with per-read thresholds thr int32 [R].  Returns (leaf_vals,
+    [R, H]) with per-read thresholds thr int32 [R] (from the count table,
+    or computed on the host in the per-read mode).  Returns (leaf_vals,
     leaf_sums), lists over the groups of [n_leaves, R]: leaf_vals the
     leaf run sums, -1 where the leaf's IXF was not descended, and
     leaf_sums None; with ``upto``, the activity [G, R] that group
@@ -230,7 +297,8 @@ def descend(groups, n_nodes: int, hi, lo, valid, thr,
     loop over members) is a few gathers over index tensors, so a group
     costs the same handful of launches whatever its member count.
 
-    descend_all (length-dependent thresholds; thr is not read): every
+    descend_all (the JAX step's answer to length-dependent thresholds;
+    thr is not read): every
     (subgroup, read) pair is probed, and a chain [n_nodes, R] carries the
     minimum of the merged run sums on the path from the root (2^30 at the
     root): chain[child] = min(chain[parent], its run's sum).  leaf_vals
@@ -291,13 +359,15 @@ def make_hixf_e2e_grouped_fn(groups, leaf_users: torch.Tensor, k: int,
                              scheme_kind: str = "syncmer", window: int = 0,
                              scale_thresh: int = 0,
                              descend_all: bool = False,
+                             thresholds_of=None,
                              stats: ActivityStats | None = None,
                              gather=None, reduce_sums=None):
     """Fused hierarchical search with level-grouped probing (the JAX
     ``make_hixf_e2e_grouped_fn``).  Returns ``run(packed, lengths,
-    thr_table, hcap)`` -> packed int32 [R, 2*topk + 2]: the top-k leaf run
-    sums descending (-1 where the leaf's IXF was not descended), their
-    user bins, the hash count and the emission count per read.
+    thr_table, hcap, host_lengths=None)`` -> packed int32 [R, 2*topk + 2]:
+    the top-k leaf run sums descending (-1 where the leaf's IXF was not
+    descended), their user bins, the hash count and the emission count
+    per read.
 
     The scheme's extraction runs once (K1 or the split engine for
     syncmers, K5 for minimisers and plain k-mers, then the FracMinHash
@@ -313,8 +383,19 @@ def make_hixf_e2e_grouped_fn(groups, leaf_users: torch.Tensor, k: int,
     in group, member, run order, with the stable sort of ``topk_idx``,
     which breaks ties as ``lax.top_k`` does.
 
-    descend_all (length-dependent thresholds, the fracminhash model):
-    the reference's descent and emission thresholds are the same per-read
+    thresholds_of (the per-read mode of length-dependent thresholds, the
+    fracminhash model, whose tau depends on the read's length as well as
+    its hash count): a host function (n_unique int32 [R], lengths [R]) ->
+    int32 [R], each read's exact threshold.  Once the extraction is
+    queued, n_unique comes to the host (one non_blocking copy to pinned
+    memory and an event), the thresholds of the reads' ``host_lengths``
+    go up as int32 [R] (``read_thresholds``), and the descent is the
+    count-table one with them (thr_table is not read): K2n probes only the
+    pairs the reference walks, and the result is the count-table packing.
+
+    descend_all (the JAX step's mode for length-dependent thresholds,
+    held beside the per-read mode; no search path takes it): the
+    reference's descent and emission thresholds are the same per-read
     tau, so a leaf is emitted iff min(leaf sum, the merged sums above it)
     >= tau.  Every pair is probed (thr_table is not read), the leaf
     values are those chain minima, and the result is packed
@@ -333,15 +414,24 @@ def make_hixf_e2e_grouped_fn(groups, leaf_users: torch.Tensor, k: int,
     leaf_users: int32 [n_leaves], the user bin of each leaf column.
     gather, reduce_sums: the sharded step's hooks, as in fused_e2e_step
     (reduce_sums applies to each group's run sums, ``descend``)."""
+    if descend_all and thresholds_of is not None:
+        raise ValueError("descend_all and the per-read mode exclude each "
+                         "other")
     n_nodes = 1 + max(m[0] for g in groups for m in g["members"])
 
-    def run(packed, lengths, thr_table, hcap: int) -> torch.Tensor:
+    def run(packed, lengths, thr_table, hcap: int,
+            host_lengths=None) -> torch.Tensor:
         hashes = _hashes(packed, lengths, scheme_kind, k, s, t, window,
                          hcap, scale_thresh)
         if gather is not None:
             hashes = gather(hashes)
         hi, lo, valid, n_unique, n_emit = hashes
-        thr = thr_table[n_unique.clamp(0, thr_table.shape[0] - 1).long()]
+        if descend_all:
+            thr = None
+        elif thresholds_of is not None:
+            thr = read_thresholds(thresholds_of, n_unique, host_lengths)
+        else:
+            thr = thr_table[n_unique.clamp(0, thr_table.shape[0] - 1).long()]
         leaf_vals, leaf_sums = descend(groups, n_nodes, hi, lo, valid, thr,
                                        stats, descend_all=descend_all,
                                        reduce_sums=reduce_sums)

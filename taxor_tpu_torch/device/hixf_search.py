@@ -5,7 +5,7 @@ turns the host ``HIXF`` of a loaded ``TaxorIndex`` into device tensors.
 The dispatch methods return the same collector tuples as the JAX class,
 so ``search/pipeline.py`` decodes both the same way, apart from
 ``e2e_async``: its tuple always has six elements, the sixth the leaf sums
-of the descend-all mode and None in the count-table one.
+of the descend-all mode and None in the count-table and per-read ones.
 
 A flat index (one IXF) keeps the uint8 fingerprint table [S, Bpad] with
 bins contiguous per slot, the run offsets and run users, and the seed and
@@ -48,10 +48,16 @@ long reads of a flat index take ``counts``.
 Every scheme the JAX steps take runs fused: syncmers (K1, hcap slots),
 minimisers and plain k-mers (K5, hcap = L), either with a FracMinHash
 scaling (``_scale_thresh``).  A hierarchy descends with the count-indexed
-threshold table (``_thr_table``) for the count-only threshold models and
-in the descend-all chain-min mode (``_descend_all``) for the
-length-dependent fracminhash model; that mode's collector returns the
-leaf sums to report as its sixth element.
+threshold table (``_thr_table``) for the count-only threshold models, and
+with per-read thresholds computed on the host for the length-dependent
+fracminhash model (``_per_read``): the read's hash count comes to the
+host after the extraction, its exact float64 threshold
+(search/thresholds.device_thresholds) goes up as int32, and K2n probes
+only the pairs the reference walks.  The JAX step's descend-all
+chain-min mode, which probes every pair and whose collector returns the
+leaf sums to report as its sixth element, is taken only where a caller
+asks for it (``descend_all=True``), as the parity reference of the
+per-read mode.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ import torch
 from ..hash.device_syncmer import hash_cap, supports, supports_minimizer
 from ..hash.schemes import scaling_threshold_u64
 from ..hixf.container import HIXF
+from ..search.thresholds import device_thresholds
 from . import sharding
 from .e2e import (ActivityStats, fused_e2e_step, make_hixf_e2e_grouped_fn,
                   run_sums, topk_desc)
@@ -86,9 +93,10 @@ def _scale_thresh(scheme) -> int:
     return scaling_threshold_u64(scheme.scaling) if scheme.scaling > 1 else 0
 
 
-def _descend_all(thresholder) -> bool:
+def _per_read(thresholder) -> bool:
     """Length-dependent threshold models (fracminhash) cannot use the
-    count-indexed descent table: the descent runs in descend-all mode."""
+    count-indexed descent table: the descent takes per-read thresholds
+    computed on the host (the per-read mode)."""
     return thresholder is not None and \
         thresholder.kind not in COUNT_ONLY_KINDS
 
@@ -436,11 +444,12 @@ class DeviceHIXF:
 
         return collect
 
-    def _hixf_e2e_fn(self, scheme, k: int, descend_all: bool = False):
-        """The cached grouped step for (scheme, top-k, mode)."""
+    def _hixf_e2e_fn(self, scheme, k: int, mode: str, thresholder=None):
+        """The cached grouped step for (scheme, top-k, mode) and, in the
+        per-read mode, the thresholder whose thresholds it computes."""
         key = (scheme.kmer_size, scheme.syncmer_size, scheme.t_syncmer,
                scheme.use_syncmer, scheme.window_size, scheme.scaling, k,
-               descend_all)
+               mode, repr(thresholder) if mode == "per_read" else None)
         fn = self._e2e_fns.get(key)
         if fn is None:
             kw = dict(k=scheme.kmer_size, s=scheme.syncmer_size,
@@ -449,7 +458,12 @@ class DeviceHIXF:
                                    else "minimizer"),
                       window=scheme.window_size,
                       scale_thresh=_scale_thresh(scheme),
-                      descend_all=descend_all, stats=ACTIVITY)
+                      descend_all=mode == "descend_all",
+                      thresholds_of=(functools.partial(
+                          device_thresholds, thresholder,
+                          kmer_size=scheme.kmer_size)
+                          if mode == "per_read" else None),
+                      stats=ACTIVITY)
             fn = self._e2e_fns[key] = (
                 make_hixf_e2e_grouped_fn(self.groups, self.leaf_users, **kw)
                 if self.mesh is None else sharding.sharded_hixf_e2e_fn(
@@ -457,20 +471,23 @@ class DeviceHIXF:
         return fn
 
     def e2e_step(self, scheme, thresholder=None, k: int = 16,
-                 L: int = 256):
-        """(step, hcap, descend_all): ``step(reads, lengths)`` runs the
-        fused step of
-        this index on packed reads of length bucket L already on its
-        device and returns the packed int32 result (device/e2e.py); hcap
-        is the hash slots a read takes; descend_all names the mode.
-        Under a mesh the step is the sharded one: the reads are the whole
-        batch (a multiple of nr * nb) and the result this rank's reads
-        row's (sharding.host_view gathers the rows).  A hierarchy needs a
-        thresholder:
-        count-only models descend with the count-indexed table (built on
-        the host once per (thresholder, hcap)), the others in the
-        descend-all mode, whose result is [R, 3k + 2] and whose table is
-        all zeros (never read)."""
+                 L: int = 256, descend_all: bool = False):
+        """(step, hcap, mode): ``step(reads, lengths, host_lengths=None)``
+        runs the fused step of this index on packed reads of length bucket
+        L already on its device and returns the packed int32 result
+        (device/e2e.py); hcap is the hash slots a read takes; mode names
+        the step: "flat", or a hierarchy's descent.  Under a mesh the step
+        is the sharded one: the reads are the whole batch (a multiple of
+        nr * nb) and the result this rank's reads row's
+        (sharding.host_view gathers the rows).
+
+        A hierarchy needs a thresholder, whose kind alone picks the
+        descent: count-only models "count_table", with the count-indexed
+        table (built on the host once per (thresholder, hcap)); the
+        others "per_read", whose step needs the reads' lengths on the host
+        as well (``host_lengths``, numpy [R]).  descend_all=True asks for
+        the JAX step's "descend_all" mode instead, whose result is
+        [R, 3k + 2]; no search path asks for it."""
         # minimisers and plain k-mers: one value a position
         hcap = hash_cap(L) if scheme.use_syncmer else L
         kind = "syncmer" if scheme.use_syncmer else "minimizer"
@@ -483,33 +500,39 @@ class DeviceHIXF:
                      if self.mesh is None
                      else sharding.sharded_e2e_fn(self.mesh, **kw))
 
-            def step(reads, lens):
+            def step(reads, lens, host_lengths=None):
                 return fused(self.table, reads, lens, self.run_offsets,
                              self.run_users, self.seed, self.block_length,
                              prefix_runs=self.prefix_runs)
-            return step, hcap, False
+            return step, hcap, "flat"
         if thresholder is None:
             raise ValueError("a hierarchical index descends with a "
                              "thresholder")
-        da = _descend_all(thresholder)
-        tkey = ("zeros", hcap) if da else (repr(thresholder), hcap)
-        tbl = self._thr_tables.get(tkey)
-        if tbl is None:
-            tbl = self._thr_tables[tkey] = torch.from_numpy(
-                np.zeros(hcap + 1, dtype=np.int32) if da
-                else self._thr_table(thresholder, hcap)).to(self.device)
-        fn = self._hixf_e2e_fn(scheme, k, descend_all=da)
-        return (lambda reads, lens: fn(reads, lens, tbl, hcap)), hcap, da
+        mode = ("descend_all" if descend_all else
+                "per_read" if _per_read(thresholder) else "count_table")
+        tbl = None
+        if mode == "count_table":
+            tkey = (repr(thresholder), hcap)
+            tbl = self._thr_tables.get(tkey)
+            if tbl is None:
+                tbl = self._thr_tables[tkey] = torch.from_numpy(
+                    self._thr_table(thresholder, hcap)).to(self.device)
+        fn = self._hixf_e2e_fn(scheme, k, mode, thresholder)
+        return (lambda reads, lens, host_lengths=None: fn(
+            reads, lens, tbl, hcap, host_lengths)), hcap, mode
 
     def e2e_async(self, raw_reads: np.ndarray, lengths: np.ndarray, scheme,
-                  thresholder=None, k: int = 16):
+                  thresholder=None, k: int = 16, descend_all: bool = False):
         """Whole-search dispatch from 2-bit packed reads (pack_reads):
         uint8 [R, L/4] and int32 [R].  Returns a collector -> (vals [R,k],
         users [R,k], hash counts [R], n_emit [R], hcap, sums): sums is
-        None, or in the descend-all mode the leaf sums [R, k] to report
-        (vals are then the chain minima the thresholds test)."""
+        None, or in the descend-all mode (``descend_all``, e2e_step) the
+        leaf sums [R, k] to report (vals are then the chain minima the
+        thresholds test).  The per-read mode waits here for the
+        extraction's hash counts, the rest of the step is queued."""
         L = raw_reads.shape[1] * 4  # bases: 4 per packed byte
-        step, hcap, da = self.e2e_step(scheme, thresholder, k, L)
+        step, hcap, mode = self.e2e_step(scheme, thresholder, k, L,
+                                         descend_all)
         R0 = raw_reads.shape[0]
         if self.mesh is not None:  # equal parts for every rank
             rpad = -R0 % (self.mesh.nr * self.mesh.nb)
@@ -517,12 +540,12 @@ class DeviceHIXF:
             lengths = np.pad(lengths, (0, rpad))
         packed = step(torch.from_numpy(raw_reads).to(self.device),
                       torch.from_numpy(lengths.astype(np.int32)).to(
-                          self.device))
+                          self.device), lengths)
 
         def collect():
             out = (packed.cpu().numpy() if self.mesh is None
                    else sharding.host_view(packed, self.mesh)[:R0])
-            if da:  # minv | leaf sums | users | n_unique | n_emit
+            if mode == "descend_all":  # minv | sums | users | counts
                 return (out[:, :k], out[:, 2 * k:3 * k], out[:, 3 * k],
                         out[:, 3 * k + 1], hcap, out[:, k:2 * k])
             return (out[:, :k], out[:, k:2 * k], out[:, 2 * k],

@@ -274,28 +274,36 @@ def sharded_hixf_e2e_fn(mesh: Mesh, groups, leaf_users: torch.Tensor,
                         k: int, s: int, t: int, topk: int,
                         scheme_kind: str = "syncmer", window: int = 0,
                         scale_thresh: int = 0, descend_all: bool = False,
-                        stats=None):
+                        thresholds_of=None, stats=None):
     """The hierarchical fused step over the mesh (the JAX
-    ``sharded_hixf_e2e_fn``), in the count-table and the descend-all
-    modes: ``run(packed, lengths, thr_table, hcap)`` -> packed int32
-    [R / nr, 2 topk + 2] ([R / nr, 3 topk + 2] descending all) of this
-    rank's reads row.
+    ``sharded_hixf_e2e_fn``), in the count-table, per-read and
+    descend-all modes: ``run(packed, lengths, thr_table, hcap,
+    host_lengths=None)`` -> packed int32 [R / nr, 2 topk + 2]
+    ([R / nr, 3 topk + 2] descending all) of this rank's reads row.
 
     groups: ``DeviceHIXF.upload_groups`` dicts whose tables are this
-    rank's column shards and whose run columns are clipped to them.  Per
-    group in order: K2n (or K2 past 512 bins) sums the shard's runs,
-    one all_reduce over the row adds them, and the descent (activity, or
-    the chain minima) is decided from the reduced sums."""
+    rank's column shards and whose run columns are clipped to them.  The
+    per-read mode copies n_unique to the host after the row gather of the
+    hashes, so every rank of a row thresholds the same reads; host_lengths
+    are the whole batch's, and the row's are taken here.  Per group in
+    order: K2n (or K2 past 512 bins) sums the shard's runs, one all_reduce
+    over the row adds them, and the descent (activity, or the chain
+    minima) is decided from the reduced sums."""
     inner = make_hixf_e2e_grouped_fn(
         groups, leaf_users, k=k, s=s, t=t, topk=topk,
         scheme_kind=scheme_kind, window=window, scale_thresh=scale_thresh,
-        descend_all=descend_all, stats=stats,
+        descend_all=descend_all, thresholds_of=thresholds_of, stats=stats,
         gather=lambda h: row_gather_hashes(mesh, h),
         reduce_sums=lambda x: row_sum(mesh, x))
 
-    def run(packed, lengths, thr_table, hcap: int) -> torch.Tensor:
-        part = _extract_part(mesh, packed.shape[0])
+    def run(packed, lengths, thr_table, hcap: int,
+            host_lengths=None) -> torch.Tensor:
+        R = packed.shape[0]
+        part = _extract_part(mesh, R)
         COLLECTIVES.batch()
-        return inner(packed[part], lengths[part], thr_table, hcap)
+        if host_lengths is not None:
+            host_lengths = host_lengths[row_part(mesh, R)]
+        return inner(packed[part], lengths[part], thr_table, hcap,
+                     host_lengths)
 
     return run

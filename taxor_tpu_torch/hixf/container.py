@@ -121,26 +121,50 @@ class HIXF:
         lib = get_lib()
         if lib is None:
             return self.membership_plain(hashes, threshold)
-        flat = self._flat()
         hashes = np.ascontiguousarray(hashes, dtype=U64)
-        impossible = threshold > 2**63 - 1  # past every count
-        thr = 0 if impossible else max(int(threshold), -2**63)
         cap = self.num_user_bins
         while True:
             users = np.empty(cap, dtype=np.int32)
             counts = np.empty(cap, dtype=np.int64)
             n = lib.hixf_membership(
-                *(flat[key].ctypes.data_as(ctypes.c_void_p)
+                *self._native_args(hashes, threshold),
+                users.ctypes.data_as(ctypes.c_void_p),
+                counts.ctypes.data_as(ctypes.c_void_p), cap)
+            if n <= cap:
+                return list(zip(users[:n].tolist(), counts[:n].tolist()))
+            cap = n
+
+    def walk(self, hashes: np.ndarray, threshold: int) -> list[int]:
+        """The IXFs the walk of ``membership`` visits for one hash list,
+        in the order it enters them: the root, then each merged bin's
+        child whose run sum reaches ``threshold``.  From the native walk,
+        or from ``walk_plain`` without the library."""
+        from ..native import get_lib
+
+        lib = get_lib()
+        if lib is None:
+            return self.walk_plain(hashes, threshold)
+        hashes = np.ascontiguousarray(hashes, dtype=U64)
+        cap = len(self.ixfs)  # a tree: each IXF is entered at most once
+        out = np.empty(cap, dtype=np.int32)
+        n = lib.hixf_walk(*self._native_args(hashes, threshold),
+                          out.ctypes.data_as(ctypes.c_void_p), cap)
+        return out[:n].tolist()
+
+    def _native_args(self, hashes: np.ndarray, threshold: int) -> list:
+        """The leading arguments of the native walks: the flat view, the
+        hashes (a contiguous uint64 array the caller keeps alive), the
+        threshold and whether it is past every count."""
+        flat = self._flat()
+        impossible = threshold > 2**63 - 1  # past every count
+        thr = 0 if impossible else max(int(threshold), -2**63)
+        return [*(flat[key].ctypes.data_as(ctypes.c_void_p)
                   for key in ("fp", "fp_off")), flat["n_ixfs"],
                 *(flat[key].ctypes.data_as(ctypes.c_void_p)
                   for key in ("bins", "block_len", "seeds", "bin_off",
                               "user_of", "next_ixf")),
                 hashes.ctypes.data_as(ctypes.c_void_p), hashes.shape[0],
-                thr, int(impossible), users.ctypes.data_as(ctypes.c_void_p),
-                counts.ctypes.data_as(ctypes.c_void_p), cap)
-            if n <= cap:
-                return list(zip(users[:n].tolist(), counts[:n].tolist()))
-            cap = n
+                thr, int(impossible)]
 
     def _flat(self) -> dict:
         """The contiguous view of the native walk, made at the first call
@@ -157,10 +181,21 @@ class HIXF:
                          threshold: int) -> list[tuple[int, int]]:
         """``membership`` in numpy: the recursion above, one IXF's
         ``bulk_count`` at a time."""
+        return self._recurse_plain(hashes, threshold)[1]
+
+    def walk_plain(self, hashes: np.ndarray, threshold: int) -> list[int]:
+        """``walk`` in numpy (the recursion of ``membership_plain``)."""
+        return self._recurse_plain(hashes, threshold)[0]
+
+    def _recurse_plain(self, hashes: np.ndarray, threshold: int):
+        """(the IXFs visited, the (user_bin, count) pairs emitted) of the
+        reference's recursion, in numpy."""
+        seen: list[int] = []
         out: list[tuple[int, int]] = []
         hashes = np.asarray(hashes, dtype=U64)
 
         def impl(ixf_idx: int):
+            seen.append(ixf_idx)
             counts = self.ixfs[ixf_idx].bulk_count(hashes)
             b2u = self.bin_to_user[ixf_idx]
             n = counts.shape[0]
@@ -178,7 +213,7 @@ class HIXF:
                     total = 0
 
         impl(0)
-        return out
+        return seen, out
 
     def bulk_count_users(self, hashes: np.ndarray,
                          threshold: int = 1) -> np.ndarray:

@@ -3,7 +3,8 @@ packer (``syncmer_scan.cpp``), the XOR-filter peeling builder
 (``xor_peel.cpp``), the layout DP (``layout_dp.cpp``) and the CPU proxy
 of the reference's search worker that the benchmark measures against
 (``ref_baseline.cpp``, wrapped by ``baseline.py``; its HIXF walk alone is
-the host oracle's, ``hixf_membership``).
+the host oracle's, ``hixf_membership``, and ``hixf_walk`` lists the IXFs
+it visits).
 
 The port's own copy of ``taxor_tpu/native``.  The shared library is compiled with g++ at
 first use (never at import) into ``taxor_tpu_torch/_build/native/``,
@@ -44,6 +45,8 @@ _SIGNATURES = {
                                  _P, _P, _P, _P, _P, _L, _P, _P, _P, _I]),
     "hixf_membership": (_L, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L,
                              ctypes.c_longlong, _I, _P, _P, _L]),
+    "hixf_walk": (_L, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L,
+                       ctypes.c_longlong, _I, _P, _L]),
     "syncmer_scan_batch": (None, [_P, _P, _L, _L, _I, _I, _I, _P, _P]),
     "hll_union_band": (None, [_P, _P, _L, _L, _L, _P, _I]),
     "layout_dp": (_L, [_P, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _I]),

@@ -23,7 +23,8 @@
 // strong as the reference's -Ofast build.
 //
 // hixf_membership runs step 3 alone for the host oracle of the search
-// (HIXF.membership): the same walk, its (user bin, count) pairs returned.
+// (HIXF.membership): the same walk, its (user bin, count) pairs returned;
+// hixf_walk the same walk, the IXFs it visits returned (HIXF.walk).
 
 #include <algorithm>
 #include <cstdint>
@@ -71,6 +72,8 @@ struct Scratch {
     std::vector<uint32_t> counts;
     std::vector<int32_t> pair_user;
     std::vector<int64_t> pair_count;
+    bool record_visits = false;  // hixf_walk: keep each IXF entered
+    std::vector<int32_t> visited;
 };
 
 // counting_agent::bulk_count over one interleaved IXF: per hash, XOR the
@@ -103,6 +106,7 @@ void bulk_count(const HixfView& hx, int ixf, const uint64_t* hashes,
 void contains_impl(const HixfView& hx, int ixf, const uint64_t* hashes,
                    long n_hashes, int64_t threshold_lo, bool thr_impossible,
                    Scratch& sc, size_t counts_base) {
+    if (sc.record_visits) sc.visited.push_back(ixf);
     const int64_t nb = hx.bins[ixf];
     // per-level slice of one big counts scratch (recursion-safe)
     if (sc.counts.size() < counts_base + (size_t)nb)
@@ -158,6 +162,27 @@ long hixf_membership(const uint8_t* fp, const int64_t* fp_off, int n_ixfs,
         out_user[i] = sc.pair_user[(size_t)i];
         out_count[i] = sc.pair_count[(size_t)i];
     }
+    return n;
+}
+
+// The IXFs the walk of one hash list visits (HIXF.walk), in the order it
+// enters them: the root, then every child of a merged bin whose run sum
+// reaches the threshold.  Writes at most cap ids and returns how many
+// there are.
+long hixf_walk(const uint8_t* fp, const int64_t* fp_off, int n_ixfs,
+               const int64_t* bins, const int64_t* block_len,
+               const uint64_t* seeds, const int64_t* bin_off,
+               const int32_t* user_of, const int32_t* next_ixf,
+               const uint64_t* hashes, long n_hashes, long long threshold,
+               int impossible, int32_t* out_ixf, long cap) {
+    HixfView hx{fp, fp_off, bins, block_len, seeds, bin_off,
+                user_of, next_ixf, n_ixfs};
+    Scratch sc;
+    sc.record_visits = true;
+    contains_impl(hx, 0, hashes, n_hashes, (int64_t)threshold,
+                  impossible != 0, sc, 0);
+    const long n = (long)sc.visited.size();
+    for (long i = 0; i < n && i < cap; i++) out_ixf[i] = sc.visited[(size_t)i];
     return n;
 }
 

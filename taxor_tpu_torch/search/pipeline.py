@@ -49,7 +49,8 @@ from ..hash.schemes import search_hashes
 from ..hixf.index import TaxorIndex, load_index
 from ..io.fastx import iter_fastx_chunks
 from ..utils.logging import maybe_profile
-from .thresholds import Thresholder
+from .thresholds import (Thresholder, _read_threshold, _scaling_ratio,
+                         e2e_thresholds)
 
 # positions per fused dispatch: bounds the device working set per call
 POS_BUDGET = 2048 * 2048
@@ -106,45 +107,6 @@ def _format_rows(
             f"{sp.taxnames_string}\t{sp.taxid_string}\n"
         )
     return "".join(out)
-
-
-def _scaling_ratio(hash_count: int, seq_len: int, kmer_size: int) -> float:
-    """(double)hash_count / ((double)len - k + 1.0) with C double
-    semantics (taxor_search.cpp:263): seq_len == k-1 yields 0/0 = NaN
-    (hash_count is always 0 for such reads), which the fracminhash model
-    propagates to the size_t sentinel — 'no read can pass', exactly as
-    the reference binary computes it.  Only that model consumes the
-    ratio."""
-    denom = float(seq_len) - float(kmer_size) + 1.0
-    if denom == 0.0:
-        return float("nan") if hash_count == 0 else float("inf")
-    return float(hash_count) / denom
-
-
-def _read_threshold(thresholder, hash_count, seq_len, kmer_size):
-    """The per-read threshold exactly as the host prepare computes it."""
-    return int(thresholder.get(
-        hash_count, _scaling_ratio(hash_count, seq_len, kmer_size)))
-
-
-def e2e_thresholds(thresholder, counts, lens, kmer_size) -> np.ndarray:
-    """int64 [R]: the threshold of each read of the fused result (its
-    hash count, its length), memoized on that pair, the only inputs the
-    models consume; exact host float64 math."""
-    thr_cache = getattr(thresholder, "_e2e_thr_cache", None)
-    if thr_cache is None:
-        thr_cache = thresholder._e2e_thr_cache = {}
-    thr = np.empty(len(lens), dtype=np.int64)
-    for r, key in enumerate(zip(np.asarray(counts).tolist(), lens)):
-        t = thr_cache.get(key)
-        if t is None:
-            t = thr_cache[key] = _read_threshold(
-                thresholder, key[0], key[1], kmer_size)
-        # size_t-wrapped "impossible" thresholds are >= 2^63 and would
-        # overflow int64; any value above every possible count is
-        # equivalent for the comparisons that use them
-        thr[r] = min(t, 2**62)
-    return thr
 
 
 def _pairs_from_e2e(vals, users, counts, n_emit, seqs, index, scheme,

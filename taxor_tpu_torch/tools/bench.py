@@ -105,7 +105,7 @@ PARITY_FAMILIES = {
     "scaled_syncmer": ("flat", 0, dict(SYNCMER, scaling=3)),
     "hier_scaled_syncmer": ("auto", 1, dict(SYNCMER, scaling=3)),
     # unscaled minimisers: fracminhash thresholds, so the hierarchy
-    # descends in the descend-all mode
+    # descends with per-read thresholds computed on the host
     "minimizer": ("flat", 0, MINIMIZER),
     "hier_minimizer": ("auto", 1, MINIMIZER),
     # plain k-mers in the count-table descent on K5's values
@@ -168,11 +168,15 @@ def native_baseline(index, seqs, thresholder, sub=None):
     return r1, len(seqs) / (time.perf_counter() - t0)
 
 
-def device_reads_per_s(index, seqs, thresholder, device, topk=16):
+def device_reads_per_s(index, seqs, thresholder, device, topk=16,
+                       descend_all=False):
     """(reads/s, ms per pass, fallback fraction, classified fraction) of
     the fused step on device-resident reads, for every scheme the step
     takes (syncmers; minimisers and plain k-mers, whose hash slots are
-    L; FracMinHash); the fractions come from one real dispatch."""
+    L; FracMinHash); the fractions come from one real dispatch, decoded
+    as search/pipeline._pairs_from_e2e decodes it.  descend_all: a
+    hierarchy descends in the JAX step's descend-all mode instead of the
+    one its thresholds pick (DeviceHIXF.e2e_step)."""
     dev = torch.device(device)
     scheme = index.scheme
     dh = DeviceHIXF.from_hixf(index.hixf, dev)
@@ -183,25 +187,23 @@ def device_reads_per_s(index, seqs, thresholder, device, topk=16):
     R = len(seqs)
 
     vals, users, counts, n_emit, hcap, sums = dh.e2e_async(
-        packed, lengths, scheme, thresholder, k=topk)()
+        packed, lengths, scheme, thresholder, k=topk,
+        descend_all=descend_all)()
     kk = vals.shape[1]
-    if sums is None:
-        nv = (vals >= 0).sum(axis=1)
-        fb = (nv == kk) & (vals[:, kk - 1].astype(np.float64)
-                           >= vals[:, 0].astype(np.float64) * 0.8)
-        classified = float((vals[:, 0] > 0).mean())
-    else:  # descend-all: the chain minima against the reads' thresholds,
-        # with no 0.8 shortcut, as search/pipeline._pairs_from_e2e decodes
-        thr = e2e_thresholds(thresholder, counts, [len(s) for s in seqs],
-                              scheme.kmer_size)
-        n = ((vals >= thr[:, None]) & (users >= 0)).sum(axis=1)
+    thr = e2e_thresholds(thresholder, counts, [len(s) for s in seqs],
+                         scheme.kmer_size)
+    n = ((vals >= thr[:, None]) & (users >= 0)).sum(axis=1)
+    if sums is None:  # top-k sums: truncation unless the 0.8 rule drops
+        fb = (n == kk) & (vals[:, kk - 1].astype(np.float64)
+                          >= vals[:, 0].astype(np.float64) * 0.8)
+    else:  # descend-all's chain minima: no 0.8 shortcut
         fb = n == kk
-        classified = float((n > 0).mean())
     fb |= np.asarray(n_emit) > hcap
+    classified = float((n > 0).mean())
 
-    step, _, _ = dh.e2e_step(scheme, thresholder, topk, L)
+    step, _, _ = dh.e2e_step(scheme, thresholder, topk, L, descend_all)
     ms = rolled_ms(step, torch.from_numpy(packed).to(dev),
-                   torch.from_numpy(lengths).to(dev))
+                   torch.from_numpy(lengths).to(dev), lengths)
     return R / (ms / 1e3), ms, float(fb.mean()), classified
 
 

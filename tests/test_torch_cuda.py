@@ -731,8 +731,10 @@ def test_nonsyncmer_fused_step_matches_cpu_twins(cuda, name):
 @pytest.mark.parametrize("name", ["minimizer_scaled", "plain_kmer"])
 def test_nonsyncmer_hier_step_matches_cpu_twins(cuda, tmp_path, name):
     """The hierarchical step on the card equals the CPU twins: a scaled
-    minimiser hierarchy descends in the descend-all mode (every pair
-    active, [R, 3*topk + 2]), a plain k-mer one with the count table."""
+    minimiser hierarchy descends with per-read thresholds computed on the
+    host (the count-table packing, fewer than every pair active) and, asked
+    for, in the descend-all mode (every pair active, [R, 3*topk + 2]); a
+    plain k-mer one with the count table."""
     from taxor_tpu_torch.apps.build import BuildConfig, run_build
     from taxor_tpu_torch.device import hixf_search
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
@@ -755,16 +757,37 @@ def test_nonsyncmer_hier_step_matches_cpu_twins(cuda, tmp_path, name):
     sch = index.scheme
     th = Thresholder.make(sch.kmer_size, sch.window_size, 0.04, -1.0, False)
     dhs = [DeviceHIXF.from_hixf(index.hixf, dev) for dev in ("cpu", cuda)]
-    hixf_search.ACTIVITY.reset()
-    out = [dh.e2e_async(packed, lengths, sch, th)() for dh in dhs]
-    da = name == "minimizer_scaled"
-    assert (out[1][5] is None) == (not da)  # descend-all: the leaf sums
-    for a, b in zip(out[0][:4] + out[0][5:6 if da else 5],
-                    out[1][:4] + out[1][5:6 if da else 5]):
-        np.testing.assert_array_equal(a, b)
-    assert out[1][4] == 1024  # hcap = L
-    if name == "minimizer_scaled":
-        assert hixf_search.ACTIVITY.share() == 1.0
+    for da in ((False, True) if name == "minimizer_scaled" else (False,)):
+        hixf_search.ACTIVITY.reset()
+        out = [dh.e2e_async(packed, lengths, sch, th, descend_all=da)()
+               for dh in dhs]
+        assert (out[1][5] is None) == (not da)  # descend-all: leaf sums
+        for a, b in zip(out[0][:4] + out[0][5:6 if da else 5],
+                        out[1][:4] + out[1][5:6 if da else 5]):
+            np.testing.assert_array_equal(a, b)
+        assert out[1][4] == 1024  # hcap = L
+        if name == "minimizer_scaled":
+            share = hixf_search.ACTIVITY.share()
+            assert share == 1.0 if da else 0 < share < 1.0
+
+
+def test_per_read_thresholds_from_the_card(cuda):
+    """The per-read mode's round trip: n_unique copied from the card to
+    pinned host memory (e2e.host_copy, one event), the host thresholds
+    uploaded to the card as int32; a length list of the wrong size
+    raises."""
+    from taxor_tpu_torch.device import e2e
+
+    n_unique = torch.arange(512, dtype=torch.int32, device=cuda) * 3
+    got = e2e.host_copy(n_unique)
+    np.testing.assert_array_equal(got, np.arange(512) * 3)
+    lens = np.arange(512) + 100
+    thr = e2e.read_thresholds(lambda c, n: (c + n).astype(np.int32),
+                              n_unique, lens)
+    assert thr.device.type == "cuda" and thr.dtype == torch.int32
+    np.testing.assert_array_equal(thr.cpu().numpy(), np.arange(512) * 4 + 100)
+    with pytest.raises(ValueError, match="host lengths"):
+        e2e.read_thresholds(lambda c, n: c, n_unique, lens[:10])
 
 
 def test_wrappers_check_inputs(cuda):

@@ -1,10 +1,12 @@
 """Minimiser and plain k-mer schemes on the port's hierarchical fused step,
 against the JAX package: the descend-all chain-min descent of the
-length-dependent fracminhash thresholds (scaling 1 and 3) and the
-count-table descent of a plain k-mer hierarchy, as packed outputs against
-the JAX grouped step (Pallas in interpret mode), decoded against the host
-oracle, and as whole searches against the JAX host engine.  Every
-comparison is exact: integer or byte equality."""
+length-dependent fracminhash thresholds (scaling 1 and 3; the JAX step's
+mode, which the port keeps as the reference of its per-read mode,
+tests/test_torch_fmh_descent.py, and takes where it is asked for) and
+the count-table descent of a plain k-mer hierarchy, as packed outputs
+against the JAX grouped step (Pallas in interpret mode), decoded against
+the host oracle, and as whole searches against the JAX host engine.
+Every comparison is exact: integer or byte equality."""
 
 import os
 
@@ -93,9 +95,9 @@ def test_grouped_step_matches_jax(hier_sets, name):
     ref = JaxDeviceHIXF(index.hixf, engine="pallas")
     ref._interpret = True
     want = ref.e2e_async(packed, lengths, index.scheme, th)()
-    got = DeviceHIXF.from_hixf(index.hixf, "cpu").e2e_async(
-        packed, lengths, index.scheme, th)()
     da = th.kind == "fracminhash"
+    got = DeviceHIXF.from_hixf(index.hixf, "cpu").e2e_async(
+        packed, lengths, index.scheme, th, descend_all=da)()
     assert len(want) == (6 if da else 5) and len(got) == 6
     assert (got[5] is None) == (not da)  # the port's sixth: sums or None
     assert got[4] == want[4] == packed.shape[1] * 4  # hcap = L
@@ -109,15 +111,16 @@ def test_grouped_step_matches_jax(hier_sets, name):
 def test_hier_fracminhash_descend_all_matches_host(hier_sets, name):
     """The port's twin of test_hixf_e2e_device.py::
     test_hier_fracminhash_descend_all_matches_host: scaled and
-    length-dependent-threshold searches on a hierarchy dispatch fused in
-    the descend-all mode and reproduce the host oracle exactly."""
+    length-dependent-threshold searches on a hierarchy dispatched fused in
+    the descend-all mode reproduce the host oracle exactly."""
     index_of, _, seqs, _ = hier_sets
     index = index_of(name)[0]
     th = thresholder_of(index)
     dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
     assert dh.e2e_capable(th) and len(dh.ixfs) > 1
     reads, packed, lengths = packed_reads(seqs, 200)
-    res = dh.e2e_async(packed, lengths, index.scheme, th, k=16)()
+    res = dh.e2e_async(packed, lengths, index.scheme, th, k=16,
+                       descend_all=True)()
     assert res[5] is not None  # (..., hcap, leaf sums)
     # scaling 3 on 800 b reads leaves few hashes against the threshold:
     # classification is sparse; the parity above is the test
@@ -142,7 +145,7 @@ def test_hier_plain_kmer_matches_host(hier_sets):
 def test_threshold_table_is_built_once(hier_sets, monkeypatch):
     """The count table for hcap = L (1,025 entries at L = 1,024, 32,769 at
     32,768) is built on the host once per (thresholder, hcap), not per
-    batch; the descend-all mode builds none."""
+    batch; the per-read mode of fracminhash thresholds builds none."""
     index_of, _, seqs, _ = hier_sets
     built = []
     real = DeviceHIXF._thr_table
@@ -222,7 +225,7 @@ def test_hier_search_device_equals_host(hier_sets, name):
 
 
 def test_bench_fractions_follow_the_descend_all_decode(hier_sets):
-    """tools/bench.device_reads_per_s on a descend-all hierarchy: its
+    """tools/bench.device_reads_per_s on a hierarchy in descend-all mode: its
     fallback fraction is the share the pipeline's decode sends to the
     host (all k chain minima pass their threshold, or n_emit > hcap; no
     0.8 shortcut) and its classified fraction the share of reads the host
@@ -240,9 +243,10 @@ def test_bench_fractions_follow_the_descend_all_decode(hier_sets):
         acgt[rng.integers(0, 4, 800)].tobytes() for _ in range(15)]
     packed, lengths = dsync.pack_reads(
         reads, dsync.pad_len_bucket(max(len(s) for s in reads)))
-    _, _, fb, classified = bench.device_reads_per_s(index, reads, th, "cpu")
+    _, _, fb, classified = bench.device_reads_per_s(index, reads, th, "cpu",
+                                                    descend_all=True)
     res = DeviceHIXF.from_hixf(index.hixf, "cpu").e2e_async(
-        packed, lengths, scheme, th)()
+        packed, lengths, scheme, th, descend_all=True)()
     trunc = []
     pipeline._pairs_from_e2e(*res[:4], reads, index, scheme, th,
                              index.hixf.user_bin_dfs_order(), res[4],

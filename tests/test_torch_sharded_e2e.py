@@ -4,7 +4,9 @@ the CPU (tests/torch_world.py: one world of 4 runs every case), the
 flat step (``sharding.sharded_e2e_fn``) and ``DeviceHIXF`` under a mesh
 equal the JAX ``sharded_e2e_fn(interpret=True)`` on ``make_mesh(2, 2)``
 of the virtual CPU devices; the hierarchical steps (percentage -1 and
-0.3, and descend-all) equal the JAX ``DeviceHIXF`` under that mesh;
+0.3, and descend-all) equal the JAX ``DeviceHIXF`` under that mesh, and
+the per-read descent of a scaled minimiser hierarchy decodes as the JAX
+descend-all step does;
 plain k-mers and scaled syncmers equal the JAX sharded step; and each
 equals the port's own single-device step.  The mixed-engine fixture
 (a root past the TPU's VMEM budget: the port has no engine split) is
@@ -38,6 +40,7 @@ from taxor_tpu_torch.io.fastx import read_all
 from taxor_tpu_torch.search import pipeline
 from taxor_tpu_torch.search.thresholds import Thresholder
 
+from .test_torch_minimizer import final
 from .torch_world import agreed, run_world
 from .util import make_reads, make_ref_set
 
@@ -124,12 +127,16 @@ def world(tmp_path_factory):
               "reads": fx["flat"]["packed_file"]}]
     for case, (name, pct) in PCTS.items():
         cases.append({"kind": "e2e", "name": case, "index": fx[name]["idx"],
-                      "reads": fx[name]["packed_file"], "percentage": pct})
+                      "reads": fx[name]["packed_file"], "percentage": pct,
+                      "descend_all": case == "fmh"})
+    cases.append({"kind": "e2e", "name": "fmh_per_read",
+                  "index": fx["fmh"]["idx"], "reads": fx["fmh"]["packed_file"],
+                  "percentage": -1.0})
     for name in ("kmer", "scaled"):
         cases.append({"kind": "flat_step", "name": f"{name}_step",
                       "index": fx[name]["idx"],
                       "reads": fx[name]["packed_file"]})
-    for name in ("kmer", "scaled", "hier"):
+    for name in ("kmer", "scaled", "hier", "fmh"):
         cases.append({"kind": "search", "name": f"{name}_search",
                       "index": fx[name]["idx"],
                       "query": fx[name]["reads_file"]})
@@ -142,14 +149,14 @@ def world(tmp_path_factory):
     return out, fx
 
 
-def single(f, percentage=None) -> tuple:
+def single(f, percentage=None, descend_all=False) -> tuple:
     """The port's single-device step: DeviceHIXF.e2e_async on the CPU."""
     index = f["index"]
     s = index.scheme
     thr = (None if percentage is None else Thresholder.make(
         s.kmer_size, s.window_size, 0.04, percentage, s.use_syncmer))
     return DeviceHIXF(index.hixf, "cpu").e2e_async(
-        f["packed"], f["lengths"], s, thr)()
+        f["packed"], f["lengths"], s, thr, descend_all=descend_all)()
 
 
 _JAX: dict = {}
@@ -265,7 +272,7 @@ def test_sharded_descend_all_equals_jax_and_single_device(world, mesh):
     got = agreed(out, "fmh", mesh)
     want = jax_hier(fx["fmh"], -1.0)
     assert len(want) == 6
-    s = single(fx["fmh"], -1.0)
+    s = single(fx["fmh"], -1.0, descend_all=True)
     for i, key in enumerate(("vals", "users", "counts", "n_emit")):
         np.testing.assert_array_equal(got[key], np.asarray(want[i]),
                                       err_msg=key)
@@ -273,6 +280,35 @@ def test_sharded_descend_all_equals_jax_and_single_device(world, mesh):
     assert int(got["hcap"]) == want[4] == s[4]
     np.testing.assert_array_equal(got["sums"], np.asarray(want[5]))
     np.testing.assert_array_equal(got["sums"], s[5])
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
+def test_sharded_per_read_equals_single_device_and_jax(world, mesh):
+    """The per-read descent of the scaled minimiser hierarchy under the
+    mesh (the hash counts copied to the host after the row gather, the
+    thresholds of the row's reads): the count-table packing, equal to
+    the single-device per-read step, and decoded to the pairs that the
+    JAX descend-all step decodes to, every read."""
+    out, fx = world
+    f = fx["fmh"]
+    got = agreed(out, "fmh_per_read", mesh)
+    assert "sums" not in got
+    s = single(f, -1.0)
+    assert s[5] is None and int(got["hcap"]) == s[4]
+    for key, want in zip(("vals", "users", "counts", "n_emit"), s[:4]):
+        np.testing.assert_array_equal(got[key], want, err_msg=key)
+    index, scheme = f["index"], f["index"].scheme
+    thr = Thresholder.make(scheme.kmer_size, scheme.window_size, 0.04, -1.0,
+                           scheme.use_syncmer)
+    dfs = index.hixf.user_bin_dfs_order()
+    jax = [np.asarray(x) for x in jax_hier(f, -1.0)]
+    pairs = [pipeline._pairs_from_e2e(*res[:4], f["reads"], index, scheme,
+                                      thr, dfs, int(res[4]), sums=sums)[0]
+             for res, sums in (((got["vals"], got["users"], got["counts"],
+                                 got["n_emit"], got["hcap"]), None),
+                               (jax, jax[5]))]
+    assert [final(p) for p in pairs[0]] == [final(p) for p in pairs[1]]
+    assert sum(bool(p) for p in pairs[0]) > len(f["reads"]) // 4
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
@@ -328,7 +364,7 @@ def jax_host_tsv(f) -> str:
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
-@pytest.mark.parametrize("name", ["kmer", "scaled", "hier"])
+@pytest.mark.parametrize("name", ["kmer", "scaled", "hier", "fmh"])
 def test_pipeline_uses_fused_path_under_mesh(world, name, mesh):
     """search_single with a sharded DeviceHIXF: every read takes the
     fused step, and the TSV is the JAX host engine's byte for byte."""

@@ -117,7 +117,8 @@ def _thresholder(index, percentage):
 
 
 def kind_e2e(mesh, case) -> dict:
-    """DeviceHIXF.e2e_async under the mesh on the packed reads."""
+    """DeviceHIXF.e2e_async under the mesh on the packed reads (in the
+    descend-all mode where the case says ``descend_all``)."""
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 
     index = _index(case["index"])
@@ -125,7 +126,8 @@ def kind_e2e(mesh, case) -> dict:
     dh = DeviceHIXF(index.hixf, mesh.device, mesh)
     vals, users, counts, n_emit, hcap, sums = dh.e2e_async(
         inp["packed"], inp["lengths"], index.scheme,
-        _thresholder(index, case.get("percentage")), k=case.get("topk", 16))()
+        _thresholder(index, case.get("percentage")), k=case.get("topk", 16),
+        descend_all=case.get("descend_all", False))()
     out = dict(vals=vals, users=users, counts=counts, n_emit=n_emit,
                hcap=np.int64(hcap))
     if sums is not None:

@@ -36,12 +36,14 @@ Phases (any failure exits non-zero):
      30 kb genomes built with ``taxor_tpu_torch.cli build``, ONT-like
      reads (log-normal lengths clipped to 500-30,000 bases, 4%
      substitutions) plus reads over L_CAP, searched with
-     ``taxor_tpu_torch.cli search --engine device``; K1 and K2's slab
-     route must have launched, and the TSV must equal ``--engine host``
-     byte for byte on
-     a subset; then the same search with the split engine
-     (``device.e2e.USE_FUSED_EXTRACT = False``), whose TSV must equal the
-     K1 TSV on every read, with syncmer_track and K3 launched and K1 not;
+     ``taxor_tpu_torch.cli search --engine device``; K1, K2's slab
+     route, K4 and K6 must have launched, every read over L_CAP must have
+     taken the fused step in pieces (``ROUTES['long_fused']``, none
+     hashed on the host), and the TSV must equal ``--engine host`` byte
+     for byte on a subset and the long reads; then the same search with
+     the split engine (``device.e2e.USE_FUSED_EXTRACT = False``), whose
+     TSV must equal the K1 TSV on every read, with syncmer_track, K3, K4
+     and K6 launched and K1 not; then (4b) the long reads' routes timed;
   5. K1 and K2 timed against their twins at the flat path's shapes (K2
      through its slab and rows routes, with its valid hashes, row bytes
      and GB/s of rows, and through thin slabs of 8 and 4 bins and the
@@ -68,15 +70,16 @@ Phases (any failure exits non-zero):
      phase 15 in the time limit: it halves phase 7's build, ~165 s at
      8,192; phase 13a keeps 8,192 on data of its own); K1, the grouped
      probe (K2n in both modes:
-     smem on stacked groups, rows on the root) and
-     the per-IXF traversal of the reads over L_CAP must have launched,
-     the TSV must equal ``--engine host`` on a subset, and 99% of the
+     smem on stacked groups, rows on the root) must have launched, the
+     reads over L_CAP the fused step in pieces and no probe the per-IXF
+     traversal, the TSV must equal ``--engine host`` on a subset and the
+     long reads, and 99% of the
      classified reads must name their source genome; then the split
      engine on the same reads, as in phase 4; then (7b) an index whose
      root has 529 technical bins (a hand-written layout, as the default
      --tmax gives roots past 512 bins), whose root group must take K2 and
      whose grouped step and per-IXF traversal on the card must equal the
-     CPU twins;
+     CPU twins; then (7c) the long reads' routes timed as in 4b;
   8. every group of one descent batch at the hierarchical path's L=8192
      (R=512) and L=4096 (R=1,024) buckets, with the descent's own
      activity masks: (a) the dense K2n counts [G, R, Bpad] and their
@@ -98,9 +101,9 @@ Phases (any failure exits non-zero):
      31-33, 32E +- 1, Wb and Wb + 1 emissions (n_emit = 2**30), of
      all-equal k-mers and of k-mers equal to the sentinel; and,
      after phase 4, K3 against ``sort.dedup_pairs`` (K4) on the flat
-     path's L=8192 reads.  No search path reaches K4 (in the JAX package
-     only ``sort_impl="pallas"`` does): its record counts 0 main-path
-     launches and, apart, the launches of that one check;
+     path's L=8192 reads.  Since the long reads take the fused step in
+     pieces, K4 sorts their union on the main paths (phase 18 checks it
+     at those widths);
  10. syncmer_track, K3 and K4 timed against their twins, K4 against
      ``torch.sort`` of the combined key, and the split engine's
      extraction against K1, at the flat path's L=8192 bucket; K3 and K4
@@ -286,7 +289,31 @@ Phases (any failure exits non-zero):
      more than one IXF.  (b) and (c) must keep ~1/3 of (a)'s hashes
      (0.28-0.39 on the reads both classify).  Its launches join the
      kernels records' main-path launches.
-     ``--only-routes`` runs the kernel build and phase 17 alone.
+     ``--only-routes`` runs the kernel build and phase 17 alone;
+ 18. syncmer reads past L_CAP: (a) on phase (b)'s reads of 2 pieces
+     and its 0.5-1 Mb reads (32 pieces), K1's and syncmer_track's piece
+     rows against their twins (``syncmer_hashes_plain``,
+     ``syncmer_kmers_pieces``), then K4 and K6 against theirs, all
+     bit-exact, at the union's widths (16,384 and 262,144 keys: K4's
+     register and global-scratch routes), with an all-ones hash counted
+     in n_valid in the first row and two in the last (K6 must keep one
+     in each), each timed beside its twin and, for K4, ``torch.sort`` of
+     the combined key, for K6, ``torch.sort`` then
+     ``torch.unique_consecutive`` of the row (the kernels line: K1's and
+     syncmer_track's ``piece_widths``, K4's ``long_widths``, K6's
+     ``widths``); (b) on phase 15b's at-scale
+     block (1,024 genomes of 30 kb to 5 Mb, its index), LONG_TAIL_READS
+     (4,096) reads of log-normal lengths (median 8 kb, sigma 1.0, up to
+     1 Mb, not clipped) and ULTRA_LONG_READS (8) of 0.5-1 Mb, each from a
+     genome at least as long, 4% substitutions: ``cli search --engine
+     device`` with the launch counts set to 0 just before, every read
+     past L_CAP routed ``long_fused`` and none hashed on the host, the
+     TSV equal to ``--engine host`` on every long read and on the first
+     CHECK_READS others; its ``.time`` split, the host seconds of the cut
+     and the pack (``dsync.bucket_len`` and ``pack_reads`` by bucket);
+     the old route of phases 4b and 7c (``search_hashes``,
+     ``pipeline._device_dispatch``) against the new
+     (``DeviceHIXF.e2e_async`` on the piece bucket) on its long reads.
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -301,7 +328,8 @@ start in processes of this script of their own (``--prebuild``, PREBUILDS)
 at the lowest CPU priority, while the card runs the phases before them;
 phase 16's timed gates run after all of them have ended.  The order of
 the phases: 1-4, 5 and 10, 14a/d/e, 6, 7, 8, 13c, 13a, 13d, 14b, 14c,
-13b, 13e, 15, 16 (16c on phase 7's data, then on its own), 17, 11, 12.
+13b, 13e, 15, 18, 16 (16c on phase 7's data, then on its own), 17, 11,
+12.
 
 The second-to-last line of stdout is nvidia-smi's name and power limit;
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.  The
@@ -330,7 +358,7 @@ K, S = 22, 12  # the reference's published syncmer scheme
 # widest window (w = 18), the shortest s-mer (s = 2, t = w = 14), t = w = 11
 STAGE_SCHEMES = ((22, 12, 5), (32, 15, 1), (15, 2, 14), (21, 11, 11))
 GENOME_LEN = 30000
-LONG_READS = 16  # of 40 kb: over L_CAP, the host-hash route
+LONG_READS = 16  # of 40 kb: over L_CAP, the fused step in pieces
 TMAX = 64  # technical bins per IXF of the hierarchical index
 CHECK_READS = 1024  # first reads held byte-equal to --engine host
 SEED = 20261016
@@ -1099,8 +1127,12 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
     out_dev = os.path.join(work, "device.tsv")
     launches, routes, wall, peak = device_search(torch, idx, reads, out_dev,
                                                  layout)
-    if launches["K1"] <= 0 or launches["K2"] + launches["K2n"] <= 0:
+    if launches["K1"] <= 0 or launches["K2"] + launches["K2n"] <= 0 \
+            or launches["K4"] <= 0 or launches["K6"] <= 0:
         raise AssertionError(f"main path skipped a kernel: {launches}")
+    if routes["long_fused"] != LONG_READS or routes["host_hashes"] != 0:
+        raise AssertionError(f"[{layout}] routes {routes}: every read past "
+                             "L_CAP must take the fused step in pieces")
     if layout == "flat" and launches["K2 slab"] <= 0:
         raise AssertionError(f"the flat path did not take K2's slab route: "
                              f"{launches}")
@@ -1128,8 +1160,11 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
             torch, idx, reads, out_split, layout)
     finally:
         e2e.USE_FUSED_EXTRACT = True
-    if split["K1"] != 0 or split["track"] <= 0 or split["K3"] <= 0:
+    if split["K1"] != 0 or split["track"] <= 0 or split["K3"] <= 0 \
+            or split["K4"] <= 0 or split["K6"] <= 0:
         raise AssertionError(f"split engine: wrong kernels launched {split}")
+    if split_routes["long_fused"] != LONG_READS:
+        raise AssertionError(f"split engine: routes {split_routes}")
     with open(out_dev, "rb") as fa, open(out_split, "rb") as fb:
         if fa.read() != fb.read():
             raise AssertionError("split-engine TSV differs from the K1 TSV")
@@ -1156,8 +1191,9 @@ def main_path(torch, work: str, rng, n_genomes: int, n_reads: int,
 
 def hier_report(torch, state) -> None:
     """The hierarchical path's shape and descent activity; asserts a
-    hierarchy with a stacked group, the grouped probe and the per-IXF
-    traversal."""
+    hierarchy with a stacked group and the grouped probe, and that no
+    probe ran on the per-IXF traversal (every read, those past L_CAP in
+    pieces, took the fused step; phase 7b drives the traversal)."""
     from taxor_tpu_torch.device import hixf_search
 
     dh = hixf_search.DeviceHIXF.from_hixf(state["index"].hixf, "cuda")
@@ -1190,8 +1226,10 @@ def hier_report(torch, state) -> None:
                              "smem on a stacked group")
     fused = (launches["K2 routes"].get("fused", 0)
              + launches["K2n routes"].get("fused", 0))
-    if fused <= 0 or counts_route <= 0 or state["routes"]["host_hashes"] <= 0:
-        raise AssertionError(f"a route skipped the probe: {launches}")
+    if fused <= 0 or counts_route != 0 \
+            or state["routes"]["host_hashes"] != 0:
+        raise AssertionError(f"the probe took a route other than the fused "
+                             f"step: {launches}")
     state["dh"] = dh
 
 
@@ -2937,6 +2975,276 @@ def atscale_path(torch, work: str, n_reads: int, built: dict) -> dict:
     return {"launches": launches, "search": search, "build": build}
 
 
+# ------------------------------------------------------------ phase 18 --
+LONG_TAIL_READS = 4096  # log-normal lengths, median 8 kb, sigma 1.0
+LONG_TAIL_MAX = 1_000_000
+ULTRA_LONG_READS = 8  # of 0.5-1 Mb
+# reads of the P = 2 piece bucket whose routes phase 18 times
+ROUTE_SAMPLE = 64
+
+
+def long_tail_reads(rng, gdir: str) -> list[tuple[str, bytes]]:
+    """Phase 18's reads from the genomes of gdir: LONG_TAIL_READS of
+    log-normal lengths (median 8 kb, sigma 1.0, up to LONG_TAIL_MAX, not
+    clipped below) and ULTRA_LONG_READS of 0.5-1 Mb, each from a random
+    genome at least as long, 4% substitutions; the reads up to L_CAP
+    first, then the longer ones."""
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+
+    genomes = []
+    for name in sorted(os.listdir(gdir)):
+        with open(os.path.join(gdir, name), "rb") as fh:
+            head, seq = fh.read().split(b"\n", 1)
+        genomes.append((head[1:].split()[0].decode(),
+                        np.frombuffer(seq.replace(b"\n", b""), np.uint8)))
+    genomes.sort(key=lambda g: g[1].shape[0])
+    glens = np.array([g[1].shape[0] for g in genomes])
+    lens = np.minimum(rng.lognormal(np.log(8000), 1.0, LONG_TAIL_READS),
+                      LONG_TAIL_MAX).astype(int)
+    lens = np.concatenate([np.maximum(lens, 1), rng.integers(
+        500_000, 1_000_001, ULTRA_LONG_READS)])
+    recs = []
+    for j, n in enumerate(lens.tolist()):
+        first = int(np.searchsorted(glens, n))  # the genomes long enough
+        acc, seq = genomes[int(rng.integers(first, len(genomes)))]
+        off = int(rng.integers(0, seq.shape[0] - n + 1))
+        recs.append((f"tail{j}_{acc}", mutate(rng, seq[off:off + n].copy(),
+                                              0.04)))
+    return ([r for r in recs if len(r[1]) <= dsync.L_CAP]
+            + [r for r in recs if len(r[1]) > dsync.L_CAP])
+
+
+def long_routes(torch, index, seqs, label: str) -> dict:
+    """The reads past L_CAP of ``seqs`` on both routes of a syncmer
+    index, called directly (tools/time_long_reads.py, best of 3): the
+    host-hash route (``search_hashes`` on one thread, the thresholds,
+    ``pack_hash_lists``, the upload, the probe through
+    ``pipeline._device_dispatch``: top-k, or the per-IXF traversal's
+    launches and round trips) against the fused step in pieces
+    (``pack_reads`` into the bucket, ``DeviceHIXF.e2e_async``)."""
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.hash import schemes
+    from taxor_tpu_torch.search.thresholds import Thresholder
+    from taxor_tpu_torch.tools import time_long_reads as tl
+
+    dev = torch.device("cuda")
+    sch = index.scheme
+    th = Thresholder.make(kmer_size=sch.kmer_size,
+                          window_size=sch.window_size, error_rate=0.04,
+                          percentage=-1.0, use_syncmer=sch.use_syncmer)
+    dh = DeviceHIXF.from_hixf(index.hixf, dev)
+    threads, schemes.NUM_THREADS = schemes.NUM_THREADS, 1
+    try:
+        host = tl.best([tl.host_route(dh, index, seqs, th, dev)
+                        for _ in range(3)])
+        fused = tl.best([tl.fused_route(dh, index, seqs, th, dev)
+                         for _ in range(3)])
+    finally:
+        schemes.NUM_THREADS = threads
+    n = len(seqs)
+    rec = {"reads": n, "bases": sum(len(q) for q in seqs),
+           "host": {**host, **tl.per_read_ms(host, n)},
+           "fused": {**fused, **tl.per_read_ms(fused, n)}}
+    log(f"[{label}] long reads on both routes, a read: host-hash route "
+        f"{sum(v for k, v in rec['host'].items() if k.endswith('_ms_a_read')):.4f}"
+        f" ms ({json.dumps(rec['host'])}); fused step in pieces "
+        f"{sum(v for k, v in rec['fused'].items() if k.endswith('_ms_a_read')):.4f}"
+        f" ms ({json.dumps(rec['fused'])}); {card_line()}")
+    return rec
+
+
+def union_inputs(torch, seqs):
+    """K1's and syncmer_track's piece rows of the reads of one piece
+    bucket, each held to its twin (``syncmer_hashes_plain`` and
+    ``syncmer_kmers_pieces`` on the same inputs) and timed beside it;
+    then K4's and K6's inputs as the main path gives them
+    (``sort.union_pieces``): the piece hashes laid out [R, P * 8,192] by
+    ``sort.union_rows``, with an all-ones hash counted in n_valid in the
+    first row (a padding slot) and in the last (a real hash overwritten:
+    two all-ones keys there), sorted by K4 for K6.  Returns (hi, lo,
+    sorted hi, sorted lo, n_valid, {"K1": record, "track": record})."""
+    from taxor_tpu_torch.device import extract, sort
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+
+    dev = torch.device("cuda")
+    L = dsync.bucket_len(max(len(q) for q in seqs))
+    P = dsync.bucket_pieces(L)
+    pk, ln = (torch.from_numpy(x).to(dev) for x in dsync.pack_reads(seqs, L))
+    t = (K - S + 1) // 2
+    hp = dsync.hash_cap(dsync.L_CAP)
+    R = len(seqs)
+    hi, lo, valid, _, n_emit = extract.syncmer_hashes(pk, ln, K, S, t, hp,
+                                                      pieces=P)
+    # the bases each piece row covers
+    j = torch.arange(P, device=dev)[None, :]
+    bases = float((ln.to(torch.int64)[:, None] - j * dsync.PIECE_STRIDE)
+                  .clamp(0, dsync.L_CAP).sum())
+    W = extract.sort_width(dsync.L_CAP, K, S, t)
+    rows = R * P
+    recs = {}
+    for name, fn, plain, bnd in (
+            ("K1", lambda: extract.syncmer_hashes(pk, ln, K, S, t, hp,
+                                                  pieces=P),
+             lambda: extract.syncmer_hashes_plain(pk, ln, K, S, t, hp,
+                                                  pieces=P),
+             # as phase 5's record: packed + lengths in, the piece rows'
+             # hashes and counts out; the tracker a base, a k-mer an owned
+             # emission, the sort network, one hash a slot
+             bound(pk.numel() + 4 * R + 9 * rows * hp + 8 * rows,
+                   bases * tracker_ops(K, S) + float(n_emit.sum()) * KMER_OPS
+                   + sort_ops(n_emit.clamp(max=W).tolist()) + rows * hp,
+                   PEAK_SCALAR)),
+            ("track", lambda: extract.syncmer_track(pk, ln, K, S, t,
+                                                    pieces=P),
+             lambda: dsync.syncmer_kmers_pieces(pk, ln, K, S, t, P),
+             # packed + lengths in, kmer + emit of every row position out
+             bound(pk.numel() + 4 * R + 9 * rows * dsync.L_CAP,
+                   bases * tracker_ops(K, S)
+                   + rows * dsync.L_CAP * KMER_OPS, PEAK_SCALAR))):
+        ms, plain_ms, err, _ = time_pair(torch, fn, plain, 3)
+        recs[name] = dict(reads=R, pieces=P, rows=rows, ms=ms,
+                          plain_ms=plain_ms, max_abs_err=err, **bnd,
+                          library_ms=None)
+    h, lo_, n_valid = sort.union_rows(hi, lo, valid, P)
+    n_valid = n_valid.clone()
+    n_valid[0] += 1  # the all-ones padding slot after the row's valid ones
+    slot = int(torch.nonzero(valid.reshape(R, -1)[-1])[0])
+    h[-1, slot] = -1  # a real hash overwritten with the all-ones key
+    lo_[-1, slot] = -1
+    n_valid[-1] += 1
+    sh, sl = sort.sort_pairs(h, lo_)
+    return h, lo_, sh, sl, n_valid, recs
+
+
+def time_union(torch, samples: dict) -> dict:
+    """Phase 18a: K1's and syncmer_track's piece rows, K4 and K6 against
+    their twins, bit-exact, at the widths of samples {label: reads of one
+    piece bucket}, each timed beside its twin; K4 beside ``torch.sort``
+    of the combined key, K6 beside ``torch.sort`` then
+    ``torch.unique_consecutive`` of the rows.  Returns {"K1", "track",
+    "K4": records by width, "K6": K6's kernel record}."""
+    from taxor_tpu_torch.device import sort
+    from taxor_tpu_torch.utils.u64 import INT64_MIN, join32
+
+    k4, k6, widths = {}, None, {}
+    pieces = {"K1": {}, "track": {}}
+    for label, seqs in samples.items():
+        h, lo, sh, sl, n_valid, recs = union_inputs(torch, seqs)
+        R, W = h.shape
+        for name, rec in recs.items():
+            pieces[name][f"P{rec['pieces']}"] = rec
+        log(f"phase 18a [{label}]: piece rows bit-exact vs twins: K1 "
+            f"{json.dumps(recs['K1'])}; syncmer_track "
+            f"{json.dumps(recs['track'])}")
+        keys = join32(h, lo) ^ INT64_MIN
+        ms, plain_ms, err, _ = time_pair(
+            torch, lambda: sort.sort_pairs(h, lo),
+            lambda: sort.sort_pairs_plain(h, lo), 3)
+        k4[f"W{W}"] = dict(
+            reads=R, width=W, route="registers" if W <= sort.REG_SORT_MAX
+            else "global scratch", ms=ms, plain_ms=plain_ms,
+            max_abs_err=err, library_ms=cuda_ms(
+                lambda: torch.sort(keys, dim=1), 3),
+            **bound(16 * R * W, sort_ops([W] * R), PEAK_SCALAR))
+        skeys = join32(sh, sl) ^ INT64_MIN
+        ms, plain_ms, err, _ = time_pair(
+            torch, lambda: sort.unique_pairs(sh, sl, n_valid),
+            lambda: sort.unique_pairs_plain(sh, sl, n_valid), 5)
+        out_hi, out_lo, out_valid, _ = sort.unique_pairs(sh, sl, n_valid)
+        ones = ((out_hi == -1) & (out_lo == -1) & out_valid).sum(dim=1)
+        if int(ones[0]) != 1 or int(ones[-1]) != 1:
+            raise AssertionError(f"[{label}] K6 kept {ones[0]} and "
+                                 f"{ones[-1]} all-ones hashes, not 1 each")
+        rec = dict(reads=R, width=W, valid=int(n_valid.sum()), ms=ms,
+                   plain_ms=plain_ms, max_abs_err=err,
+                   library_ms=cuda_ms(lambda: torch.unique_consecutive(
+                       torch.sort(skeys, dim=1).values), 3),
+                   # sorted pairs and counts in, pairs, valid, counts out;
+                   # a compare a slot
+                   **bound(8 * R * W + 4 * R + 9 * R * W + 4 * R,
+                           float(R * W), PEAK_SCALAR))
+        log(f"phase 18a [{label}]: K4 at [{R}, {W}] {json.dumps(k4[f'W{W}'])}"
+            f"; K6 {json.dumps(rec)}; bit-exact vs twins, an all-ones hash "
+            "kept once in the first and the last row")
+        widths[f"W{W}"] = rec
+        if k6 is None or W > k6["width"]:  # the record: the widest rows
+            k6 = dict(rec)
+    k6.update(widths=widths, name="unique_pairs", route="cuda",
+              source="taxor_tpu_torch/csrc/unique.cu",
+              replaces="taxor_tpu/hash/schemes.py:121 (np.unique of the "
+                       "host scanner's hashes of a read past L_CAP; no TPU "
+                       "kernel)")
+    return {**pieces, "K4": k4, "K6": k6}
+
+
+def long_tail_path(torch, work: str, atscale_work: str) -> dict:
+    """Phase 18b: the long-tail reads on phase 15b's at-scale index (the
+    module docstring)."""
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.hixf.index import load_index
+
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    recs = long_tail_reads(np.random.default_rng(SEED + 18),
+                           os.path.join(atscale_work, "genomes"))
+    n_short = sum(len(q) <= dsync.L_CAP for _, q in recs)
+    longs = [q for _, q in recs[n_short:]]
+    reads = os.path.join(work, "long_tail.fasta")
+    write_fasta(reads, recs)
+    bases = sum(len(q) for _, q in recs)
+    log(f"[long tail] data: {len(recs)} reads ({bases / 1e6:.1f} Mb), "
+        f"{len(longs)} past L_CAP ({sum(map(len, longs)) / bases:.3f} of "
+        f"the bases, the longest {max(map(len, longs))}), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the host's cut and pack of the long reads, bucket by bucket
+    t0 = time.perf_counter()
+    buckets: dict = {}
+    for q in longs:
+        buckets.setdefault(dsync.bucket_len(len(q)), []).append(q)
+    cut_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for L, qs in buckets.items():
+        dsync.pack_reads(qs, L)
+    pack_s = time.perf_counter() - t0
+    cut = {"cut_s": cut_s, "pack_s": pack_s,
+           "pack_ms_a_read": pack_s * 1e3 / len(longs),
+           "buckets": {dsync.bucket_pieces(L): len(qs)
+                       for L, qs in sorted(buckets.items())}}
+    log(f"[long tail] host cut and pack of {len(longs)} reads: "
+        f"{json.dumps(cut)}")
+
+    idx = os.path.join(atscale_work, "index.npz")
+    out_dev = os.path.join(work, "device.tsv")
+    launches, routes, wall, peak = device_search(torch, idx, reads, out_dev,
+                                                 "long tail")
+    if (routes["long_fused"] != len(longs) or routes["host_hashes"] != 0
+            or routes["fused"] != len(recs)):
+        raise AssertionError(f"[long tail] routes {routes}: every read past "
+                             "L_CAP must take the fused step in pieces")
+    if any(launches[k] <= 0 for k in ("K1", "K4", "K6", "K2n")):
+        raise AssertionError(f"[long tail] a kernel never launched: "
+                             f"{launches}")
+    with open(out_dev + ".time") as fh:
+        phases = fh.read().strip().replace("\n", " | ")
+    log(f"[long tail] {len(recs)} reads in {wall:.2f} s wall = "
+        f"{len(recs) / wall:.1f} reads/s; .time [{phases}]; launches "
+        f"{launches}; routes {routes}; peak device memory {peak:.1f} MiB")
+    host_parity(work, idx, recs, n_short, out_dev, "long tail")
+    index = load_index(idx)
+    p2 = [q for q in longs if dsync.piece_count(len(q)) == 2]
+    rec = {"reads": len(recs), "past_l_cap": len(longs), "wall_s": wall,
+           "time": phases, "launches": launches, "routes": routes,
+           "peak_mib": peak, "cut_pack": cut,
+           "routes_p2": long_routes(torch, index, p2[:ROUTE_SAMPLE],
+                                    "long tail, 2 pieces"),
+           "routes_ultra": long_routes(torch, index,
+                                       longs[-ULTRA_LONG_READS:],
+                                       "long tail, 0.5-1 Mb")}
+    rec["union_samples"] = {"2 pieces": p2[:ROUTE_SAMPLE],
+                            "0.5-1 Mb": longs[-ULTRA_LONG_READS:]}
+    return rec
+
+
 # ------------------------------------------------------------ phase 16 --
 SYNCMER_FLAGS = ["--kmer-size", str(K), "--syncmer-size", str(S),
                  "--use-syncmer"]
@@ -3219,8 +3527,8 @@ def hash_counts(path: str) -> dict:
 def route_search(torch, work: str, label: str, idx: str, data: dict, need,
                  batch_size: int = 0, host_tsv: str = "") -> dict:
     """One search of phase 17 through ``device_search``, the kernels
-    ``need`` launched, every read up to L_CAP fused and the long ones
-    hashed on the host; its TSV must equal ``--engine host`` byte for byte
+    ``need`` launched, every read fused (those past L_CAP in pieces);
+    its TSV must equal ``--engine host`` byte for byte
     on every read (those that took a fallback among them), run here or
     given as ``host_tsv``."""
     from taxor_tpu_torch import cli
@@ -3234,9 +3542,11 @@ def route_search(torch, work: str, label: str, idx: str, data: dict, need,
     if any(launches[k] <= 0 for k in need):
         raise AssertionError(f"[{label}] the search skipped one of {need}: "
                              f"{launches}")
-    if routes["fused"] != ROUTE_READS or routes["host_hashes"] != LONG_READS:
+    if (routes["fused"] != ROUTE_READS + LONG_READS
+            or routes["long_fused"] != LONG_READS
+            or routes["host_hashes"] != 0):
         raise AssertionError(f"[{label}] routes {routes}: expected every "
-                             f"read up to L_CAP fused")
+                             f"read fused, those past L_CAP in pieces")
     t0 = time.perf_counter()
     if not host_tsv:
         host_tsv = os.path.join(work, f"{label}_host.tsv")
@@ -3495,6 +3805,10 @@ def main() -> int:
         with phase("phase 4"):
             flat = main_path(torch, os.path.join(work, "flat"), rng,
                              args.genomes, args.reads, "flat")
+        with phase("phase 4b (the long reads' routes)"):
+            flat["long_routes"] = long_routes(
+                torch, flat["index"],
+                [q for _, q in flat["recs"][flat["n_reads"]:]], "flat")
         with phase("phases 5 and 10"):
             kernels = time_kernels(torch, flat)
             kernels += time_split(torch, flat)
@@ -3524,6 +3838,10 @@ def main() -> int:
                      gdir=hier["gdir"])
             hier_report(torch, hier)
             check_wide_root(torch, os.path.join(work, "wide"))
+        with phase("phase 7c (the long reads' routes)"):
+            hier["long_routes"] = long_routes(
+                torch, hier["index"],
+                [q for _, q in hier["recs"][hier["n_reads"]:]], "auto")
         with phase("phase 8"):
             kernels += time_hier(torch, hier)
 
@@ -3580,6 +3898,12 @@ def main() -> int:
         with phase("phase 15b (the at-scale demo)"):
             atscale = atscale_path(torch, os.path.join(work, "atscale"),
                                    args.atscale_reads, bg.result("atscale"))
+        with phase("phase 18 (syncmer reads past L_CAP)"):
+            tail = long_tail_path(torch, os.path.join(work, "long_tail"),
+                                  os.path.join(work, "atscale"))
+            union = time_union(torch, tail.pop("union_samples"))
+            kernels.append(union["K6"])
+        shutil.rmtree(os.path.join(work, "long_tail"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "atscale"), ignore_errors=True)
         # ---- phase 16: the layout cost model on the card, timed with
         # every background build done
@@ -3620,13 +3944,14 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     runs = [flat["launches"], flat["split"], hier["launches"], hier["split"],
             mm["launches"], kmer["launches"], scaled["launches"],
-            atscale["launches"]]
+            atscale["launches"], tail["launches"]]
     runs += [r["launches"] for r in route_runs.values()]  # phase 17
     for row in kernels:  # launches on the main paths, both engines
         key = {"syncmer_extract": "K1", "probe_count": "K2 slab",
                "probe_count_rows": "K2 rows", "probe_count_narrow": "K2n",
                "syncmer_track": "track", "dedup": "K3",
-               "sort_pairs": "K4", "minimizer_kmers": "K5"}[row["name"]]
+               "sort_pairs": "K4", "minimizer_kmers": "K5",
+               "unique_pairs": "K6"}[row["name"]]
         row["launches"] = sum(run[key] for run in runs)
         row["launches_in"] = "main paths"
         # phase 14: summed over the ranks of its four sharded searches
@@ -3647,9 +3972,11 @@ def main() -> int:
                                "minimizer": mm["peak_mib"],
                                "minimizer descend-all":
                                    mm_modes["descend_all"]["peak_mib"]}
-        if key == "K4":  # as in the JAX package, no search path sorts pairs
-            row["launches_in"] = "not on a main path"
+        if key == "K4":  # the long reads' union; at its widths (phase 18a)
             row["check_launches"] = flat["k4_check"]  # sort.dedup_pairs
+            row["long_widths"] = union["K4"]
+        if key in ("K1", "track"):  # piece rows of reads past L_CAP (18a)
+            row["piece_widths"] = union[key]
         if key == "K2 rows" and row["launches"] == 0:  # no table too tall
             row["launches_in"] = "not on a main path"
             row["check_launches"] = k2_rows_checks  # phases 3 and 6

@@ -36,6 +36,20 @@
 // valid for hcap slots in ascending canonical-k-mer order (0/0/false where
 // a slot holds no first occurrence), n_unique over all emissions, n_emit.
 //
+// Reads longer than a block's shared memory holds (L_CAP = 32,768 bases:
+// 148 KB of the 227 KB) run as pieces (P > 1): block b takes the Lp =
+// L_CAP bases of read b / P from base (b % P) * stride, stride = L_CAP -
+// 32, and writes row b of the outputs, as a whole read would.  A piece
+// owns the windows from its first up to the next piece's first (row_of),
+// so every window of the read is one piece's, and its emissions are the
+// whole read's: a window whose minimum is unique does not depend on the
+// past, and where the piece's first window is tied the piece starts from
+// the read's holder there, which holder_at (tracker.cuh) replays from the
+// last unique window before it in the read's packed row in global memory,
+// however far back (a homopolymer or short tandem repeat across the cut).
+// n_emit counts the owned emissions only; n_unique and the slots are the
+// piece's own (device/sort.union_pieces joins the pieces of a read).
+//
 // What bounds them on the H100.  Per position, steps 2-3 take ~12 integer
 // operations for the s-mer and ~4 per window element for the scan (w =
 // k-s+1 = 11 for k=22/s=12: ~56 a position); syncmer_track adds ~14 for
@@ -94,20 +108,51 @@ __host__ __device__ inline Layout smem_layout(int L, size_t sort_bytes) {
   return o;
 }
 
-// Steps 1-4 for read r: stages the words into sw, computes ys and the
-// emission mask emit (ceil(L/32) words, exact, zero outside [k-1, len)),
-// using tied and uncertain as scratch masks.  Ends with a barrier.
-__device__ void emission_mask(const uint8_t* packed, const int32_t* lengths,
-                              int r, int L, int k, int s, int t,
+// The row a block takes: block b is piece b % P of read b / P, the Lp
+// bases from base j * stride of the read's packed row of L bases (P = 1:
+// the whole row, Lp = L).  Piece j of a read of n bases exists where j <
+// pieces(n) (1 for n <= Lp, else 1 + ceil((n - Lp) / stride)); it owns the
+// windows (k-mer ends, row positions) [k-1, own): stride + k - 1 bases of
+// them where a piece follows, else all of its length, so the pieces'
+// owned windows partition the read's.
+struct Row {
+  const uint32_t* words;  // the row's first packed word
+  const uint32_t* read;   // the read's first packed word
+  int read_words;         // packed words of the read's row (L / 16)
+  int base;               // the row's first base in the read
+  int len;                // bases of the read in the row, 0..Lp
+  int own;                // the owned windows end here
+};
+
+__device__ inline Row row_of(const uint8_t* packed, const int32_t* lengths,
+                             int b, int L, int P, int Lp, int stride,
+                             int k) {
+  const int r = b / P, j = b % P;
+  Row o;
+  o.read = reinterpret_cast<const uint32_t*>(packed + (size_t)r * (L / 4));
+  o.read_words = L / 16;
+  o.base = j * stride;
+  o.words = o.read + o.base / 16;
+  const int n = max(0, min(lengths[r], L));
+  const int pieces = n <= Lp ? 1 : 1 + (n - Lp + stride - 1) / stride;
+  o.len = j < pieces ? min(Lp, n - o.base) : 0;
+  o.own = j < pieces - 1 ? stride + k - 1 : o.len;
+  return o;
+}
+
+// Steps 1-4 for the row: stages the words into sw, computes ys and the
+// emission mask emit (ceil(Lp/32) words, exact, zero outside the owned
+// windows [k-1, own)), using tied and uncertain as scratch masks; found is
+// a shared int.  Ends with a barrier.
+__device__ void emission_mask(const Row& row, int Lp, int k, int s, int t,
                               uint32_t* sw, uint32_t* ys, uint32_t* emit,
-                              uint32_t* tied, uint32_t* uncertain) {
-  // 1. stage the read: kBias/16 zero words, the L/16 words, two zero words
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(packed + (size_t)r * (L / 4));
-  const int nsw = taxor::staged_words(L), head = taxor::kBias / 16;
+                              uint32_t* tied, uint32_t* uncertain,
+                              int* found) {
+  // 1. stage the row: kBias/16 zero words, the Lp/16 words, two zero words
+  const int nsw = taxor::staged_words(Lp), head = taxor::kBias / 16;
   for (int j = threadIdx.x; j < nsw; j += blockDim.x)
-    sw[j] = j >= head && j < head + L / 16 ? src[j - head] : 0u;
-  const int len = max(0, min(lengths[r], L));
+    sw[j] = j >= head && j < head + Lp / 16 ? row.words[j - head] : 0u;
+  const int len = row.len;
   __syncthreads();
 
   // 2. canonical s-mers (those ending before s-1 are never read)
@@ -117,14 +162,14 @@ __device__ void emission_mask(const uint8_t* packed, const int32_t* lengths,
 
   // 3. window outcomes, one ballot word per 32 positions
   const int lane = threadIdx.x & 31;
-  for (int i0 = 0; i0 < L; i0 += blockDim.x) {
+  for (int i0 = 0; i0 < Lp; i0 += blockDim.x) {
     const int i = i0 + threadIdx.x;
     taxor::Window o = {false, false, false};
     if (i >= k - 1 && i < len) o = taxor::window_outcome(ys, i, k, s, t);
     const uint32_t e = __ballot_sync(0xFFFFFFFFu, o.emit);
     const uint32_t d = __ballot_sync(0xFFFFFFFFu, o.tied);
     const uint32_t u = __ballot_sync(0xFFFFFFFFu, o.uncertain);
-    if (lane == 0 && i < L) {
+    if (lane == 0 && i < Lp) {
       emit[i >> 5] = e;
       tied[i >> 5] = d;
       uncertain[i >> 5] = u;
@@ -132,24 +177,51 @@ __device__ void emission_mask(const uint8_t* packed, const int32_t* lengths,
   }
   __syncthreads();
 
+  // a piece whose first window is tied starts from the read's holder there
+  int init = -1;
+  if (row.base > 0 && ((tied[(k - 1) >> 5] >> ((k - 1) & 31)) & 1u)) {
+    const uint32_t* rd = row.read;
+    const int nrw = row.read_words;
+    const auto words = [&](int j) {
+      return j >= head && j < head + nrw ? rd[j - head] : 0u;
+    };
+    const auto read_ys = [&](int e) {
+      return taxor::canon_smer_at(words, e, s);
+    };
+    const int qp = taxor::holder_at(read_ys, row.base + k - 1, k, s, t,
+                                    found);
+    if (threadIdx.x == 0) *found = qp - row.base;
+    __syncthreads();
+    init = *found;
+  }
+
   // 4. the uncertain windows, exactly
-  taxor::resolve_tied_runs(ys, tied, uncertain, emit, len, k, s, t);
+  taxor::resolve_tied_runs(ys, tied, uncertain, emit, len, k, s, t, init);
   __syncthreads();
+  // the windows past the owned ones belong to the next piece
+  if (row.own < len) {
+    for (int j = threadIdx.x; j < (len + 31) / 32; j += blockDim.x) {
+      const int lo = 32 * j;
+      if (lo + 32 <= row.own) continue;
+      emit[j] &= row.own <= lo ? 0u : (1u << (row.own - lo)) - 1u;
+    }
+    __syncthreads();
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
     const uint8_t* __restrict__ packed, const int32_t* __restrict__ lengths,
-    int L, int k, int s, int t, int hcap, int W,
+    int L, int P, int Lp, int stride, int k, int s, int t, int hcap, int W,
     unsigned long long* __restrict__ scratch, int32_t* __restrict__ out_hi,
     int32_t* __restrict__ out_lo, uint8_t* __restrict__ out_valid,
     int32_t* __restrict__ n_unique_out, int32_t* __restrict__ n_emit_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int r = blockIdx.x;
-  const Layout o = smem_layout(L, 0);
+  const int r = blockIdx.x;  // the output row: the block's piece
+  const Layout o = smem_layout(Lp, 0);
   int* warp_tot = reinterpret_cast<int*>(smem);
-  int* counters = warp_tot + kWarps;  // n_emit, n_unique
+  int* counters = warp_tot + kWarps;  // n_emit, n_unique, found
   uint32_t* sw = reinterpret_cast<uint32_t*>(smem + o.words);
-  const int nw = (L + 31) / 32;
+  const int nw = (Lp + 31) / 32;
   uint32_t* emit = reinterpret_cast<uint32_t*>(smem + o.bits);
   uint32_t* ys = reinterpret_cast<uint32_t*>(smem + o.region);
   unsigned long long* buf =
@@ -157,8 +229,9 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
               : reinterpret_cast<unsigned long long*>(smem + o.region);
 
   // 1-4. the exact emission mask; ys is dead afterwards, buf may reuse it
-  emission_mask(packed, lengths, r, L, k, s, t, sw, ys, emit, emit + nw,
-                emit + 2 * nw);
+  const Row row = row_of(packed, lengths, r, L, P, Lp, stride, k);
+  emission_mask(row, Lp, k, s, t, sw, ys, emit, emit + nw, emit + 2 * nw,
+                counters + 2);
 
   // 5. gather the emitted k-mers in position order: thread j owns the
   // contiguous words [j*per, (j+1)*per), an exclusive block-wide prefix
@@ -192,11 +265,11 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
 
   // sort, first occurrences, wyhash
   const int m = min(n, W);
-  const int P = taxor::pow2_at_least(m);
-  for (int i = m + threadIdx.x; i < P; i += blockDim.x)
+  const int Pw = taxor::pow2_at_least(m);
+  for (int i = m + threadIdx.x; i < Pw; i += blockDim.x)
     buf[i] = taxor::kSentinel;
   __syncthreads();
-  taxor::bitonic_sort(buf, P);
+  taxor::bitonic_sort(buf, Pw);
   int local = 0;
   for (int j = threadIdx.x; j < m; j += blockDim.x)
     local += (j == 0 || buf[j] != buf[j - 1]);
@@ -218,21 +291,23 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
 
 __global__ void __launch_bounds__(kThreads) syncmer_track_kernel(
     const uint8_t* __restrict__ packed, const int32_t* __restrict__ lengths,
-    int L, int k, int s, int t, int64_t* __restrict__ out_kmer,
-    uint8_t* __restrict__ out_emit) {
+    int L, int P, int Lp, int stride, int k, int s, int t,
+    int64_t* __restrict__ out_kmer, uint8_t* __restrict__ out_emit) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = blockIdx.x;
-  const Layout o = smem_layout(L, 0);
+  const Layout o = smem_layout(Lp, 0);
+  int* found = reinterpret_cast<int*>(smem);
   uint32_t* sw = reinterpret_cast<uint32_t*>(smem + o.words);
-  const int nw = (L + 31) / 32;
+  const int nw = (Lp + 31) / 32;
   uint32_t* emit = reinterpret_cast<uint32_t*>(smem + o.bits);
   uint32_t* ys = reinterpret_cast<uint32_t*>(smem + o.region);
-  emission_mask(packed, lengths, r, L, k, s, t, sw, ys, emit, emit + nw,
-                emit + 2 * nw);
-  const size_t row = (size_t)r * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    out_kmer[row + i] = (int64_t)taxor::canon_kmer(sw, i, k);
-    out_emit[row + i] = (emit[i >> 5] >> (i & 31)) & 1u;
+  const Row row = row_of(packed, lengths, r, L, P, Lp, stride, k);
+  emission_mask(row, Lp, k, s, t, sw, ys, emit, emit + nw, emit + 2 * nw,
+                found);
+  const size_t out = (size_t)r * Lp;
+  for (int i = threadIdx.x; i < Lp; i += blockDim.x) {
+    out_kmer[out + i] = (int64_t)taxor::canon_kmer(sw, i, k);
+    out_emit[out + i] = (emit[i >> 5] >> (i & 31)) & 1u;
   }
 }
 
@@ -243,28 +318,33 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 
 }  // namespace
 
-// Dynamic shared memory K1 takes at length bucket L with a W-key sort
+// Dynamic shared memory K1 takes at row length Lp with a W-key sort
 // buffer in shared memory (in_smem != 0) or in global scratch (in_smem ==
 // 0).  The wrapper passes scratch when the first exceeds what a block may
 // use.
-extern "C" int syncmer_extract_smem(int L, int W, int in_smem) {
-  return (int)smem_layout(L, in_smem ? (size_t)W * 8 : 0).total;
+extern "C" int syncmer_extract_smem(int Lp, int W, int in_smem) {
+  return (int)smem_layout(Lp, in_smem ? (size_t)W * 8 : 0).total;
 }
 
+// Both launchers take R reads of L bases (packed [R, L/4]) as P pieces
+// each of Lp bases, stride apart (P = 1: whole rows, Lp = L), one block and
+// one output row a piece: R * P rows.
 extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
-                                      int R, int L, int k, int s, int t,
+                                      int R, int L, int P, int Lp,
+                                      int stride, int k, int s, int t,
                                       int hcap, int W, void* scratch,
                                       void* out_hi, void* out_lo,
                                       void* out_valid, void* n_unique,
                                       void* n_emit, void* stream) {
   if (R == 0) return 0;
-  const size_t smem = (size_t)syncmer_extract_smem(L, W, scratch == nullptr);
+  const size_t smem =
+      (size_t)syncmer_extract_smem(Lp, W, scratch == nullptr);
   cudaError_t e = set_smem((const void*)syncmer_extract_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  syncmer_extract_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
+  syncmer_extract_kernel<<<R * P, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(packed),
-      static_cast<const int32_t*>(lengths), L, k, s, t, hcap, W,
-      static_cast<unsigned long long*>(scratch),
+      static_cast<const int32_t*>(lengths), L, P, Lp, stride, k, s, t, hcap,
+      W, static_cast<unsigned long long*>(scratch),
       static_cast<int32_t*>(out_hi), static_cast<int32_t*>(out_lo),
       static_cast<uint8_t*>(out_valid), static_cast<int32_t*>(n_unique),
       static_cast<int32_t*>(n_emit));
@@ -272,16 +352,16 @@ extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
 }
 
 extern "C" int launch_syncmer_track(const void* packed, const void* lengths,
-                                    int R, int L, int k, int s, int t,
-                                    void* out_kmer, void* out_emit,
-                                    void* stream) {
+                                    int R, int L, int P, int Lp, int stride,
+                                    int k, int s, int t, void* out_kmer,
+                                    void* out_emit, void* stream) {
   if (R == 0) return 0;
-  const size_t smem = smem_layout(L, 0).total;
+  const size_t smem = smem_layout(Lp, 0).total;
   cudaError_t e = set_smem((const void*)syncmer_track_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  syncmer_track_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
+  syncmer_track_kernel<<<R * P, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(packed),
-      static_cast<const int32_t*>(lengths), L, k, s, t,
+      static_cast<const int32_t*>(lengths), L, P, Lp, stride, k, s, t,
       static_cast<int64_t*>(out_kmer), static_cast<uint8_t*>(out_emit));
   return (int)cudaGetLastError();
 }

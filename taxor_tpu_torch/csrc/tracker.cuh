@@ -29,6 +29,13 @@
 // window), stepping only where the held minimum slides out.  A read tied
 // everywhere (a homopolymer, a short tandem repeat) is one run, replayed
 // serially and exactly in hops of up to w windows.
+//
+// A piece of a longer read (K1's piece rows) starts with the holder the
+// whole read has at the piece's first window: where that window's minimum
+// is unique it is the argmin; where it is tied, holder_at replays the
+// read's tracker from the last unique window before it (or from the
+// read's first window), however long the tied stretch, and the piece's
+// replay of its first tied run starts from that holder (``init``).
 #pragma once
 #include <cstdint>
 
@@ -37,13 +44,18 @@ namespace taxor {
 // One step of the reference tracker at the window of the k-mer ending at
 // base i (i >= k-1): updates the held minimum value qv and its s-mer start
 // qp, and returns whether that k-mer is emitted.  ys(e) is the canonical
-// s-mer ending at base e, read for e in [i-w+1, i], w = k-s+1.
+// s-mer ending at base e, read for e in [i-w+1, i], w = k-s+1.  init >= 0
+// gives the holder of the first full window (its s-mer start) in place of
+// the leftmost minimum: the holder a piece inherits from the whole read.
 template <class Ys>
 __device__ __forceinline__ bool tracker_step(int i, int k, int s, int t,
-                                             Ys&& ys, uint32_t& qv,
-                                             int& qp) {
+                                             Ys&& ys, uint32_t& qv, int& qp,
+                                             int init = -1) {
   const int w = k - s + 1;
-  if (i == k - 1) {  // first full window: leftmost minimum
+  if (i == k - 1 && init >= 0) {  // first full window, holder given
+    qp = init;
+    qv = ys(init + s - 1);
+  } else if (i == k - 1) {  // first full window: leftmost minimum
     qv = 0xFFFFFFFFu;
     for (int j = 0; j < w; ++j) {
       const uint32_t v = ys(s - 1 + j);
@@ -90,6 +102,19 @@ __device__ __forceinline__ uint32_t rev2_32(uint32_t x) {
 // register holds the newest base lowest.  So for the m bases ending at i,
 // raw = the staged bits: reverse complement = ~raw (masked), forward =
 // the 2-bit fields of raw reversed.
+
+// Canonical s-mer ending at base i (s <= 15) of staged words read as
+// sw(j) (a read in global memory; canon_smer below for an array).
+template <class Words>
+__device__ __forceinline__ uint32_t canon_smer_at(Words&& sw, int i, int s) {
+  const int q = i - s + 1 + kBias;
+  const uint32_t raw =
+      __funnelshift_r(sw(q >> 4), sw((q >> 4) + 1), 2 * (q & 15));
+  const uint32_t smask = (1u << (2 * s)) - 1;
+  const uint32_t fwd = rev2_32(raw) >> (32 - 2 * s);
+  const uint32_t rc = ~raw & smask;
+  return fwd < rc ? fwd : rc;
+}
 
 // Canonical s-mer ending at base i (s <= 15): two staged words.
 __device__ __forceinline__ uint32_t canon_smer(const uint32_t* sw, int i,
@@ -157,13 +182,14 @@ __device__ __forceinline__ Window window_outcome(const uint32_t* ys, int i,
 // where it slides out: the replay steps there, hops of up to w windows,
 // and marks the one window in between where the holder sits at the
 // offset.  tied, uncertain and emit are bit masks, bit i%32 of word i/32,
-// zero at every i outside [k-1, len).  Every thread of the block calls
-// it.
+// zero at every i outside [k-1, len).  init: the holder of the first
+// window (tracker_step), -1 for the leftmost minimum.  Every thread of the
+// block calls it.
 __device__ inline void resolve_tied_runs(const uint32_t* ys,
                                          const uint32_t* tied,
                                          const uint32_t* uncertain,
                                          uint32_t* emit, int len, int k,
-                                         int s, int t) {
+                                         int s, int t, int init = -1) {
   const int nw = (len + 31) / 32;
   for (int j = threadIdx.x; j < nw; j += blockDim.x) {
     const uint32_t tj = tied[j];
@@ -187,13 +213,68 @@ __device__ inline void resolve_tied_runs(const uint32_t* ys,
       int qp = a - 1 - k;  // as if the held minimum had just slid out
       const auto at = [&](int e) { return ys[e]; };
       for (int i = a == k - 1 ? a : a - 1; i <= last; i = qp + k) {
-        if (tracker_step(i, k, s, t, at, qv, qp))
+        if (tracker_step(i, k, s, t, at, qv, qp, init))
           atomicOr(&emit[i >> 5], 1u << (i & 31));
         const int e = qp + k - t;  // the window where the holder emits
         if (e > i && e <= last) atomicOr(&emit[e >> 5], 1u << (e & 31));
       }
     }
   }
+}
+
+// Whether the window of the k-mer ending at base i has a unique minimum,
+// from the canonical s-mers ys(e).
+template <class Ys>
+__device__ __forceinline__ bool window_unique(Ys&& ys, int i, int k, int s) {
+  const int w = k - s + 1;
+  uint32_t m = 0xFFFFFFFFu;
+  int lm = 0, rm = 0;
+  for (int e = i - w + 1; e <= i; ++e) {
+    const uint32_t y = ys(e);
+    if (y < m) {
+      m = y;
+      lm = e;
+      rm = e;
+    } else if (y == m) {
+      rm = e;
+    }
+  }
+  return lm == rm;
+}
+
+// The whole read's holder (its s-mer start) at the window of the k-mer
+// ending at base c > k-1, a window whose minimum is tied; ys(e) reads the
+// read's canonical s-mers.  The block looks back, blockDim.x windows at a
+// time, for the last window before c whose minimum is unique (its holder
+// is its argmin, whatever came before); then thread 0 replays the tracker
+// from there, or from the read's first window where there is none,
+// hopping from one slide-out to the next: every window after it up to c
+// is tied, so no newcomer is strictly smaller.  found: a shared int.
+// Every thread calls it; the holder is returned on thread 0.
+template <class Ys>
+__device__ int holder_at(Ys&& ys, int c, int k, int s, int t, int* found) {
+  if (threadIdx.x == 0) *found = -1;
+  __syncthreads();
+  for (int top = c - 1; top >= k - 1; top -= blockDim.x) {
+    const int e = top - (int)threadIdx.x;
+    if (e >= k - 1 && window_unique(ys, e, k, s)) atomicMax(found, e);
+    __syncthreads();
+    const bool done = *found >= 0;
+    __syncthreads();
+    if (done) break;
+  }
+  int qp = 0;
+  if (threadIdx.x == 0) {
+    const int u = *found;
+    uint32_t qv = 0;
+    qp = u - k;  // as if the held minimum had just slid out of window u
+    for (int i = u >= 0 ? u : k - 1;;) {
+      tracker_step(i, k, s, t, ys, qv, qp);
+      if (qp + k > c) break;
+      i = qp + k;
+    }
+  }
+  return qp;
 }
 
 }  // namespace taxor

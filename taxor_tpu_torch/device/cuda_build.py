@@ -46,11 +46,11 @@ _DIAG_LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (packed, lengths, R, L, k, s, t, hcap, W, scratch,
+    # (packed, lengths, R, L, P, Lp, stride, k, s, t, hcap, W, scratch,
     #  out_hi, out_lo, out_valid, n_unique, n_emit, stream)
-    "launch_syncmer_extract": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                               _P, _P, _P, _P, _P, _P],
-    # (L, W, in_smem) -> K1's dynamic shared-memory bytes
+    "launch_syncmer_extract": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P, _P, _P, _P, _P, _P, _P],
+    # (Lp, W, in_smem) -> K1's dynamic shared-memory bytes
     "syncmer_extract_smem": [_I, _I, _I],
     # (hi, lo, valid, R, H, tables, G, S, Bpad, active, seed,
     #  block_length, slab_bins, rec, nrec, out, stream)
@@ -75,13 +75,17 @@ _SIGNATURES = {
                             _I, _P, _P],
     # (S, Bpad, device) -> K2n's mode: 1 smem, 0 rows
     "probe_narrow_mode": [_I, _I, _I],
-    # (packed, lengths, R, L, k, s, t, out_kmer, out_emit, stream)
-    "launch_syncmer_track": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (packed, lengths, R, L, P, Lp, stride, k, s, t, out_kmer, out_emit,
+    #  stream)
+    "launch_syncmer_track": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                             _P],
     # (kmer, emit, R, L, hcap, Wb, scratch, out_kmer, out_valid, n_unique,
     #  n_emit, stream)
     "launch_dedup": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # (hi, lo, R, W, Wp, scratch, out_hi, out_lo, stream)
     "launch_sort_pairs": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # (hi, lo, n_valid, R, W, out_hi, out_lo, out_valid, n_unique, stream)
+    "launch_unique_pairs": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     # (packed, lengths, R, L, k, wp, seed, thresh, out_hi, out_lo,
     #  out_valid, n_emit, n_unique, stream)
     "launch_minimizer": [_P, _P, _I, _I, _I, _I, ctypes.c_uint64,

@@ -52,11 +52,11 @@ import time
 import numpy as np
 import torch
 
-from ..hash.device_syncmer import emission_min_gap
+from ..hash.device_syncmer import bucket_pieces, emission_min_gap
 from .extract import (hashes_of_kmers, minimizer_kmers, scaling_keep,
                       syncmer_hashes, syncmer_track)
 from .probe import probe_counts, probe_run_sums_grouped, segment_sums
-from .sort import dedup_fused
+from .sort import dedup_fused, union_pieces
 
 # Extraction engine of both steps, as in the JAX package: True runs K1
 # (extraction, dedup and wyhash in one kernel); False runs the split
@@ -69,13 +69,22 @@ USE_FUSED_EXTRACT = True
 def _syncmer_hashes(packed, lengths, k: int, s: int, t: int, hcap: int):
     """(hi, lo, valid, n_unique, n_emit) of the wyhashed sorted syncmer
     k-mers (device/extract.py's contract) from the engine that
-    USE_FUSED_EXTRACT selects."""
+    USE_FUSED_EXTRACT selects.  Reads of a bucket past L_CAP run as
+    pieces of hcap / P slots each through the same engine, joined by
+    ``sort.union_pieces`` (K4, K6) into hcap slots a read."""
+    P = bucket_pieces(packed.shape[1] * 4)
+    hp = hcap // P
     if USE_FUSED_EXTRACT:
-        return syncmer_hashes(packed, lengths, k, s, t, hcap)
-    kmer, emit = syncmer_track(packed, lengths, k, s, t)
-    srt, valid, n_unique, n_emit = dedup_fused(kmer, emit, hcap,
-                                               emission_min_gap(k, s, t))
-    return (*hashes_of_kmers(srt, valid), valid, n_unique, n_emit)
+        out = syncmer_hashes(packed, lengths, k, s, t, hp, pieces=P)
+    else:
+        kmer, emit = syncmer_track(packed, lengths, k, s, t, pieces=P)
+        srt, valid, n_unique, n_emit = dedup_fused(kmer, emit, hp,
+                                                   emission_min_gap(k, s, t))
+        out = (*hashes_of_kmers(srt, valid), valid, n_unique, n_emit)
+    if P == 1:
+        return out
+    hi, lo, valid, _, n_emit = out
+    return union_pieces(hi, lo, valid, n_emit, P)
 
 
 def _hashes(packed, lengths, scheme_kind: str, k: int, s: int, t: int,

@@ -22,6 +22,16 @@ Contract of ``syncmer_hashes`` for packed reads uint8 [R, L/4]
 Slot j holds the j-th smallest emitted k-mer, duplicates included, which
 is what ``syncmer_kmers`` -> ``dedup_kmers`` -> ``wyhash64`` gives.
 
+A read longer than L_CAP runs as pieces (``pieces`` = P > 1): packed
+[R, pieces_len(P) / 4] holds each whole read, K1 takes piece j of read r
+(L_CAP bases from base j * PIECE_STRIDE) as row r * P + j of its outputs,
+[R * P, hcap] with hcap the piece's, and n_emit counts the emissions of
+the windows that piece owns (``hash/device_syncmer.piece_owned``): the
+pieces' owned emissions are the whole read's, each once, tied runs across
+a cut included (csrc/tracker.cuh ``holder_at``).  Its twin runs the
+tracker over the whole read (``syncmer_kmers_pieces``).
+``device/sort.union_pieces`` joins a read's pieces.
+
 ``syncmer_track`` is the first kernel of the split engine
 (device/e2e.USE_FUSED_EXTRACT = False): the same tracker, writing the
 per-position contract of ``syncmer_kmers`` (canonical k-mer int64 [R, L]
@@ -42,8 +52,10 @@ from __future__ import annotations
 
 import torch
 
-from ..hash.device_syncmer import (dedup_kmers, max_emissions,
-                                   minimizer_kmers_plain, syncmer_kmers)
+from ..hash.device_syncmer import (L_CAP, PIECE_STRIDE, dedup_kmers,
+                                   max_emissions, minimizer_kmers_plain,
+                                   pieces_len, syncmer_kmers,
+                                   syncmer_kmers_pieces)
 from ..hash.minimizer import adjust_seed
 from ..utils.u64 import INT64_MIN, i64, join32, split32, wyhash64
 from . import cuda_build
@@ -72,10 +84,18 @@ def scaling_keep(hi, lo, scale_thresh: int) -> torch.Tensor:
     return (v ^ INT64_MIN) <= (i64(scale_thresh) ^ INT64_MIN)
 
 
+def _kmers_plain(packed, lengths, k: int, s: int, t: int, pieces: int):
+    """(kmer, emit) of the rows K1 and syncmer_track take: the whole
+    reads, or each read's pieces."""
+    if pieces > 1:
+        return syncmer_kmers_pieces(packed, lengths, k, s, t, pieces)
+    return syncmer_kmers(packed, lengths, k, s, t)
+
+
 def syncmer_hashes_plain(packed, lengths, k: int, s: int, t: int,
-                         hcap: int):
+                         hcap: int, pieces: int = 1):
     """Plain PyTorch twin of K1 (same contract)."""
-    kmer, emit = syncmer_kmers(packed, lengths, k, s, t)
+    kmer, emit = _kmers_plain(packed, lengths, k, s, t, pieces)
     srt, valid, n_unique, n_emit = dedup_kmers(kmer, emit, hcap)
     return (*hashes_of_kmers(srt, valid), valid, n_unique, n_emit)
 
@@ -109,28 +129,43 @@ def _check_reads(name: str, packed: torch.Tensor, lengths: torch.Tensor,
     return R, L
 
 
+def _rows(name: str, L: int, pieces: int) -> tuple[int, int]:
+    """(Lp, stride) of the rows a kernel takes from reads of L bases as
+    ``pieces`` pieces: (L, 0) for whole rows, else (L_CAP,
+    PIECE_STRIDE) on reads of pieces_len(pieces) bases."""
+    if pieces == 1:
+        return L, 0
+    if pieces < 1 or L != pieces_len(pieces):
+        raise ValueError(f"{name}: {pieces} pieces take reads of "
+                         f"{pieces_len(max(1, pieces))} bases, not {L}")
+    return L_CAP, PIECE_STRIDE
+
+
 def syncmer_hashes(packed: torch.Tensor, lengths: torch.Tensor, k: int,
-                   s: int, t: int, hcap: int):
-    """K1 on a CUDA tensor, its plain twin on a CPU tensor."""
+                   s: int, t: int, hcap: int, pieces: int = 1):
+    """K1 on a CUDA tensor, its plain twin on a CPU tensor; with pieces >
+    1 on the pieces of each read ([R * pieces, hcap] rows)."""
     if packed.device.type == "cpu":
-        return syncmer_hashes_plain(packed, lengths, k, s, t, hcap)
+        return syncmer_hashes_plain(packed, lengths, k, s, t, hcap, pieces)
     R, L = _check_reads("syncmer_hashes", packed, lengths, k, s, t)
     if hcap <= 0:
         raise ValueError(f"syncmer_hashes: hcap must be positive, not {hcap}")
-    W = sort_width(L, k, s, t)
+    Lp, stride = _rows("syncmer_hashes", L, pieces)
+    W = sort_width(Lp, k, s, t)
     dev = packed.device
-    hi = torch.empty((R, hcap), dtype=torch.int32, device=dev)
+    rows = R * pieces
+    hi = torch.empty((rows, hcap), dtype=torch.int32, device=dev)
     lo = torch.empty_like(hi)
-    valid = torch.empty((R, hcap), dtype=torch.bool, device=dev)
-    n_unique = torch.empty(R, dtype=torch.int32, device=dev)
+    valid = torch.empty((rows, hcap), dtype=torch.bool, device=dev)
+    n_unique = torch.empty(rows, dtype=torch.int32, device=dev)
     n_emit = torch.empty_like(n_unique)
     lib = cuda_build.lib()
     scratch = None
-    if lib.syncmer_extract_smem(L, W, 1) > SMEM_LIMIT:
-        scratch = torch.empty((R, W), dtype=torch.int64, device=dev)
+    if lib.syncmer_extract_smem(Lp, W, 1) > SMEM_LIMIT:
+        scratch = torch.empty((rows, W), dtype=torch.int64, device=dev)
     err = lib.launch_syncmer_extract(
-        packed.data_ptr(), lengths.data_ptr(), R, L, k, s, t, hcap, W,
-        None if scratch is None else scratch.data_ptr(),
+        packed.data_ptr(), lengths.data_ptr(), R, L, pieces, Lp, stride, k,
+        s, t, hcap, W, None if scratch is None else scratch.data_ptr(),
         hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), n_unique.data_ptr(),
         n_emit.data_ptr(), cuda_build.stream_of(packed))
     cuda_build.check(err, "launch_syncmer_extract")
@@ -143,17 +178,22 @@ syncmer_hashes.LAUNCHES = 0
 
 
 def syncmer_track(packed: torch.Tensor, lengths: torch.Tensor, k: int,
-                  s: int, t: int):
+                  s: int, t: int, pieces: int = 1):
     """(kmer int64 [R, L], emit bool [R, L]) of ``syncmer_kmers``: the
-    tracker kernel on a CUDA tensor, the plain twin on a CPU tensor."""
+    tracker kernel on a CUDA tensor, the plain twin on a CPU tensor; with
+    pieces > 1, [R * pieces, L_CAP] rows of each read's pieces
+    (``syncmer_kmers_pieces``)."""
     if packed.device.type == "cpu":
-        return syncmer_kmers(packed, lengths, k, s, t)
+        return _kmers_plain(packed, lengths, k, s, t, pieces)
     R, L = _check_reads("syncmer_track", packed, lengths, k, s, t)
-    kmer = torch.empty((R, L), dtype=torch.int64, device=packed.device)
-    emit = torch.empty((R, L), dtype=torch.bool, device=packed.device)
+    Lp, stride = _rows("syncmer_track", L, pieces)
+    kmer = torch.empty((R * pieces, Lp), dtype=torch.int64,
+                       device=packed.device)
+    emit = torch.empty((R * pieces, Lp), dtype=torch.bool,
+                       device=packed.device)
     err = cuda_build.lib().launch_syncmer_track(
-        packed.data_ptr(), lengths.data_ptr(), R, L, k, s, t,
-        kmer.data_ptr(), emit.data_ptr(), cuda_build.stream_of(packed))
+        packed.data_ptr(), lengths.data_ptr(), R, L, pieces, Lp, stride, k,
+        s, t, kmer.data_ptr(), emit.data_ptr(), cuda_build.stream_of(packed))
     cuda_build.check(err, "launch_syncmer_track")
     if R:
         cuda_build.count_launch(syncmer_track)

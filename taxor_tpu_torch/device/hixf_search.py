@@ -21,9 +21,11 @@ pack column-wise at 4-bin boundaries, as the JAX package packs 4-bin
 words; each run of a member is a column range [run_s, run_e) of its
 subgroup's table run_g, int64 offsets in place of the JAX one-hot
 matrices; a stack's runs are contiguous per subgroup, a CSR (run_off)
-that K2n sums in the kernel.  Reads over L_CAP take ``counts``: one
-activity-masked probe launch per IXF in BFS order, the descent decided on
-the host.
+that K2n sums in the kernel.  Syncmer reads past L_CAP take the same
+step in pieces (``e2e_async`` on a bucket of pieces: hash_cap slots a
+read, device/e2e._syncmer_hashes).  Reads hashed on the host (minimiser
+and plain k-mer reads past L_CAP) take ``counts``: one activity-masked
+probe launch per IXF in BFS order, the descent decided on the host.
 
 Left out against the JAX class, because only the TPU needed them:
   - the engine split at ``_FP_VMEM_TILE`` and the XLA-gather groups: one
@@ -43,7 +45,7 @@ first column); the groups are the single-device ones.  The fused steps
 then run bin-sharded (sharding.sharded_e2e_fn, sharded_hixf_e2e_fn) and
 ``counts`` sums each IXF's runs over the row before the descent reads
 them.  As in the JAX class, ``flat_fast_path`` is off under a mesh: the
-long reads of a flat index take ``counts``.
+host-hashed reads of a flat index take ``counts``.
 
 Every scheme the JAX steps take runs fused: syncmers (K1, hcap slots),
 minimisers and plain k-mers (K5, hcap = L), either with a FracMinHash

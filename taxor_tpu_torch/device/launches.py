@@ -13,7 +13,7 @@ from . import extract, probe, sort
 def read() -> dict:
     """The counts so far, by the kernels' names: K1, K2, K2n, K2 by
     route, K2n by mode, the split engine's syncmer_track and K3, K4, K5,
-    and K2's and K2n's launches by caller."""
+    K6, and K2's and K2n's launches by caller."""
     return {"K1": extract.syncmer_hashes.LAUNCHES,
             "K2": probe.k2_counts.LAUNCHES, "K2n": probe.k2n_counts.LAUNCHES,
             "K2 slab": probe.k2_counts.VARIANTS.get("slab", 0),
@@ -22,6 +22,7 @@ def read() -> dict:
             "K2n rows": probe.k2n_counts.MODES.get("rows", 0),
             "track": extract.syncmer_track.LAUNCHES,
             "K3": sort.dedup_fused.LAUNCHES, "K4": sort.sort_pairs.LAUNCHES,
+            "K6": sort.unique_pairs.LAUNCHES,
             "K5": extract.minimizer_kmers.LAUNCHES,
             "K2 routes": dict(probe.k2_counts.ROUTES),
             "K2n routes": dict(probe.k2n_counts.ROUTES)}
@@ -37,7 +38,8 @@ def since(before: dict) -> dict:
 def reset() -> None:
     """Every count to 0."""
     for k in (extract.syncmer_hashes, extract.syncmer_track,
-              extract.minimizer_kmers, sort.dedup_fused, sort.sort_pairs):
+              extract.minimizer_kmers, sort.dedup_fused, sort.sort_pairs,
+              sort.unique_pairs):
         k.LAUNCHES = 0
     for k in (probe.k2_counts, probe.k2n_counts):
         k.LAUNCHES = 0

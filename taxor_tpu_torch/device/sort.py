@@ -17,8 +17,18 @@ Counterpart of ``taxor_tpu/device/pallas_sort.py``:
   - ``sort_pairs`` (K4, ``csrc/sort_pairs.cu``, the port of
     ``_sort_kernel``): an ascending lexicographic row sort of (hi, lo) u32
     pairs given as int32 bit patterns, [R, W] -> [R, W].  ``dedup_pairs``
-    dedups through it, the JAX package's ``sort_impl="pallas"`` route;
-    like that route, no search path reaches it.
+    dedups through it, the JAX package's ``sort_impl="pallas"`` route.
+    The search sorts with it in ``union_pieces``;
+  - ``unique_pairs`` (K6, ``csrc/unique.cu``; no TPU kernel): the first
+    occurrences of sorted (hi, lo) rows, each row's first n_valid slots.
+
+``union_pieces`` joins the pieces of reads longer than L_CAP
+(``extract.syncmer_hashes`` with pieces > 1: K1 on each piece) into one
+row a read, which the JAX package got from the host scanner's np.unique:
+the valid hashes of the read's pieces side by side, every other slot the
+all-ones sentinel, K4 sorts the row and K6 keeps each value once.  A
+real hash can equal the sentinel, so K6 reads only the first n_valid
+sorted slots, and never compares a hash with the sentinel.
 
 Both kernels sort a row of up to ``REG_SORT_MAX`` keys in registers, on
 the network of ``csrc/regsort.cuh`` (E keys a thread; warp shuffles; a
@@ -154,3 +164,86 @@ def dedup_pairs(kmer: torch.Tensor, emit: torch.Tensor, hcap: int):
     same."""
     return dedup_kmers(kmer, emit, hcap,
                        sort_rows=lambda v: join32(*sort_pairs(*split32(v))))
+
+
+def unique_pairs_plain(hi: torch.Tensor, lo: torch.Tensor,
+                       n_valid: torch.Tensor):
+    """Plain PyTorch twin of K6: (hi, lo int32 [R, W] where valid, 0
+    elsewhere; valid bool [R, W], the slots j < n_valid[r] whose key
+    differs from slot j - 1's; n_unique int32 [R]) of rows sorted as
+    uint64 keys."""
+    key = join32(hi, lo)
+    j = torch.arange(key.shape[1], device=key.device)
+    prev = torch.cat([key[:, :1], key[:, :-1]], dim=1)
+    valid = (j < n_valid.to(torch.int64)[:, None]) & ((j == 0) | (key != prev))
+    zero = torch.zeros_like(hi)
+    return (torch.where(valid, hi, zero), torch.where(valid, lo, zero), valid,
+            valid.sum(dim=1, dtype=torch.int32))
+
+
+def unique_pairs(hi: torch.Tensor, lo: torch.Tensor, n_valid: torch.Tensor):
+    """K6 on a CUDA tensor, its plain twin on a CPU tensor."""
+    if hi.device.type == "cpu":
+        return unique_pairs_plain(hi, lo, n_valid)
+    if hi.device.type != "cuda":
+        raise ValueError(f"unique_pairs: unsupported device {hi.device}")
+    if (hi.dtype != torch.int32 or lo.dtype != torch.int32 or hi.dim() != 2
+            or lo.shape != hi.shape or lo.device != hi.device):
+        raise ValueError("unique_pairs: hi and lo must be int32 [R, W] on "
+                         "one device")
+    R, W = hi.shape
+    if (n_valid.dtype != torch.int32 or n_valid.shape != (R,)
+            or n_valid.device != hi.device):
+        raise ValueError("unique_pairs: n_valid must be int32 [R] on the "
+                         "rows' device")
+    if not all(x.is_contiguous() for x in (hi, lo, n_valid)):
+        raise ValueError("unique_pairs: inputs must be contiguous")
+    if R > 65535:
+        raise ValueError(f"unique_pairs: {R} rows, past the grid's 65,535")
+    out_hi = torch.empty_like(hi)
+    out_lo = torch.empty_like(lo)
+    valid = torch.empty((R, W), dtype=torch.bool, device=hi.device)
+    n_unique = torch.empty(R, dtype=torch.int32, device=hi.device)
+    err = cuda_build.lib().launch_unique_pairs(
+        hi.data_ptr(), lo.data_ptr(), n_valid.data_ptr(), R, W,
+        out_hi.data_ptr(), out_lo.data_ptr(), valid.data_ptr(),
+        n_unique.data_ptr(), cuda_build.stream_of(hi))
+    cuda_build.check(err, "launch_unique_pairs")
+    if R and W:
+        cuda_build.count_launch(unique_pairs)
+    return out_hi, out_lo, valid, n_unique
+
+
+unique_pairs.LAUNCHES = 0
+
+
+def union_rows(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
+               pieces: int):
+    """K4's input of ``union_pieces``: (hi, lo int32 [R, pieces * hcap],
+    each read's pieces side by side, the valid hashes kept and every
+    other slot the all-ones sentinel; n_valid int32 [R])."""
+    rows, hcap = hi.shape
+    R = rows // pieces
+    sent = torch.full_like(hi, -1)
+    return (torch.where(valid, hi, sent).reshape(R, pieces * hcap),
+            torch.where(valid, lo, sent).reshape(R, pieces * hcap),
+            valid.reshape(R, pieces * hcap).sum(dim=1, dtype=torch.int32))
+
+
+def union_pieces(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
+                 n_emit: torch.Tensor, pieces: int):
+    """The reads' hashes from their pieces' (K1's piece rows: hi, lo,
+    valid [R * pieces, hcap], n_emit [R * pieces]): (hi, lo, valid
+    [R, pieces * hcap] in ascending hash order, each value once; n_unique
+    int32 [R], the distinct hashes; n_emit int32 [R], the sum of the
+    pieces' owned emissions, or OVERFLOW where a piece emitted more than
+    its hcap slots hold, which sends the read to the host oracle).  K4
+    and K6 on CUDA tensors, their twins on CPU tensors."""
+    hcap = hi.shape[1]
+    h, lo_, n_valid = union_rows(hi, lo, valid, pieces)
+    out_hi, out_lo, out_valid, n_unique = unique_pairs(*sort_pairs(h, lo_),
+                                                       n_valid)
+    ne = n_emit.reshape(h.shape[0], pieces)
+    n = torch.where((ne > hcap).any(dim=1), OVERFLOW,
+                    ne.sum(dim=1, dtype=torch.int32))
+    return out_hi, out_lo, out_valid, n_unique, n.to(torch.int32)

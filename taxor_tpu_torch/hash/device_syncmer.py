@@ -7,8 +7,11 @@ in numpy (``pack_reads`` keeps the native ``pack_reads_2bit`` call).
 ``syncmer_kmers`` -> ``dedup_kmers`` -> ``u64.wyhash64`` is the plain
 twin of CUDA kernel K1 (``device/extract.py``): the same stateful
 window-minimum tracker as the reference scanner (hash/syncmer.py,
-src/hashing/syncmer.cpp:109-146), vectorised over reads and sequential
-over base positions.
+src/hashing/syncmer.cpp:109-146), vectorised over reads and positions
+as K1 computes it (``syncmer_emissions``), the tied runs replayed one
+step at a time.  A read longer than L_CAP runs in pieces (``piece_count``,
+``bucket_len``, ``piece_owned``; ``syncmer_kmers_pieces`` is the twin of
+K1's piece rows).
 
 Search semantics are dna4: N and IUPAC codes pack as A and never reset
 the scanner.  t is the reference's integer division (k - s + 1) // 2, and
@@ -29,8 +32,16 @@ import torch
 from ..utils.u64 import INT64_MIN, i64, split32, umin, usort_rows
 from .minimizer import adjust_seed
 
-# reads longer than this take the host-hash route (search/pipeline.py)
+# the longest row K1 stages whole in a block's shared memory (148 KB of
+# its 227 at k = 22, s = 12); a syncmer read longer than this is cut into
+# pieces of L_CAP bases, PIECE_STRIDE apart, each a row of K1
+# (device/extract.py), whose hashes device/sort.union_pieces joins
 L_CAP = 32768
+# bases a piece shares with the next: at least k - 1, so that the piece
+# holds the k-mers of every window it owns; a multiple of 16 keeps the
+# pieces on whole packed words
+PIECE_OVERLAP = 32
+PIECE_STRIDE = L_CAP - PIECE_OVERLAP
 
 # sentinel for empty sort slots: all ones, which no canonical k-mer
 # reaches (fwd == rev == all-T is impossible: rev(all-T) is all-A)
@@ -63,14 +74,50 @@ def pad_len_bucket(max_len: int) -> int:
     return max(256, 1 << (int(max_len) - 1).bit_length())
 
 
+def piece_count(n: int) -> int:
+    """The pieces of a read of n bases: 1 up to L_CAP, else enough rows of
+    L_CAP bases PIECE_STRIDE apart to reach its last base."""
+    if n <= L_CAP:
+        return 1
+    return 1 + -(-(n - L_CAP) // PIECE_STRIDE)
+
+
+def pieces_len(P: int) -> int:
+    """Bases spanned by P pieces: the row length of a bucket of P pieces
+    (L_CAP for one)."""
+    return (P - 1) * PIECE_STRIDE + L_CAP
+
+
+def bucket_pieces(L: int) -> int:
+    """The pieces of each read of length bucket L (1 up to L_CAP)."""
+    if L <= L_CAP:
+        return 1
+    P = (L - L_CAP) // PIECE_STRIDE + 1
+    if pieces_len(P) != L or P & (P - 1):
+        raise ValueError(f"{L} bases is no bucket of pieces")
+    return P
+
+
+def bucket_len(n: int) -> int:
+    """The length bucket of a read of n bases: a power of two (>= 256) up
+    to L_CAP, past it the span of a power-of-two count of pieces, so that
+    shapes stay bounded."""
+    if n <= L_CAP:
+        return pad_len_bucket(n)
+    return pieces_len(1 << (piece_count(n) - 1).bit_length())
+
+
 def hash_cap(L: int) -> int:
     """Per-read hash capacity for length bucket L.  Open-syncmer density
     is ~1/(k-s+1) (on random 4,000-base reads the plain twin emits ~350
     a read at k = 22, s = 12 and ~1,390 at k = 16, s = 14), so a scheme
-    with k-s+1 <= 3 fills L/4 slots on every read of its bucket.  Reads
-    that emit more than this fall back to the host oracle through the
-    device-reported emission count."""
-    return max(128, L // 4)
+    with k-s+1 <= 3 fills L/4 slots on every read of its bucket.  A
+    bucket of P pieces has P x L_CAP positions, P x hash_cap(L_CAP)
+    slots (the pieces' slots side by side).  Reads that emit more than
+    this fall back to the host oracle through the device-reported
+    emission count."""
+    P = bucket_pieces(L)
+    return P * max(128, min(L, L_CAP) // 4)
 
 
 def pack_reads(seqs: list[bytes], L: int):
@@ -167,51 +214,154 @@ def syncmer_kmers(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     """Canonical k-mer and emission mask per END position.
 
     Returns (kmer int64 [R, L] canonical k-mer bit patterns, emit bool
-    [R, L]): emit[r, i] marks an open-syncmer k-mer ending at base i.
-    The window-minimum tracker is the reference's: leftmost minimum on
-    the first full window; when the held minimum slides out, the
-    RIGHTMOST minimum of the new window; otherwise only a strictly
-    smaller newcomer takes over."""
-    w = k - s + 1
+    [R, L]): emit[r, i] marks an open-syncmer k-mer ending at base i."""
     codes = unpack_codes(packed)
+    kf, kr = _rolling(codes, k)
+    return umin(kf, kr), syncmer_emissions(codes, lengths, k, s, t)
+
+
+def syncmer_emissions(codes: torch.Tensor, lengths: torch.Tensor, k: int,
+                      s: int, t: int) -> torch.Tensor:
+    """bool [R, L]: the open-syncmer emissions of base codes [R, L]
+    (unpack_codes) by the reference's stateful window-minimum tracker:
+    leftmost minimum on the first full window; when the held minimum
+    slides out, the RIGHTMOST minimum of the new window; otherwise only a
+    strictly smaller newcomer takes over; emit the k-mer ending at i iff
+    the held s-mer starts at i-k+t.
+
+    Computed as K1 computes it (csrc/tracker.cuh): the held value is
+    always the window minimum, so a window whose minimum is unique emits
+    iff its argmin is at the offset, whatever came before; a tied window
+    with no minimum at the offset emits nothing; the tied runs that hold
+    one are replayed with the tracker's rule from the unique window
+    before them (``_replay``)."""
+    w = k - s + 1
     R, L = codes.shape
     dev = codes.device
-    emit = torch.zeros((R, L), dtype=torch.bool, device=dev)
+    if L < k:
+        return torch.zeros((R, L), dtype=torch.bool, device=dev)
     sf, sr = _rolling(codes, s)
     ys = torch.minimum(sf, sr)  # s <= 15: no sign bit involved
-    kf, kr = _rolling(codes, k)
-    kmer = umin(kf, kr)
-    if L < k:
-        return kmer, emit
-    # rightmost minimum of the w s-mers ending at i-w+1 .. i: scanning
-    # leftwards, only a strictly smaller value moves the holder
     ends = torch.arange(L, device=dev).expand(R, L)
-    rm_val, rm_end = ys, ends
-    for d in range(1, w):
-        cand = _shift_right(ys, d, fill=1 << 62)
-        take = cand < rm_val
-        rm_val = torch.where(take, cand, rm_val)
-        rm_end = torch.where(take, ends - d, rm_end)
-    # first full window (k-mer ends at k-1): leftmost minimum, strict <
-    qv = ys[:, s - 1].clone()
-    qp = torch.zeros(R, dtype=torch.int64, device=dev)
-    for j in range(1, w):
-        col = ys[:, s - 1 + j]
-        take = col < qv
-        qv = torch.where(take, col, qv)
-        qp = torch.where(take, torch.full_like(qp, j), qp)
-    emit[:, k - 1] = qp == t - 1
-    ys_t, rv_t, re_t = ys.t(), rm_val.t(), rm_end.t()
-    for i in range(k, L):
-        popped = qp == i - k
-        newer = ~popped & (ys_t[i] < qv)
-        qv = torch.where(popped, rv_t[i], torch.where(newer, ys_t[i], qv))
-        qp = torch.where(popped, re_t[i] - (s - 1),
-                         torch.where(newer, torch.full_like(qp, i - s + 1),
-                                     qp))
-        emit[:, i] = qp == i - k + t
-    pos = torch.arange(L, device=dev)[None, :]
-    return kmer, emit & (pos < lengths.to(torch.int64)[:, None])
+    # the minimum of ys[i-w+1 .. i] and its leftmost and rightmost argmin,
+    # from the oldest s-mer to the newest
+    big = 1 << 62
+    m = torch.full((R, L), big, dtype=ys.dtype, device=dev)
+    lm = torch.zeros_like(ends)
+    rm = torch.zeros_like(ends)
+    for d in range(w - 1, -1, -1):
+        cand = _shift_right(ys, d, fill=big)
+        lt, le = cand < m, cand <= m
+        lm = torch.where(lt, ends - d, lm)
+        rm = torch.where(le, ends - d, rm)
+        m = torch.where(lt, cand, m)
+    live = (ends >= k - 1) & (ends < lengths.to(torch.int64)[:, None])
+    tied = (lm != rm) & live
+    emit = ~tied & live & (lm == ends - w + t)
+    uncertain = tied & (_shift_right(ys, w - t) == m)
+    rows = torch.nonzero(uncertain.any(dim=1)).flatten().tolist()
+    if rows:
+        ys_h, tied_h, unc_h = (x.cpu().numpy() for x in (ys, tied, uncertain))
+        emit_h = emit.cpu().numpy()
+        for r in rows:
+            _replay(ys_h[r], tied_h[r], unc_h[r], emit_h[r], k, s, t)
+        emit = torch.from_numpy(emit_h).to(dev)
+    return emit
+
+
+def _tracker_step(ys, i: int, k: int, s: int, t: int, qv: int, qp: int):
+    """The reference tracker at the window of the k-mer ending at i over
+    the canonical s-mers ys (by end base): (qv, qp, emitted)."""
+    w = k - s + 1
+    if i == k - 1:  # first full window: leftmost minimum
+        j = int(np.argmin(ys[s - 1:s - 1 + w]))
+        qp, qv = j, int(ys[s - 1 + j])
+    elif qp == i - k:  # slid out: rightmost minimum
+        seg = ys[i - w + 1:i + 1]
+        j = w - 1 - int(np.argmin(seg[::-1]))
+        qp, qv = i - k + 1 + j, int(seg[j])
+    elif ys[i] < qv:  # a strictly smaller newcomer
+        qp, qv = i - s + 1, int(ys[i])
+    return qv, qp, qp == i - k + t
+
+
+def _replay(ys, tied, uncertain, emit, k: int, s: int, t: int) -> None:
+    """Marks in emit (numpy bool [L], in place) the emissions of every
+    maximal run of tied windows that holds an uncertain one, replaying the
+    tracker from the unique window before the run (a holder that has just
+    slid out rescans it, and its rightmost minimum is its only one) or
+    from the first window, up to the run's last uncertain window.  Inside
+    a tied run no newcomer is strictly smaller than the held minimum, so
+    the holder changes only where it slides out: the replay hops there
+    and marks the one window in between where the holder sits at the
+    offset (tracker.cuh resolve_tied_runs)."""
+    idx = np.flatnonzero(tied)
+    cut = np.flatnonzero(np.diff(idx) != 1)
+    starts = np.concatenate([idx[:1], idx[cut + 1]])
+    stops = np.concatenate([idx[cut], idx[-1:]])
+    unc = np.flatnonzero(uncertain)
+    for a, b in zip(starts.tolist(), stops.tolist()):
+        j = int(np.searchsorted(unc, b, side="right")) - 1
+        if j < 0 or unc[j] < a:
+            continue
+        last = int(unc[j])
+        qv, qp = 0, a - 1 - k
+        i = a if a == k - 1 else a - 1
+        while i <= last:
+            qv, qp, hit = _tracker_step(ys, i, k, s, t, qv, qp)
+            if hit:
+                emit[i] = True
+            e = qp + k - t  # the window where the holder emits
+            if i < e <= last:
+                emit[e] = True
+            i = qp + k
+
+
+def piece_rows(packed: torch.Tensor, P: int) -> torch.Tensor:
+    """uint8 [R * P, L_CAP / 4]: the P pieces of each packed read [R,
+    pieces_len(P) / 4], piece j of read r in row r * P + j."""
+    R = packed.shape[0]
+    idx = (torch.arange(P, device=packed.device)[:, None]
+           * (PIECE_STRIDE // 4)
+           + torch.arange(L_CAP // 4, device=packed.device)[None, :])
+    return packed[:, idx].reshape(R * P, L_CAP // 4)
+
+
+def piece_owned(lengths: torch.Tensor, P: int, k: int) -> torch.Tensor:
+    """bool [R * P, L_CAP]: the windows (k-mer ends, row positions) each
+    piece owns.  Piece j of a read of n bases exists where j <
+    piece_count(n); it owns [k-1, PIECE_STRIDE + k - 1) where a piece
+    follows (the next owns the windows from its first on), else its
+    windows up to the read's end, so the pieces' owned windows partition
+    the read's."""
+    n = lengths.to(torch.int64)[:, None]
+    dev = lengths.device
+    j = torch.arange(P, device=dev)[None, :]
+    pieces = torch.where(n <= L_CAP, 1,
+                         1 + torch.div(n - L_CAP + PIECE_STRIDE - 1,
+                                       PIECE_STRIDE, rounding_mode="floor"))
+    ln = torch.where(j < pieces, (n - j * PIECE_STRIDE).clamp(0, L_CAP), 0)
+    own = torch.where(j < pieces - 1, PIECE_STRIDE + k - 1, ln)
+    pos = torch.arange(L_CAP, device=dev)
+    owned = (pos >= k - 1) & (pos < own[:, :, None])
+    return owned.reshape(-1, L_CAP)
+
+
+def syncmer_kmers_pieces(packed: torch.Tensor, lengths: torch.Tensor,
+                         k: int, s: int, t: int, P: int):
+    """``syncmer_kmers`` of each read's P pieces (packed [R,
+    pieces_len(P) / 4], lengths the whole reads'): (kmer int64 [R * P,
+    L_CAP] of each piece's own row, bases before it read as A; emit bool
+    [R * P, L_CAP], the whole read's emissions in the windows the piece
+    owns).  The plain twin of K1's and syncmer_track's piece rows."""
+    R = packed.shape[0]
+    emit_read = syncmer_emissions(unpack_codes(packed), lengths, k, s, t)
+    idx = (torch.arange(P, device=packed.device)[:, None] * PIECE_STRIDE
+           + torch.arange(L_CAP, device=packed.device)[None, :])
+    emit = emit_read[:, idx].reshape(R * P, L_CAP) & piece_owned(
+        lengths, P, k)
+    kf, kr = _rolling(unpack_codes(piece_rows(packed, P)), k)
+    return umin(kf, kr), emit
 
 
 def dedup_kmers(kmer: torch.Tensor, emit: torch.Tensor, hcap: int,

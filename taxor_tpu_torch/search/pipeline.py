@@ -9,20 +9,24 @@ device-result decoders below are copies of the JAX package's, held to
 it by tests/test_torch_hostlayer.py and the TSV parity tests.
 
 Engines:
-  - 'device': per batch, reads up to L_CAP go through the fused step
-    (device/e2e.py: K1 for syncmers or K5 for minimisers and plain
-    k-mers, the FracMinHash keep of a scaled scheme, then K2 or K2n, flat
-    or in the level-grouped descent of a hierarchical index) in
-    power-of-two length buckets;
-    longer reads are hashed on the host and probed on the device: top-k
-    on a flat index (DeviceHIXF.topk_async_packed), the per-IXF
-    traversal on a hierarchical one (DeviceHIXF.counts_async).  Reads the
-    device result cannot decide exactly (hash capacity overflow, top-k
-    truncation) take the host oracle, as in the reference package.
+  - 'device': per batch, reads go through the fused step (device/e2e.py:
+    K1 for syncmers or K5 for minimisers and plain k-mers, the
+    FracMinHash keep of a scaled scheme, then K2 or K2n, flat or in the
+    level-grouped descent of a hierarchical index) in power-of-two length
+    buckets up to L_CAP; a syncmer read past L_CAP goes in pieces of
+    L_CAP bases (K1 on each piece, their union through K4 and K6) in
+    buckets of a power-of-two count of pieces (hash/device_syncmer
+    bucket_len).  Minimiser and plain k-mer reads past L_CAP are hashed on
+    the host and probed on the device: top-k on a flat index
+    (DeviceHIXF.topk_async_packed), the per-IXF traversal on a
+    hierarchical one (DeviceHIXF.counts_async).  Reads the device result
+    cannot decide exactly (hash capacity overflow, top-k truncation) take
+    the host oracle, as in the reference package.
   - 'sharded': the device engine over a reads x bins mesh of ranks
     (device/sharding.py): every rank holds its bins shard of the index,
-    the fused steps and the long reads' traversal run bin-sharded, and
-    every rank ends with the whole result; only rank 0 writes the report.
+    the fused steps and the host-hashed reads' traversal run
+    bin-sharded, and every rank ends with the whole result; only rank 0
+    writes the report.
     One process drives one device, so a mesh of more than one rank needs
     ``--distributed`` (device/distributed.py).
   - 'host': the numpy oracle recursion; it runs without JAX and without
@@ -225,8 +229,10 @@ def _pairs_from_counts(counts, emitted, dfs_rank):
 
 class RouteCounts:
     """How many reads took each route of the device engine, summed over
-    the searches of the process: 'fused' (the fused step), 'host_hashes'
-    (hashed on the host, probed on the device: reads over L_CAP) and
+    the searches of the process: 'fused' (the fused step), of them
+    'long_fused' (syncmer reads past L_CAP, in pieces), 'host_hashes'
+    (hashed on the host, probed on the device: minimiser and plain k-mer
+    reads past L_CAP) and
     'host_fallback' (of either, decided by the host oracle after the
     device pass), the sum of 'hcap_overflow' (more emissions than the
     step's hash capacity) and 'truncated' (the rest: every top-k slot
@@ -235,7 +241,8 @@ class RouteCounts:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self.counts = {"fused": 0, "host_hashes": 0, "host_fallback": 0,
+        self.counts = {"fused": 0, "long_fused": 0, "host_hashes": 0,
+                       "host_fallback": 0,
                        "hcap_overflow": 0, "truncated": 0,
                        "topk_escalations": 0}
 
@@ -321,10 +328,16 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
                 topk_state["k"] = min(256, ran_at_k * 4)
                 ROUTES.add(topk_escalations=1)
 
+    # syncmer reads of any length take the fused step, those past L_CAP
+    # in pieces; minimiser and plain k-mer reads up to L_CAP
+    max_fused = (None if use_e2e and dsync.supports(scheme)
+                 else dsync.L_CAP)
+
     def process(chunk):
-        """One batch: reads up to L_CAP go to the fused step in
-        power-of-two length buckets (sub-batches of POS_BUDGET/L reads);
-        longer reads take host extraction + device probe."""
+        """One batch: reads go to the fused step in length buckets
+        (dsync.bucket_len; sub-batches of POS_BUDGET/L reads, at least
+        16); reads of length 0, and minimiser and plain k-mer reads past
+        L_CAP, take host extraction + device probe."""
         seqs = [rec.seq for rec in chunk]
         n = len(seqs)
         all_pairs: list = [None] * n
@@ -334,8 +347,9 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
         if use_e2e:
             buckets: dict[int, list[int]] = {}
             for i, s in enumerate(seqs):
-                if 0 < len(s) <= dsync.L_CAP:
-                    buckets.setdefault(dsync.pad_len_bucket(len(s)),
+                if 0 < len(s) and (max_fused is None
+                                   or len(s) <= max_fused):
+                    buckets.setdefault(dsync.bucket_len(len(s)),
                                        []).append(i)
                 else:
                     hash_idx.append(i)
@@ -358,7 +372,10 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
                     thresholder, dfs_rank, hcap, sums=sums,
                     trunc_out=trunc_out)
                 trunc, over = trunc_out
-                ROUTES.add(fused=len(part), hcap_overflow=over.sum(),
+                ROUTES.add(fused=len(part),
+                           long_fused=sum(len(q) > dsync.L_CAP
+                                          for q in gseqs),
+                           hcap_overflow=over.sum(),
                            truncated=(trunc & ~over).sum(),
                            host_fallback=(over | trunc).sum())
                 if trunc.mean() > 0.02:

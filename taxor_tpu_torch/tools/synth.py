@@ -8,7 +8,8 @@ one seed writes the same taxonomy TSV, genome FASTAs and reads, byte for
 byte (tests/test_torch_tools.py holds them equal).  Beside them,
 ``write_wide_root_layout`` writes a hierarchical layout whose root is
 wider than 512 bins, which the layout's own search does not give at a
-size the tests can build.
+size the tests can build, and ``reads_across_cuts`` reads past L_CAP
+whose cuts into pieces are the tracker's hard cases.
 """
 
 from __future__ import annotations
@@ -142,6 +143,46 @@ def mixed_length_reads(tmp: str, seed: int = 17, n_reads: int = 192):
                 seq[p] = b"ACGT"[int(rng.integers(0, 4))]
             fh.write(f"@r{i}_{acc}\n{seq.decode()}\n+\n{'I' * ln}\n")
     return tsv, gdir, out
+
+
+# what reads_across_cuts puts at each cut
+CUT_KINDS = ("homopolymer", "dinucleotide", "n")
+LONG_LENGTHS = (32769, 40000, 70000, 100000)
+
+
+def reads_across_cuts(rng, k: int = 22,
+                      lengths=LONG_LENGTHS) -> list[bytes]:
+    """Syncmer reads past L_CAP whose cuts into pieces are the tracker's
+    hard cases: for each length and each of CUT_KINDS, random bases with,
+    across every piece's first window (hash/device_syncmer.piece_owned),
+    a homopolymer of 240 bases, a dinucleotide repeat of 300 (both longer
+    than the pieces' overlap), or Ns at the window's first and last base
+    (dna4 reads N as A); then tied stretches longer than a piece: a
+    homopolymer and a dinucleotide repeat of 40,000 bases in random
+    sequence, a read of one letter and a period-6 tandem repeat.  A
+    read of L_CAP + 1 bases has a last piece that adds fewer than k
+    bases."""
+    from ..hash.device_syncmer import PIECE_STRIDE, piece_count
+
+    out = []
+    for n in lengths:
+        for kind in CUT_KINDS:
+            a = BASES[rng.integers(0, 4, n)].copy()
+            for j in range(1, piece_count(n)):
+                c = j * PIECE_STRIDE + k - 1  # the piece's first window
+                if kind == "homopolymer":
+                    a[c - 120:c + 120] = ord("A")
+                elif kind == "dinucleotide":  # clipped at the read's end
+                    seg = a[c - 150:c + 150]
+                    seg[:] = np.frombuffer(b"AC" * 150, np.uint8)[:seg.size]
+                else:
+                    a[[c - k + 1, c]] = ord("N")
+            out.append(a.tobytes())
+    for unit in (b"A", b"AC"):
+        a = BASES[rng.integers(0, 4, 70000)].copy()
+        a[5000:45000] = np.frombuffer(unit * (40000 // len(unit)), np.uint8)
+        out.append(a.tobytes())
+    return out + [b"G" * 70000, (b"ACGTTG" * 12000)[:70000]]
 
 
 def write_wide_root_layout(files: list[str], path: str, split: int = 8,

@@ -1,6 +1,7 @@
-"""The CUDA kernels K1, K2, K2n, syncmer_track, K3, K4 and K5, the steps
-on the card (syncmer, minimiser, plain k-mer and scaled schemes) and the
-tools' four diagnostic kernels, held bit-exact to their plain twins.
+"""The CUDA kernels K1, K2, K2n, syncmer_track, K3, K4, K5 and K6, the
+steps on the card (syncmer, minimiser, plain k-mer and scaled schemes;
+syncmer reads past L_CAP in pieces) and the tools' four diagnostic
+kernels, held bit-exact to their plain twins.
 Needs a CUDA GPU and nvcc; skips elsewhere.  This file imports no JAX,
 so it also runs on a machine without it:
 
@@ -157,6 +158,149 @@ def test_dedup_pairs_equals_dedup_fused(cuda):
     assert sort.sort_pairs.LAUNCHES == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def long_reads(rng, k: int) -> list[bytes]:
+    """tools/synth.reads_across_cuts (tied runs and Ns across every cut,
+    tied stretches past a piece) and random reads past L_CAP."""
+    return synth.reads_across_cuts(rng, k) + [
+        ACGT[rng.integers(0, 4, n)].tobytes() for n in (33000, 90000)]
+
+
+@pytest.mark.parametrize("k,s,t", [(22, 12, 5), (16, 8, 4), (14, 12, 1)])
+def test_k1_pieces_match_twin(cuda, k, s, t):
+    """K1 on the pieces of reads past L_CAP (4 pieces a read; the gap-1
+    scheme sorts in global scratch and overflows its pieces' hcap), then
+    their union (K4, K6): bit-exact to the twins, and the union equals
+    the host scanner's set where no piece overflows."""
+    from taxor_tpu_torch.hash.schemes import HashScheme, search_hashes
+    from taxor_tpu_torch.utils.u64 import join32
+
+    seqs = long_reads(np.random.default_rng(k + s), k)
+    L = dsync.bucket_len(max(len(q) for q in seqs))
+    P = dsync.bucket_pieces(L)
+    packed, lengths = dsync.pack_reads(seqs, L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    hp = dsync.hash_cap(dsync.L_CAP)
+    before = extract.syncmer_hashes.LAUNCHES
+    got = extract.syncmer_hashes(pk, ln, k, s, t, hp, pieces=P)
+    want = extract.syncmer_hashes_plain(pk.cpu(), ln.cpu(), k, s, t, hp,
+                                        pieces=P)
+    torch.cuda.synchronize()
+    assert extract.syncmer_hashes.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert a.shape[0] == len(seqs) * P and torch.equal(a.cpu(), b)
+    before = sort.sort_pairs.LAUNCHES, sort.unique_pairs.LAUNCHES
+    hashes = e2e._syncmer_hashes(pk, ln, k, s, t, dsync.hash_cap(L))
+    assert (sort.sort_pairs.LAUNCHES, sort.unique_pairs.LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    plain = e2e._syncmer_hashes(pk.cpu(), ln.cpu(), k, s, t,
+                                dsync.hash_cap(L))
+    for a, b in zip(hashes, plain):
+        assert torch.equal(a.cpu(), b)
+    hi, lo, valid, n_unique, n_emit = (x.cpu() for x in hashes)
+    host = search_hashes(seqs, HashScheme(kmer_size=k, window_size=k,
+                                          syncmer_size=s, t_syncmer=t))
+    for r, h in enumerate(host):
+        if int(n_emit[r]) == sort.OVERFLOW:
+            continue
+        keys = join32(hi[r], lo[r])[valid[r]].numpy().astype(np.uint64)
+        assert np.array_equal(np.sort(keys), h) and n_unique[r] == len(h)
+    assert (n_emit == sort.OVERFLOW).any() == (t == 1)
+
+
+def test_track_pieces_match_twin(cuda, monkeypatch):
+    """syncmer_track on the pieces, then K3 on each piece and the union:
+    the split engine's long reads, equal to K1's."""
+    k, s, t = 22, 12, 5
+    seqs = long_reads(np.random.default_rng(4), k)
+    L = dsync.bucket_len(max(len(q) for q in seqs))
+    P = dsync.bucket_pieces(L)
+    packed, lengths = dsync.pack_reads(seqs, L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    kmer, emit = extract.syncmer_track(pk, ln, k, s, t, pieces=P)
+    want = dsync.syncmer_kmers_pieces(pk.cpu(), ln.cpu(), k, s, t, P)
+    torch.cuda.synchronize()
+    assert torch.equal(kmer.cpu(), want[0]) and torch.equal(emit.cpu(),
+                                                            want[1])
+    k1 = e2e._syncmer_hashes(pk, ln, k, s, t, dsync.hash_cap(L))
+    monkeypatch.setattr(e2e, "USE_FUSED_EXTRACT", False)
+    split = e2e._syncmer_hashes(pk, ln, k, s, t, dsync.hash_cap(L))
+    for a, b in zip(k1, split):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W", [1, 7, 1024, 16384, 262144])
+def test_unique_pairs_matches_twin(cuda, W):
+    """K6 on sorted rows with duplicates, all-ones keys among the real
+    ones, n_valid of 0, 1, W and in between."""
+    hi, lo = time_sort.pair_rows(np.random.default_rng(W), 6, W)
+    args = [torch.from_numpy(x.view(np.int32)).to(cuda) for x in (hi, lo)]
+    args = list(sort.sort_pairs_plain(*args))
+    n_valid = torch.tensor([0, 1, W, W // 2, max(0, W - 1), W],
+                           dtype=torch.int32, device=cuda)
+    before = sort.unique_pairs.LAUNCHES
+    got = sort.unique_pairs(*args, n_valid)
+    want = sort.unique_pairs_plain(*args, n_valid)
+    torch.cuda.synchronize()
+    assert sort.unique_pairs.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P", [2, 32])
+def test_union_pieces_matches_twin(cuda, P):
+    """union_pieces at 2 and 32 pieces of 8,192 slots: K4 on its register
+    route (16,384 keys) and its global-scratch route (262,144), then K6,
+    bit-exact to the twins; hashes repeat across pieces."""
+    rng = np.random.default_rng(P)
+    R, hp = 3, 8192
+    keys = rng.integers(0, 2**40, (R * P, hp)).astype(np.int64)
+    keys[:, ::7] = keys[:, :1]  # repeats within and across pieces
+    keys[0, 5] = -1  # a real all-ones hash
+    valid = rng.random((R * P, hp)) < 0.7
+    hi, lo = (torch.from_numpy(x).to(cuda) for x in (
+        (keys >> 32).astype(np.int32), (keys & 0xFFFFFFFF).astype(np.int32)))
+    valid = torch.from_numpy(valid).to(cuda)
+    n_emit = valid.sum(dim=1, dtype=torch.int32)
+    got = sort.union_pieces(hi, lo, valid, n_emit, P)
+    want = sort.union_pieces(hi.cpu(), lo.cpu(), valid.cpu(), n_emit.cpu(),
+                             P)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_long_read_steps_match_cpu_twins(cuda, tmp_path):
+    """The flat and the grouped step on a bucket of pieces (K1, K4, K6,
+    then K2 or K2n at the bucket's hash slots) equal the CPU twins."""
+    from taxor_tpu_torch.apps.build import BuildConfig, run_build
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.search.thresholds import Thresholder
+
+    from .util import make_ref_set
+
+    rng = np.random.default_rng(12)
+    tsv, gdir, genomes = make_ref_set(str(tmp_path), rng, n_species=80,
+                                      genome_len=36000)
+    seqs = [(g * 2)[o:o + n] for g, o, n in zip(
+        genomes.values(), range(0, 36000, 2000), (33000, 40000, 70000) * 6)]
+    L = dsync.bucket_len(max(len(q) for q in seqs))
+    packed, lengths = dsync.pack_reads(seqs, L)
+    th = Thresholder.make(22, 22, 0.04, -1.0, True)
+    for layout in ("flat", "auto"):
+        index = run_build(BuildConfig(
+            input_file=tsv, input_sequence_dir=gdir, output_filename="",
+            kmer_size=22, syncmer_size=12, use_syncmer=True,
+            layout_mode=layout, tmax=64 if layout == "auto" else 0,
+            layout_file=str(tmp_path / f"{layout}.out")))
+        dhs = [DeviceHIXF.from_hixf(index.hixf, dev) for dev in ("cpu", cuda)]
+        out = [dh.e2e_async(packed, lengths, index.scheme, th)()
+               for dh in dhs]
+        for a, b in zip(out[0][:5], out[1][:5]):
+            np.testing.assert_array_equal(a, b)
+        assert out[1][4] == dsync.hash_cap(L) and (out[1][0][:, 0] > 0).all()
 
 
 def test_split_step_equals_k1_step(cuda, monkeypatch):

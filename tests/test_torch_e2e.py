@@ -159,8 +159,9 @@ def test_search_device_equals_host(split_setup, host_tsv):
     host = search({"engine": "host"}, idx, reads,
                   os.path.join(tmp, "host.tsv"))
     assert dev == host == host_tsv
-    assert routes["host_hashes"] == 2  # the reads over L_CAP
-    assert routes["fused"] == len(seqs) - 2
+    # the reads over L_CAP take the fused step in pieces
+    assert routes["long_fused"] == 2 and routes["host_hashes"] == 0
+    assert routes["fused"] == len(seqs)
     rows = host_tsv.decode().splitlines()[1:]
     hits = sum(r.split("\t")[1] != "-" for r in rows)
     assert hits >= len(seqs) * 3 // 4

@@ -229,7 +229,7 @@ def run_search(idx, reads, out, **kw):
 def test_search_cpu_equals_jax_host(hier_setup, tmp_path):
     """The hierarchical --device cpu TSV (the plain twins) equals the JAX
     --engine host TSV byte for byte, with two reads over L_CAP on the
-    per-IXF traversal."""
+    fused step in pieces."""
     _, idx, reads, seqs = hier_setup
     want_path = str(tmp_path / "jax_host.tsv")
     jax_pipeline.run_search(jax_pipeline.SearchConfig(
@@ -242,7 +242,8 @@ def test_search_cpu_equals_jax_host(hier_setup, tmp_path):
     routes = dict(pipeline.ROUTES.counts)
     host = run_search(idx, reads, str(tmp_path / "host.tsv"), engine="host")
     assert dev == host == want
-    assert routes["host_hashes"] == 2 and routes["fused"] == len(seqs) - 2
+    assert routes["long_fused"] == 2 and routes["host_hashes"] == 0
+    assert routes["fused"] == len(seqs)
     rows = want.decode().splitlines()[1:]
     assert sum(r.split("\t")[1] != "-" for r in rows) >= len(seqs) * 3 // 4
 

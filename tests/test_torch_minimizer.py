@@ -325,7 +325,8 @@ def test_scaled_fused_matches_host(flat_sets, name):
 def test_search_device_equals_host(flat_sets, name):
     """The whole search: the port's device engine (the fused step on the
     CPU twins) writes the TSV of the JAX host engine byte for byte, its
-    reads routed fused but the two over L_CAP."""
+    reads routed fused but the two over L_CAP, which are hashed on the
+    host, or, for syncmers, fused in pieces."""
     index_of, reads, seqs, tmp = flat_sets
     idx = index_of(name)[1]
     out = {}
@@ -345,7 +346,11 @@ def test_search_device_equals_host(flat_sets, name):
             out[pkg, engine] = fh.read()
     assert out["torch", "device"] == out["torch", "host"] == out["jax", "host"]
     routes = pipeline.ROUTES.counts
-    assert routes["fused"] == len(seqs) - 2 and routes["host_hashes"] == 2
+    if name == "scaled_syncmer":
+        assert routes["fused"] == len(seqs) and routes["long_fused"] == 2
+        assert routes["host_hashes"] == 0
+    else:
+        assert routes["fused"] == len(seqs) - 2 and routes["host_hashes"] == 2
 
 
 @pytest.mark.parametrize("scheme,fused", [

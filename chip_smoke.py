@@ -93,8 +93,13 @@ Phases (any failure exits non-zero):
      picks) on the root and the first stacked level;
   9. K4 (pair sort) against its twin, bit-exact, at W = 1, 2, 31, 100,
      128, 1024, 8192, 16384 (the register network at E = 16 and 32) and
-     32768 (global scratch), with duplicated keys, keys equal to the
-     sentinel, a row of equal keys and a row of sentinels; K3 against its
+     16,385, 32,768, 65,536, 100,000, 262,144 and 524,288 (the merge
+     route: chunks of 16,384 sorted on the network, then merge-path
+     passes), with duplicated keys, keys with the top bit of hi set, keys
+     equal to the sentinel, a row of equal keys and a row of sentinels;
+     the merge route timed on random keys at [8, 262,144] and [4,
+     524,288], a call and on the device alone, beside its twin and
+     ``torch.sort`` (K4's record: ``merge_shapes``); K3 against its
      twin at every buffer of its register route (Wb = 256-16,384; rows
      of L = 1,000, no multiple of 16 bytes, take byte loads) and the
      global-scratch route (gap 1 at L = 32,768), on rows of 0, 1,
@@ -103,7 +108,8 @@ Phases (any failure exits non-zero):
      after phase 4, K3 against ``sort.dedup_pairs`` (K4) on the flat
      path's L=8192 reads.  Since the long reads take the fused step in
      pieces, K4 sorts their union on the main paths (phase 18 checks it
-     at those widths);
+     at those widths, 16,384 keys on the register route and 262,144 on
+     the merge route);
  10. syncmer_track, K3 and K4 timed against their twins, K4 against
      ``torch.sort`` of the combined key, and the split engine's
      extraction against K1, at the flat path's L=8192 bucket; K3 and K4
@@ -155,15 +161,20 @@ Phases (any failure exits non-zero):
      phase 2's kinds of reads for (k, window) = (20, 20), (20, 26),
      (18, 26) and (32, 40), without the FracMinHash keep and with the
      keeps of scalings 2, 3 and 1,000 (the twin followed by the keep as
-     tensor ops); (a) ``--minimizer-genomes`` genomes (8,192) and
-     ``--hier-reads`` reads of phase 7's recipe, drawn apart from
+     tensor ops); then at rows past K5's span of 32,768 positions (a
+     cluster a span): the first bucket past L_CAP (65,504) and the ~1 Mb
+     bucket (1,047,584), for (20, 20), (20, 26) and (32, 40) at scalings
+     1 and 3, on reads with N runs, homopolymers and tandem repeats
+     across every span boundary; (a) ``--minimizer-genomes`` genomes
+     (8,192) and ``--hier-reads`` reads of phase 7's recipe, drawn apart from
      phase 7's, under the bench's hier_scaled_minimizer scheme whole
      (k = 20, --window-size 26, --scaling 3, --layout auto --tmax 64)
      searched with ``--engine device``: its fracminhash thresholds take
      the per-read descent (each read's hash count copied to the host
      after K5, its exact threshold computed there and uploaded), K5 and
-     K2n must launch, every read up to L_CAP must take the fused step
-     and only the long ones the host-hash route, and the TSV must equal
+     K2n must launch, every read must take the fused step, the 16 of 40
+     kb ``long_fused`` (K5 on their whole bucket), none the host-hash
+     route, and the TSV must equal
      ``--engine host`` on the first CHECK_READS reads and the long
      ones; the share of classified reads that name their source genome
      is logged.  All of its reads.  The share of active (subgroup, read)
@@ -313,7 +324,23 @@ Phases (any failure exits non-zero):
      and the pack (``dsync.bucket_len`` and ``pack_reads`` by bucket);
      the old route of phases 4b and 7c (``search_hashes``,
      ``pipeline._device_dispatch``) against the new
-     (``DeviceHIXF.e2e_async`` on the piece bucket) on its long reads.
+     (``DeviceHIXF.e2e_async`` on the piece bucket) on its long reads;
+ 19. minimiser and plain k-mer reads past L_CAP: on (a) phase 13a's
+     scaled minimiser hierarchy (per-read descent) and (b) phase 13b's
+     plain k-mer flat index (K2's thin slabs), each with TAIL_READS_19
+     (512) reads of phase 18's length recipe and ULTRA_LONG_READS (8) of
+     0.5-1 Mb drawn from the index's own genomes taken as circular (a
+     read past 30 kb repeats its genome: **cut**, the phase builds no
+     index of its own), 4% substitutions: ``cli search --engine
+     device`` with the launch counts set to 0 just before, K5 and the
+     probe kernel must launch, every read past L_CAP ``long_fused`` and
+     none hashed on the host, the TSV equal to ``--engine host`` on
+     every read past L_CAP; wall, routes and peak device memory, and the
+     peak of one fused step of 16 reads of the 1,047,584 bucket; the
+     host-hash route (``search_hashes``, ``pipeline._device_dispatch``)
+     against the fused step on the path's 16 reads of 40 kb and on two
+     0.5-1 Mb reads.  Its launches join the kernels records' main-path
+     launches; K5's record holds its ``long_reads``.
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -328,8 +355,8 @@ start in processes of this script of their own (``--prebuild``, PREBUILDS)
 at the lowest CPU priority, while the card runs the phases before them;
 phase 16's timed gates run after all of them have ended.  The order of
 the phases: 1-4, 5 and 10, 14a/d/e, 6, 7, 8, 13c, 13a, 13d, 14b, 14c,
-13b, 13e, 15, 18, 16 (16c on phase 7's data, then on its own), 17, 11,
-12.
+19a, 13b, 13e, 19b, 15, 18, 16 (16c on phase 7's data, then on its own),
+17, 11, 12.
 
 The second-to-last line of stdout is nvidia-smi's name and power limit;
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.  The
@@ -843,13 +870,16 @@ def check_run_sums(torch, probe, rng) -> None:
 
 
 # ------------------------------------------------------------- K3, K4 --
-def check_sorts(torch, sort, rng) -> None:
+def check_sorts(torch, sort, rng) -> dict:
     """K4 at four widths, and K3 on a row that breaks min_gap, from the
     main rng (the draws of the main paths that follow stay as they
     were); then, from a generator of their own, K4 at every width of
-    time_sort.PAIR_WIDTHS and K3 at every emission count of
-    time_sort.emission_counts, through every branch of their register
-    network and both global-scratch routes."""
+    time_sort.PAIR_WIDTHS (the merge route's MERGE_WIDTHS among them) and
+    K3 at every emission count of time_sort.emission_counts, through
+    every branch of their register network, K4's merge route and K3's
+    global-scratch route; then K4's merge route timed on random keys at
+    MERGE_SHAPES beside its twin and ``torch.sort`` (returned by shape,
+    for K4's record)."""
     from taxor_tpu_torch.tools import time_sort
 
     dev = torch.device("cuda")
@@ -886,8 +916,10 @@ def check_sorts(torch, sort, rng) -> None:
         assert_equal(torch, f"K4 W={W}", ("hi", "lo"),
                      sort.sort_pairs(*args), sort.sort_pairs_plain(*args))
     log(f"K4 [{R}, W] at W = {list(time_sort.PAIR_WIDTHS)}: bit-exact vs "
-        f"twin (duplicated keys, sentinel keys, a row of equal keys, a row "
-        f"of sentinels; W > {sort.REG_SORT_MAX} in global scratch)")
+        f"twin (duplicated keys, keys with the top bit of hi set, sentinel "
+        f"keys, a row of equal keys, a row of sentinels, a row of three "
+        f"distinct keys, a row of long equal runs; W > "
+        f"{sort.REG_SORT_MAX} on the merge route)")
     for L, gap in ((1000, 5), (2048, 1), (8192, 5), (16384, 5),
                    (32768, 5), (32768, 2), (32768, 1)):
         counts = time_sort.emission_counts(L, gap)
@@ -909,6 +941,56 @@ def check_sorts(torch, sort, rng) -> None:
             f"{'global scratch' if Wb > sort.REG_SORT_MAX else 'registers'}"
             f"): bit-exact vs twin at {counts} emissions, all-equal and "
             f"sentinel k-mers, hcap 2048 and 100")
+    merge = {}
+    for R, W in MERGE_SHAPES:
+        keys = torch.from_numpy(own.integers(-2**63, 2**63 - 1, (R, W),
+                                             dtype=np.int64)).to(dev)
+        hi, lo = (keys >> 32).to(torch.int32), keys.to(torch.int32)
+        merge[f"{R}x{W}"] = k4_record(torch, sort, hi, lo)
+        log(f"K4 merge route at [{R}, {W}]: {json.dumps(merge[f'{R}x{W}'])}"
+            f"; {card_line()}")
+    return merge
+
+
+# K4's merge route timed at these [R, W] (phase 9): the union's width of 32
+# pieces, and of 64
+MERGE_SHAPES = ((8, 262144), (4, 524288))
+
+
+def k4_ops(R: int, W: int) -> float:
+    """Compare-exchanges of K4 on [R, W]: the bitonic network over pow2(W)
+    keys a row (the register route), or over each chunk of REG_SORT_MAX
+    keys and one compare an output in each of the log2(Wp / REG_SORT_MAX)
+    merge passes (the merge route)."""
+    from taxor_tpu_torch.device import sort
+
+    Wp = 1 << max(0, W - 1).bit_length()
+    if Wp <= sort.REG_SORT_MAX:
+        return sort_ops([W] * R)
+    chunks = Wp // sort.REG_SORT_MAX
+    passes = chunks.bit_length() - 1
+    return (R * chunks * sort_ops([sort.REG_SORT_MAX])
+            + float(R) * Wp * passes)
+
+
+def k4_record(torch, sort, hi, lo) -> dict:
+    """K4 on the rows hi, lo against its twin, bit-exact: a call and on the
+    device alone beside its twin, ``torch.sort`` of the combined key, its
+    bound (16 bytes a key in and out) and its route."""
+    from taxor_tpu_torch.tools.time_sort import device_ms
+    from taxor_tpu_torch.utils.u64 import INT64_MIN, join32
+
+    R, W = hi.shape
+    keys = join32(hi, lo) ^ INT64_MIN
+    ms, plain_ms, err, _ = time_pair(
+        torch, lambda: sort.sort_pairs(hi, lo),
+        lambda: sort.sort_pairs_plain(hi, lo), 3)
+    return dict(reads=R, width=W, route="registers"
+                if W <= sort.REG_SORT_MAX else "merge", ms=ms,
+                dev_ms=device_ms(lambda: sort.sort_pairs(hi, lo)),
+                plain_ms=plain_ms, max_abs_err=err,
+                library_ms=cuda_ms(lambda: torch.sort(keys, dim=1), 3),
+                **bound(16 * R * W, k4_ops(R, W), PEAK_SCALAR))
 
 
 # ------------------------------------------------------- main path data --
@@ -1587,7 +1669,8 @@ def time_hier(torch, state) -> list[dict]:
     K2n's record (the root and the widest group at L=8192, against the
     twin) and K2 (the variant each shape picks) on the root and the first
     stacked level."""
-    from taxor_tpu_torch.search.thresholds import Thresholder
+    from taxor_tpu_torch.search.thresholds import (Thresholder,
+                                                   count_thresholds)
     from taxor_tpu_torch.device import extract, probe
     from taxor_tpu_torch.device.e2e import descend
     from taxor_tpu_torch.hash import device_syncmer as dsync
@@ -1608,7 +1691,7 @@ def time_hier(torch, state) -> list[dict]:
         hi, lo, valid, n_unique, _ = extract.syncmer_hashes(
             torch.from_numpy(packed).to(dev),
             torch.from_numpy(lengths).to(dev), K, S, (K - S + 1) // 2, hcap)
-        thr = torch.from_numpy(dh._thr_table(th, hcap)).to(dev)[
+        thr = torch.from_numpy(count_thresholds(th, hcap)).to(dev)[
             n_unique.clamp(0, hcap).long()]
         R = hi.shape[0]
         for gi, g in enumerate(dh.groups):
@@ -1714,13 +1797,17 @@ def k5_ops(k: int, window: int) -> int:
     return 16 if wp == 1 else 16 + (wp + 8) + 8
 
 
-def check_k5(torch, dsync, extract, rng) -> None:
+def check_k5(torch, dsync, extract, rng) -> dict:
     """Phase 13c: K5 against its twin, bit for bit (0 where nothing is
     emitted), at every length bucket on phase 2's kinds of reads, for each
     (k, window) of K5_SCHEMES: plain k-mers (w' = 1), windowed minimisers
     and k = 32 (the seed's top bit set); without the FracMinHash keep
     (valid = emit, n_unique = n_emit) and with it for each scaling of
-    K5_SCALINGS (the twin followed by the keep as tensor ops)."""
+    K5_SCALINGS (the twin followed by the keep as tensor ops); then at
+    K5_LONG_BUCKETS, rows of more than one span, for K5_LONG_SCHEMES at
+    scalings 1 and 3, and K5 at (20, 26) with no keep timed there (a call
+    and on the device alone, beside its twin and its bound): returned by
+    bucket, for K5's record."""
     from taxor_tpu_torch.hash.schemes import scaling_threshold_u64
 
     dev = torch.device("cuda")
@@ -1751,7 +1838,72 @@ def check_k5(torch, dsync, extract, rng) -> None:
             f"window) {list(K5_SCHEMES)}, with no keep and the keeps of "
             f"scalings {list(K5_SCALINGS)} (emissions {n_emit}; kept by "
             f"scheme and scaling {kept})")
+    from taxor_tpu_torch.tools.time_sort import device_ms
+
+    own = np.random.default_rng(SEED + 5)  # the main draws stay as they were
+    long_rows = {}
+    for L in K5_LONG_BUCKETS:
+        packed, lengths = dsync.pack_reads(span_reads(own, L), L)
+        pk = torch.from_numpy(packed).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        n_emit = []
+        for k, window in K5_LONG_SCHEMES:
+            for sc in (1, 3):
+                thresh = scaling_threshold_u64(sc) if sc > 1 else 0
+                got = extract.minimizer_kmers(pk, ln, k, window, thresh)
+                assert_equal(torch, f"K5 L={L} k={k} window={window} "
+                             f"scaling {sc}", names, got,
+                             extract.minimizer_hashes_plain(
+                                 pk, ln, k, window, thresh))
+                n_emit.append(int(got[3].sum()))
+        R = pk.shape[0]
+        ms, plain_ms, err, _ = time_pair(
+            torch, lambda: extract.minimizer_kmers(pk, ln, MM_K, MM_WINDOW),
+            lambda: extract.minimizer_hashes_plain(pk, ln, MM_K, MM_WINDOW),
+            3)
+        long_rows[f"L{L}"] = dict(
+            reads=R, width=L, window=MM_WINDOW, ms=ms,
+            dev_ms=device_ms(lambda: extract.minimizer_kmers(
+                pk, ln, MM_K, MM_WINDOW)), plain_ms=plain_ms,
+            max_abs_err=err,
+            # packed + lengths in; hi, lo, valid, n_emit, n_unique out
+            **bound(pk.numel() + 4 * R + 9 * R * L + 8 * R,
+                    float(R * L) * k5_ops(MM_K, MM_WINDOW), PEAK_SCALAR))
+        log(f"K5 L={L} (spans of {K5_SPAN}): bit-exact vs "
+            f"twin on {R} reads with N runs and homopolymers across every "
+            f"span boundary, for (k, window) {list(K5_LONG_SCHEMES)} at "
+            f"scalings 1 and 3 (emissions {n_emit}); timed at ({MM_K}, "
+            f"{MM_WINDOW}): {json.dumps(long_rows[f'L{L}'])}; {card_line()}")
     log(f"phase 13c: K5 checked in {time.perf_counter() - t0:.1f} s")
+    return long_rows
+
+
+# phase 13c's rows past K5's span: the first bucket past L_CAP and the
+# bucket of reads of 0.5-1 Mb; w' = 1, w' = 7 and k = 32
+K5_LONG_BUCKETS = (65504, 1047584)
+K5_LONG_SCHEMES = ((20, 20), (20, 26), (32, 40))
+# end positions of one K5 cluster (csrc/minimizer.cu kSpan): the span
+# boundaries the reads of span_reads put their ties across
+K5_SPAN = 32768
+
+
+def span_reads(rng, L: int) -> list[bytes]:
+    """16 reads of bucket L, past K5's span: random reads of L/2 to L
+    bases; reads with an N run, a homopolymer or a tandem repeat across
+    every span boundary (the windows tied there); one just past L_CAP;
+    one of the full bucket."""
+    from taxor_tpu_torch.hash.device_syncmer import L_CAP
+
+    seqs = [ACGT[rng.integers(0, 4, int(rng.integers(L // 2, L)))]
+            .tobytes() for _ in range(8)]
+    for fill in (b"N", b"A", b"T", b"AC", b"ACG"):
+        arr = ACGT[rng.integers(0, 4, L - 5)].copy()
+        for b in range(K5_SPAN, L, K5_SPAN):
+            arr[b - 45:b + 35] = np.frombuffer(fill * 80, np.uint8)[:80]
+        seqs.append(arr.tobytes())
+    seqs.append(ACGT[rng.integers(0, 4, L_CAP + 5)].tobytes())
+    seqs.append(ACGT[rng.integers(0, 4, L)].tobytes())
+    return seqs + [b""]
 
 
 def kmer_data(rng, work: str, n_genomes: int, n_reads: int) -> dict:
@@ -1772,12 +1924,13 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict,
     background build made of ``data``'s genomes (``data["idx"]``),
     ``cli search --engine device`` of its reads with
     the launch counts set to 0 just before and read just after; the
-    kernels ``need`` must have launched, every read up to L_CAP must take
-    the fused step and only the reads over it the host-hash route, and
-    the TSV must equal ``--engine host`` on the first CHECK_READS reads
-    and the long ones.  The share of classified reads that name their
-    source genome is logged, not gated, and so are the activity share
-    and the per-read mode's copy-and-threshold host seconds."""
+    kernels ``need`` must have launched, every read must take the fused
+    step, the reads over L_CAP too (``long_fused``: K5 on their whole
+    bucket), none the host-hash route, and the TSV must equal ``--engine
+    host`` on the first CHECK_READS reads and the long ones.  The share
+    of classified reads that name their source genome is logged, not
+    gated, and so are the activity share and the per-read mode's
+    copy-and-threshold host seconds."""
     from taxor_tpu_torch.device.e2e import THRESHOLDS
     from taxor_tpu_torch.device.hixf_search import ACTIVITY
     from taxor_tpu_torch.hixf.index import load_index
@@ -1793,10 +1946,11 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict,
     if any(launches[k] <= 0 for k in need):
         raise AssertionError(f"[{label}] the path skipped one of {need}: "
                              f"{launches}")
-    if routes["fused"] != n_reads or routes["host_hashes"] != len(recs) \
-            - n_reads:
+    if (routes["fused"] != len(recs) or routes["host_hashes"] != 0
+            or routes["long_fused"] != len(recs) - n_reads):
         raise AssertionError(f"[{label}] routes {routes}: expected every "
-                             f"read up to L_CAP fused")
+                             f"read fused, the {len(recs) - n_reads} past "
+                             "L_CAP long_fused, none host-hashed")
     with open(out_dev + ".time") as fh:
         phases = fh.read().strip().replace("\n", " | ")
     log(f"[{label}] main path: {len(recs)} reads in {wall:.2f} s wall = "
@@ -1809,8 +1963,9 @@ def nonsyncmer_path(torch, work: str, label: str, data: dict,
     log(f"[{label}] accuracy (reported, not gated): {hits}/{len(recs)} "
         f"reads classified, {right} of them ({right / max(1, hits):.4f}) to "
         f"their source genome")
-    return {"index": index, "recs": recs, "launches": launches,
-            "routes": routes, "peak_mib": peak, "wall": wall,
+    return {"index": index, "recs": recs, "n_reads": n_reads,
+            "launches": launches, "routes": routes, "peak_mib": peak,
+            "wall": wall,
             "active_share": active, "thresholds": thresholds, "idx": idx,
             "device_tsv": out_dev,
             "reads": data["reads"]}
@@ -1834,10 +1989,10 @@ def build_minimizer(work: str, genomes: int, reads: int) -> dict:
     data["idx"] = {"minimizer": idx}
     t0 = time.perf_counter()
     schemes.NUM_THREADS = os.cpu_count() or 1
-    data["walk_share"] = walk_share(index, [s for _, s in data["recs"][
-        :reads]])
+    # every read takes the fused step, the 16 of 40 kb too
+    data["walk_share"] = walk_share(index, [s for _, s in data["recs"]])
     log(f"[minimizer] CPU walk of the per-read thresholds: active share "
-        f"{data['walk_share']:.6f} over {reads} reads "
+        f"{data['walk_share']:.6f} over {len(data['recs'])} reads "
         f"({time.perf_counter() - t0:.1f} s)")
     return data
 
@@ -3015,13 +3170,13 @@ def long_tail_reads(rng, gdir: str) -> list[tuple[str, bytes]]:
 
 
 def long_routes(torch, index, seqs, label: str) -> dict:
-    """The reads past L_CAP of ``seqs`` on both routes of a syncmer
-    index, called directly (tools/time_long_reads.py, best of 3): the
-    host-hash route (``search_hashes`` on one thread, the thresholds,
-    ``pack_hash_lists``, the upload, the probe through
-    ``pipeline._device_dispatch``: top-k, or the per-IXF traversal's
-    launches and round trips) against the fused step in pieces
-    (``pack_reads`` into the bucket, ``DeviceHIXF.e2e_async``)."""
+    """The reads past L_CAP of ``seqs`` on both routes of an index, called
+    directly (tools/time_long_reads.py, best of 3): the host-hash route
+    (``search_hashes`` on one thread, the thresholds, ``pack_hash_lists``,
+    the upload, the probe through ``pipeline._device_dispatch``: top-k,
+    or the per-IXF traversal's launches and round trips) against the
+    fused step (``pack_reads`` into the bucket, ``DeviceHIXF.e2e_async``:
+    a syncmer read in pieces, a minimiser or plain k-mer read whole)."""
     from taxor_tpu_torch.device.hixf_search import DeviceHIXF
     from taxor_tpu_torch.hash import schemes
     from taxor_tpu_torch.search.thresholds import Thresholder
@@ -3047,7 +3202,7 @@ def long_routes(torch, index, seqs, label: str) -> dict:
            "fused": {**fused, **tl.per_read_ms(fused, n)}}
     log(f"[{label}] long reads on both routes, a read: host-hash route "
         f"{sum(v for k, v in rec['host'].items() if k.endswith('_ms_a_read')):.4f}"
-        f" ms ({json.dumps(rec['host'])}); fused step in pieces "
+        f" ms ({json.dumps(rec['host'])}); fused step "
         f"{sum(v for k, v in rec['fused'].items() if k.endswith('_ms_a_read')):.4f}"
         f" ms ({json.dumps(rec['fused'])}); {card_line()}")
     return rec
@@ -3136,16 +3291,7 @@ def time_union(torch, samples: dict) -> dict:
         log(f"phase 18a [{label}]: piece rows bit-exact vs twins: K1 "
             f"{json.dumps(recs['K1'])}; syncmer_track "
             f"{json.dumps(recs['track'])}")
-        keys = join32(h, lo) ^ INT64_MIN
-        ms, plain_ms, err, _ = time_pair(
-            torch, lambda: sort.sort_pairs(h, lo),
-            lambda: sort.sort_pairs_plain(h, lo), 3)
-        k4[f"W{W}"] = dict(
-            reads=R, width=W, route="registers" if W <= sort.REG_SORT_MAX
-            else "global scratch", ms=ms, plain_ms=plain_ms,
-            max_abs_err=err, library_ms=cuda_ms(
-                lambda: torch.sort(keys, dim=1), 3),
-            **bound(16 * R * W, sort_ops([W] * R), PEAK_SCALAR))
+        k4[f"W{W}"] = k4_record(torch, sort, h, lo)
         skeys = join32(sh, sl) ^ INT64_MIN
         ms, plain_ms, err, _ = time_pair(
             torch, lambda: sort.unique_pairs(sh, sl, n_valid),
@@ -3243,6 +3389,164 @@ def long_tail_path(torch, work: str, atscale_work: str) -> dict:
     rec["union_samples"] = {"2 pieces": p2[:ROUTE_SAMPLE],
                             "0.5-1 Mb": longs[-ULTRA_LONG_READS:]}
     return rec
+
+
+# ------------------------------------------------------------ phase 19 --
+TAIL_READS_19 = 512  # phase 18's length recipe, from 30 kb genomes
+
+
+def circular_tail_reads(rng, gdir: str) -> list[tuple[str, bytes]]:
+    """Phase 19's reads from the genomes of gdir: TAIL_READS_19 of phase
+    18's log-normal lengths (median 8 kb, sigma 1.0, up to LONG_TAIL_MAX)
+    and ULTRA_LONG_READS of 0.5-1 Mb, each from a random genome taken as
+    circular (a read past its 30 kb repeats it), 4% substitutions; the
+    reads up to L_CAP first, then the longer ones."""
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+
+    names = sorted(os.listdir(gdir))
+    lens = np.minimum(rng.lognormal(np.log(8000), 1.0, TAIL_READS_19),
+                      LONG_TAIL_MAX).astype(int)
+    lens = np.concatenate([np.maximum(lens, 1), rng.integers(
+        500_000, 1_000_001, ULTRA_LONG_READS)])
+    genomes: dict = {}
+    recs = []
+    for j, n in enumerate(lens.tolist()):
+        name = names[int(rng.integers(0, len(names)))]
+        if name not in genomes:
+            with open(os.path.join(gdir, name), "rb") as fh:
+                head, seq = fh.read().split(b"\n", 1)
+            genomes[name] = (head[1:].split()[0].decode(), np.frombuffer(
+                seq.replace(b"\n", b""), np.uint8))
+        acc, seq = genomes[name]
+        off = int(rng.integers(0, seq.shape[0]))
+        arr = np.tile(seq, n // seq.shape[0] + 2)[off:off + n].copy()
+        recs.append((f"tail{j}_{acc}", mutate(rng, arr, 0.04)))
+    return ([r for r in recs if len(r[1]) <= dsync.L_CAP]
+            + [r for r in recs if len(r[1]) > dsync.L_CAP])
+
+
+def long_nonsyncmer(torch, work: str, label: str, state: dict,
+                    gdir: str) -> dict:
+    """Phase 19: minimiser or plain k-mer reads past L_CAP on the index of
+    phase 13a or 13b (``state``, nonsyncmer_path's), drawn from its own
+    genomes (gdir): ``cli search --engine device`` with the launch counts
+    set to 0 just before and read just after, K5 and a probe kernel must
+    launch, every read must take the fused step, every read past L_CAP
+    counted ``long_fused`` and none hashed on the host, and the TSV must
+    equal ``--engine host`` on every read past L_CAP; wall, routes, peak
+    device memory; then the fused step of 16 reads of the ~1 Mb bucket
+    (the 0.5-1 Mb reads twice) with its peak device memory; then both
+    routes timed (``long_routes``) on the path's 16 reads of 40 kb and on
+    two of the 0.5-1 Mb reads."""
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.search.thresholds import Thresholder
+
+    os.makedirs(work, exist_ok=True)
+    recs = circular_tail_reads(np.random.default_rng(SEED + 19), gdir)
+    n_short = sum(len(q) <= dsync.L_CAP for _, q in recs)
+    longs = recs[n_short:]
+    reads = os.path.join(work, f"{label}_tail.fasta")
+    write_fasta(reads, recs)
+    bases = sum(len(q) for _, q in recs)
+    out_dev = os.path.join(work, f"{label}_tail_device.tsv")
+    tag = f"{label} tail"
+    launches, routes, wall, peak = device_search(torch, state["idx"], reads,
+                                                 out_dev, tag)
+    if (routes["fused"] != len(recs) or routes["long_fused"] != len(longs)
+            or routes["host_hashes"] != 0):
+        raise AssertionError(f"[{tag}] routes {routes}: every read past "
+                             "L_CAP must take the fused step whole")
+    probe_key = "K2n" if len(state["index"].hixf.ixfs) > 1 else "K2"
+    if launches["K5"] <= 0 or launches[probe_key] <= 0:
+        raise AssertionError(f"[{tag}] a kernel never launched: {launches}")
+    with open(out_dev + ".time") as fh:
+        phases = fh.read().strip().replace("\n", " | ")
+    log(f"[{tag}] {len(recs)} reads ({bases / 1e6:.1f} Mb), {len(longs)} "
+        f"past L_CAP ({sum(len(q) for _, q in longs) / bases:.3f} of the "
+        f"bases, the longest {max(len(q) for _, q in longs)}) in "
+        f"{wall:.2f} s wall; .time [{phases}]; launches {launches}; routes "
+        f"{routes}; peak device memory {peak:.1f} MiB; {card_line()}")
+    host_parity(work, state["idx"], longs, 0, out_dev, tag)
+    # 16 reads of the ~1 Mb bucket, a whole sub-batch, on the card
+    index = state["index"]
+    sch = index.scheme
+    th = Thresholder.make(kmer_size=sch.kmer_size,
+                          window_size=sch.window_size, error_rate=0.04,
+                          percentage=-1.0, use_syncmer=sch.use_syncmer)
+    ultra = [q for _, q in longs[-ULTRA_LONG_READS:]] * 2
+    L = dsync.bucket_len(1_000_000)
+    packed, lengths = dsync.pack_reads(ultra, L)
+    dh = DeviceHIXF.from_hixf(index.hixf, torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dh.e2e_async(packed, lengths, sch, th)()
+    torch.cuda.synchronize()
+    batch_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(f"[{tag}] the fused step of {len(ultra)} reads of the {L} bucket: "
+        f"peak device memory {batch_mib:.1f} MiB above the index")
+    check_long_probe(torch, dh, packed, lengths, sch, tag)
+    del dh
+    rec = {"reads": len(recs), "bases": bases, "past_l_cap": len(longs),
+           "wall_s": wall, "time": phases, "launches": launches,
+           "routes": routes, "peak_mib": peak,
+           "ultra_batch_peak_mib": batch_mib,
+           "routes_40kb": long_routes(
+               torch, index, [q for _, q in state["recs"][state["n_reads"]:]],
+               f"{label}, 40 kb"),
+           "routes_ultra": long_routes(
+               torch, index, [q for _, q in longs[-2:]],
+               f"{label}, 0.5-1 Mb")}
+    return rec
+
+
+def check_long_probe(torch, dh, packed, lengths, sch, tag: str) -> None:
+    """The probe at a batch of H = L hash slots past L_CAP (K5's rows of
+    the batch) against its twin on the card, bit-exact: K2 on a flat
+    table (the route its shape picks), or on a hierarchy the run sums of
+    the root group and of the first group of the other K2n mode, every
+    read active in the first two subgroups of each (the twin probes only
+    active pairs)."""
+    from taxor_tpu_torch.device import extract, probe
+    from taxor_tpu_torch.device.hixf_search import _scale_thresh
+
+    dev = torch.device("cuda")
+    pk, ln = (torch.from_numpy(x).to(dev) for x in (packed, lengths))
+    hi, lo, valid, _, n_unique = extract.minimizer_kmers(
+        pk, ln, sch.kmer_size, sch.window_size, _scale_thresh(sch))
+    R, H = hi.shape
+    if dh.flat_fast_path:
+        got = probe.probe_counts(hi, lo, valid, dh.table, dh.seed,
+                                 dh.block_length)
+        assert_equal(torch, f"[{tag}] K2 at R={R}, H={H}", ("counts",),
+                     (got,), (probe.probe_counts_plain(
+                         hi, lo, valid, dh.table, dh.seed,
+                         dh.block_length),))
+        log(f"[{tag}] K2 at R={R}, H={H} ({int(n_unique.sum())} valid "
+            f"slots) on {list(dh.table.shape)} bit-exact vs twin, the "
+            f"largest count {int(got.max())}")
+        return
+    modes = {}
+    for g in dh.groups:
+        S, Bp = g["tables"].shape[1:]
+        mode = probe.narrow_mode(S, Bp, dev) if Bp <= 512 else "K2"
+        if mode in modes:
+            continue
+        modes[mode] = g
+        tables = g["tables"]
+        act = torch.zeros((tables.shape[0], R), dtype=torch.bool, device=dev)
+        act[:2] = True
+        args = (hi, lo, valid, tables, act, g["run_off"], g["run_s"],
+                g["run_e"], g["seed"], g["bl"])
+        got = probe.probe_run_sums_grouped(*args)
+        assert_equal(torch, f"[{tag}] run sums ({mode}) at R={R}, H={H}",
+                     ("sums",), (got,),
+                     (probe.probe_run_sums_grouped_plain(*args),))
+        log(f"[{tag}] run sums of a group {list(tables.shape)} ({mode}) at "
+            f"R={R}, H={H} bit-exact vs twin, the largest {int(got.max())}")
+        if len(modes) == 2:
+            break
 
 
 # ------------------------------------------------------------ phase 16 --
@@ -3801,7 +4105,7 @@ def main() -> int:
         with phase("phase 3"):
             k2_rows_checks = check_k2(torch, probe, rng)
         with phase("phase 9 (K3 and K4 checks)"):
-            check_sorts(torch, sort, rng)
+            k4_merge = check_sorts(torch, sort, rng)
         with phase("phase 4"):
             flat = main_path(torch, os.path.join(work, "flat"), rng,
                              args.genomes, args.reads, "flat")
@@ -3848,7 +4152,7 @@ def main() -> int:
         # ---- phase 13: K5, minimisers and plain k-mers, both descents
         t13 = time.perf_counter()
         with phase("phase 13c"):
-            check_k5(torch, dsync, extract, rng)
+            k5_long = check_k5(torch, dsync, extract, rng)
         # 13a: phase 7's recipe on data of its own, under the bench
         # family's whole scheme (scaling 3)
         with phase("phase 13a"):
@@ -3877,6 +4181,10 @@ def main() -> int:
                 ["--mesh-bins", "2"], ("K5", "K2n"), card))
         t14 += time.perf_counter() - t0
         log(f"phase 14: {t14:.1f} s")
+        with phase("phase 19a (minimiser reads past L_CAP, 13a's index)"):
+            tail19 = {"minimizer": long_nonsyncmer(
+                torch, os.path.join(work, "minimizer"), "minimizer", mm,
+                mm_in["gdir"])}
         shutil.rmtree(os.path.join(work, "minimizer"), ignore_errors=True)
         with phase("phase 13b"):
             kmer_in = bg.result("kmer")
@@ -3891,6 +4199,10 @@ def main() -> int:
             scaled = nonsyncmer_path(torch, os.path.join(work, "kmer"),
                                      "scaled", kmer_in, ("K5", "K2"))
         log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+        with phase("phase 19b (plain k-mer reads past L_CAP, 13b's index)"):
+            tail19["kmer"] = long_nonsyncmer(
+                torch, os.path.join(work, "kmer"), "kmer", kmer,
+                kmer_in["gdir"])
         shutil.rmtree(os.path.join(work, "kmer"), ignore_errors=True)
         # ---- phase 15: tables past 2^31 bytes, the at-scale demo
         with phase("phase 15a (tables past 2^31 bytes)"):
@@ -3945,6 +4257,7 @@ def main() -> int:
     runs = [flat["launches"], flat["split"], hier["launches"], hier["split"],
             mm["launches"], kmer["launches"], scaled["launches"],
             atscale["launches"], tail["launches"]]
+    runs += [r["launches"] for r in tail19.values()]  # phase 19
     runs += [r["launches"] for r in route_runs.values()]  # phase 17
     for row in kernels:  # launches on the main paths, both engines
         key = {"syncmer_extract": "K1", "probe_count": "K2 slab",
@@ -3975,6 +4288,14 @@ def main() -> int:
         if key == "K4":  # the long reads' union; at its widths (phase 18a)
             row["check_launches"] = flat["k4_check"]  # sort.dedup_pairs
             row["long_widths"] = union["K4"]
+            row["merge_shapes"] = k4_merge  # phase 9's random keys
+        if key == "K5":  # rows past one span (13c); phase 19's long reads
+            row["long_rows"] = k5_long
+            row["long_reads"] = {
+                lab: {k: r[k] for k in ("reads", "past_l_cap", "wall_s",
+                                        "peak_mib", "ultra_batch_peak_mib")}
+                      | {"launches": r["launches"]["K5"]}
+                for lab, r in tail19.items()}
         if key in ("K1", "track"):  # piece rows of reads past L_CAP (18a)
             row["piece_widths"] = union[key]
         if key == "K2 rows" and row["launches"] == 0:  # no table too tall

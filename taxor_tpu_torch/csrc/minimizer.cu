@@ -1,6 +1,6 @@
 // K5: minimiser and plain k-mer extraction with the FracMinHash keep, one
-// thread block cluster per read, one block per tile of the read's end
-// positions, four consecutive end positions a thread.
+// thread block cluster per span of up to 32,768 end positions of a read,
+// one block per tile of the span, four consecutive end positions a thread.
 //
 // Replaces the XLA graph taxor_tpu/hash/device_syncmer.minimizer_kmers (no
 // Pallas kernel): its rolling words (_rolling_packed_words), the van
@@ -37,8 +37,13 @@
 // on the value in registers; n_emit counts emissions, n_unique the valid
 // slots.
 //
-// Per cluster (read r) of `tiles` blocks, block `rank` owning end positions
-// [t0, t1), thread j positions p0 = t0 + 4j .. p0 + 3:
+// A position's emission and value are a pure function of v(i - w'), S(i)
+// and v(i), so no block needs another's results and a read of any length
+// (a multiple of 16) is cut into spans of kSpan = 32,768 end positions,
+// each one cluster; positions, k - 1 and the first full window k + w' - 2
+// stay counted from the read's start.  Per cluster (read r, span c) of
+// `tiles` blocks, block `rank` owning end positions [t0, t1), t0 = c *
+// kSpan + rank * tile, thread j positions p0 = t0 + 4j .. p0 + 3:
 //   1. the values of its four positions from four 2-bit words read from
 //      global memory (L1 serves the neighbours' overlapping words): three
 //      funnel shifts align the words at the first k-mer's first base, the
@@ -47,7 +52,8 @@
 //      shifts by a constant; w' > 1 stores them in shared memory, one pad
 //      slot every four values, so that the window pass's strided loads hit
 //      distinct banks, and the block's first threads compute the w' values
-//      before the tile the same way (no block waits for another's values);
+//      before the tile the same way (no block waits for another's values,
+//      in its span or the one before);
 //      block barrier;
 //   2. (w' > 1) S(p0 + e) for e = 0..3 with one split at p0: a running
 //      minimum over the w' - 1 values left of p0, from the right, whose
@@ -60,8 +66,11 @@
 //      cluster's first block through distributed shared memory (after the
 //      wait on a cluster barrier arrived at on entry: every block has
 //      started); after a second cluster barrier that block's first warp
-//      sums them and writes n_emit and n_unique.  No output needs zeroing
-//      and nothing but K5 launches.
+//      sums them.  A read of one span (L <= kSpan) writes n_emit and
+//      n_unique there: no output needs zeroing and nothing but K5
+//      launches.  A longer read's spans each add their sums with one
+//      global atomic a count, into n_emit and n_unique that the launcher
+//      zeroes first (cudaMemsetAsync on the same stream).
 // A tile, or a thread's four positions, at or past the read's length
 // writes zeros and computes nothing.
 //
@@ -74,7 +83,8 @@
 // emission, under the bytes' time at the H100's integer rate but not far
 // under it, so the design spends few operations twice (each value computed
 // once but the w' before each tile, no argmin kept, no shared-memory pass
-// at w' = 1).
+// at w' = 1).  A row's length does not change that: a span past the first
+// recomputes only its first tile's halo.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -89,9 +99,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kRun = 4;          // end positions a thread owns
-constexpr int kMaxTiles = 8;     // blocks of a read's cluster (portable)
+constexpr int kMaxTiles = 8;     // blocks of a span's cluster (portable)
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxLen = kMaxTiles * kRun * kMaxThreads;  // 32,768
+constexpr int kSpan = kMaxTiles * kRun * kMaxThreads;  // 32,768
 constexpr int kSlots = kMaxTiles * (kMaxThreads / 32);  // warp counts
 constexpr unsigned long long kInf = ~0ull;
 
@@ -99,8 +109,9 @@ struct Geometry {
   int tiles, tile, threads;
 };
 
-// A read of L positions in `tiles` tiles of `tile` positions (a multiple
-// of 4; the last one may be short), a thread per four positions.
+// A span of L positions in `tiles` tiles of `tile` positions (a multiple
+// of 4; the last one may be short), a thread per four positions.  A span
+// of kSpan positions is kMaxTiles tiles of exactly kSpan / kMaxTiles.
 __host__ __device__ inline Geometry geometry(int L) {
   Geometry g;
   g.tiles = (L + 1023) / 1024;
@@ -261,8 +272,8 @@ __device__ __forceinline__ void store_run(
 template <bool kWindow>  // false: w' = 1, no window pass
 __global__ void __launch_bounds__(kMaxThreads) minimizer_kernel(
     const uint8_t* __restrict__ packed, const int32_t* __restrict__ lengths,
-    int L, int k, int wp, uint64_t seed, uint64_t thresh, int tile,
-    int32_t* __restrict__ out_hi, int32_t* __restrict__ out_lo,
+    int L, int spans, int k, int wp, uint64_t seed, uint64_t thresh,
+    int tile, int32_t* __restrict__ out_hi, int32_t* __restrict__ out_lo,
     uint8_t* __restrict__ out_valid, int32_t* __restrict__ n_emit,
     int32_t* __restrict__ n_unique) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -272,8 +283,9 @@ __global__ void __launch_bounds__(kMaxThreads) minimizer_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int tiles = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int r = blockIdx.x / tiles;
-  const int t0 = rank * tile;
+  const int c = (int)(blockIdx.x / tiles);  // (read, span) of the cluster
+  const int r = c / spans;
+  const int t0 = (c % spans) * kSpan + rank * tile;
   const int t1 = min(t0 + tile, L);
   const int len = max(0, min(lengths[r], L));
   const int end = min(t1, len);  // positions that may emit: [t0, end)
@@ -338,7 +350,7 @@ __global__ void __launch_bounds__(kMaxThreads) minimizer_kernel(
     }
   }
 
-  // the read's counts: warp sums into rank 0's slots, summed there
+  // the span's counts: warp sums into rank 0's slots, summed there
   c_emit = __reduce_add_sync(0xFFFFFFFFu, c_emit);
   c_keep = __reduce_add_sync(0xFFFFFFFFu, c_keep);
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
@@ -359,18 +371,22 @@ __global__ void __launch_bounds__(kMaxThreads) minimizer_kernel(
     se = __reduce_add_sync(0xFFFFFFFFu, se);
     sk = __reduce_add_sync(0xFFFFFFFFu, sk);
     if (threadIdx.x == 0) {
-      n_emit[r] = se;
-      n_unique[r] = sk;
+      if (spans == 1) {
+        n_emit[r] = se;
+        n_unique[r] = sk;
+      } else {  // zeroed by the wrapper
+        atomicAdd(n_emit + r, se);
+        atomicAdd(n_unique + r, sk);
+      }
     }
   }
 }
 
 }  // namespace
 
-// The longest read K5 takes (L_CAP of the search).
-extern "C" int minimizer_max_len() { return kMaxLen; }
-
-// thresh 0: no FracMinHash keep (valid = emit).  Writes every output.
+// thresh 0: no FracMinHash keep (valid = emit).  Writes every output; for
+// rows longer than kSpan it zeroes n_emit and n_unique, into which the
+// spans add their counts.
 extern "C" int launch_minimizer(const void* packed, const void* lengths,
                                 int R, int L, int k, int wp,
                                 unsigned long long seed,
@@ -378,9 +394,11 @@ extern "C" int launch_minimizer(const void* packed, const void* lengths,
                                 void* out_lo, void* out_valid, void* n_emit,
                                 void* n_unique, void* stream) {
   if (R == 0 || L == 0) return 0;
-  if (L > kMaxLen || L % 16 || k < 2 || k > 32 || wp < 1)
+  if (L % 16 || k < 2 || k > 32 || wp < 1) return (int)cudaErrorInvalidValue;
+  const int spans = (L + kSpan - 1) / kSpan;
+  if ((long long)R * spans * kMaxTiles > 0x7FFFFFFFll)
     return (int)cudaErrorInvalidValue;
-  const Geometry g = geometry(L);
+  const Geometry g = geometry(spans == 1 ? L : kSpan);
   const bool window = wp > 1;
   const size_t smem = smem_bytes(g.tile, wp);
   if (smem > 48 * 1024) {
@@ -390,7 +408,7 @@ extern "C" int launch_minimizer(const void* packed, const void* lengths,
     if (a != cudaSuccess) return (int)a;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)R * g.tiles);
+  cfg.gridDim = dim3((unsigned)R * spans * g.tiles);
   cfg.blockDim = dim3(g.threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -408,13 +426,21 @@ extern "C" int launch_minimizer(const void* packed, const void* lengths,
   uint8_t* va = static_cast<uint8_t*>(out_valid);
   int32_t* ne = static_cast<int32_t*>(n_emit);
   int32_t* nu = static_cast<int32_t*>(n_unique);
+  if (spans > 1) {
+    const size_t bytes = (size_t)R * sizeof(int32_t);
+    cudaError_t z = cudaMemsetAsync(ne, 0, bytes, cfg.stream);
+    if (z == cudaSuccess) z = cudaMemsetAsync(nu, 0, bytes, cfg.stream);
+    if (z != cudaSuccess) return (int)z;
+  }
   cudaError_t e =
-      window ? cudaLaunchKernelEx(&cfg, minimizer_kernel<true>, pk, ln, L, k,
-                                  wp, (uint64_t)seed, (uint64_t)thresh,
-                                  g.tile, hi, lo, va, ne, nu)
+      window ? cudaLaunchKernelEx(&cfg, minimizer_kernel<true>, pk, ln, L,
+                                  spans, k, wp, (uint64_t)seed,
+                                  (uint64_t)thresh, g.tile, hi, lo, va, ne,
+                                  nu)
              : cudaLaunchKernelEx(&cfg, minimizer_kernel<false>, pk, ln, L,
-                                  k, wp, (uint64_t)seed, (uint64_t)thresh,
-                                  g.tile, hi, lo, va, ne, nu);
+                                  spans, k, wp, (uint64_t)seed,
+                                  (uint64_t)thresh, g.tile, hi, lo, va, ne,
+                                  nu);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -14,13 +14,13 @@ edited source rebuilds.  Each C launcher enqueues on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` turns a non-zero code
 into an exception.  ``syncmer_extract_smem``, ``probe_slab_bins``,
 ``probe_slab_fit``, ``probe_cluster_split``, ``probe_narrow_mode``,
-``minimizer_max_len``, ``diag_smem_per_block`` and ``extract_stage_smem``
-are no launchers: they return the shared memory K1 takes, the slab width
-of K2's slab route (0 for its rows route) and the widest that fits, the
-cluster of its split variant, K2n's mode (1 smem, 0 rows), the longest
-read K5 takes, the shared memory a block may take (the diagnostics' slab
-route) and the dynamic shared memory of an extract_stage launch, so that
-the wrappers never repeat a kernel's layout.
+``diag_smem_per_block`` and ``extract_stage_smem`` are no launchers:
+they return the shared memory K1 takes, the slab width of K2's slab
+route (0 for its rows route) and the widest that fits, the cluster of
+its split variant, K2n's mode (1 smem, 0 rows), the shared memory a
+block may take (the diagnostics' slab route) and the dynamic shared
+memory of an extract_stage launch, so that the wrappers never repeat a
+kernel's layout.
 """
 
 from __future__ import annotations
@@ -90,8 +90,6 @@ _SIGNATURES = {
     #  out_valid, n_emit, n_unique, stream)
     "launch_minimizer": [_P, _P, _I, _I, _I, _I, ctypes.c_uint64,
                          ctypes.c_uint64, _P, _P, _P, _P, _P, _P],
-    # () -> the longest read K5 takes
-    "minimizer_max_len": [],
 }
 _DIAG_SIGNATURES = {
     # (device) -> the shared memory a block may opt in to

@@ -92,7 +92,10 @@ def _hashes(packed, lengths, scheme_kind: str, k: int, s: int, t: int,
     """(hi, lo, valid, n_unique, n_emit) of the step's scheme: K1 (or the
     split engine) for syncmers, then the FracMinHash keep as tensor ops
     where scale_thresh is set; K5 for minimisers and plain k-mers (hcap
-    is then L), the keep computed in the kernel."""
+    is then L), the keep computed in the kernel.  K5 takes a bucket of
+    any length whole, past L_CAP too: one slot a position, so n_emit (the
+    emissions) never exceeds hcap, and n_unique counts the valid slots
+    after the keep."""
     if scheme_kind != "syncmer":
         hi, lo, valid, n_emit, n_unique = minimizer_kmers(
             packed, lengths, k, window, scale_thresh)

@@ -45,7 +45,9 @@ FracMinHash keep, with the contract of its twin ``minimizer_hashes_plain``
 [R, L] (0 where nothing is emitted; no wyhash, duplicates kept), valid
 bool [R, L] (emitted and kept), n_emit int32 [R] (emissions before the
 keep) and n_unique int32 [R] (the valid slots).  Its hashes probe at full
-width, H = L (the JAX package's hcap = L for these schemes).
+width, H = L (the JAX package's hcap = L for these schemes).  K5 takes a
+row of any length that is a multiple of 16 (its launcher cuts a long row
+into spans and sums their counts).
 """
 
 from __future__ import annotations
@@ -222,13 +224,9 @@ def minimizer_kmers(packed: torch.Tensor, lengths: torch.Tensor, k: int,
         return minimizer_hashes_plain(packed, lengths, k, window,
                                       scale_thresh)
     R, L = _check_packed("minimizer_kmers", packed, lengths)
-    lib = cuda_build.lib()
     if not (2 <= k <= 32 and window >= k):
         raise ValueError(f"minimizer_kmers: unsupported scheme k={k} "
                          f"window={window}")
-    if L > lib.minimizer_max_len():
-        raise ValueError(f"minimizer_kmers: reads of {L} positions, past "
-                         f"K5's {lib.minimizer_max_len()}")
     if not 0 <= scale_thresh < 1 << 64:
         raise ValueError(f"minimizer_kmers: scale_thresh {scale_thresh} is "
                          "no uint64")
@@ -238,7 +236,7 @@ def minimizer_kmers(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     valid = torch.empty((R, L), dtype=torch.bool, device=dev)
     n_emit = torch.empty(R, dtype=torch.int32, device=dev)
     n_unique = torch.empty_like(n_emit)
-    err = lib.launch_minimizer(
+    err = cuda_build.lib().launch_minimizer(
         packed.data_ptr(), lengths.data_ptr(), R, L, k, window - k + 1,
         adjust_seed(k), scale_thresh, hi.data_ptr(), lo.data_ptr(),
         valid.data_ptr(), n_emit.data_ptr(), n_unique.data_ptr(),

@@ -21,11 +21,14 @@ pack column-wise at 4-bin boundaries, as the JAX package packs 4-bin
 words; each run of a member is a column range [run_s, run_e) of its
 subgroup's table run_g, int64 offsets in place of the JAX one-hot
 matrices; a stack's runs are contiguous per subgroup, a CSR (run_off)
-that K2n sums in the kernel.  Syncmer reads past L_CAP take the same
-step in pieces (``e2e_async`` on a bucket of pieces: hash_cap slots a
-read, device/e2e._syncmer_hashes).  Reads hashed on the host (minimiser
-and plain k-mer reads past L_CAP) take ``counts``: one activity-masked
-probe launch per IXF in BFS order, the descent decided on the host.
+that K2n sums in the kernel.  Reads past L_CAP take the same step:
+syncmer reads in pieces (``e2e_async`` on a bucket of pieces: hash_cap
+slots a read, device/e2e._syncmer_hashes), minimiser and plain k-mer
+reads whole (K5, hcap = L; the count-indexed table then has L + 1
+thresholds, ``count_thresholds``).  Reads hashed on the host (of length 0, or
+of a scheme no device extractor covers) take ``counts``: one
+activity-masked probe launch per IXF in BFS order, the descent decided
+on the host.
 
 Left out against the JAX class, because only the TPU needed them:
   - the engine split at ``_FP_VMEM_TILE`` and the XLA-gather groups: one
@@ -50,7 +53,7 @@ host-hashed reads of a flat index take ``counts``.
 Every scheme the JAX steps take runs fused: syncmers (K1, hcap slots),
 minimisers and plain k-mers (K5, hcap = L), either with a FracMinHash
 scaling (``_scale_thresh``).  A hierarchy descends with the count-indexed
-threshold table (``_thr_table``) for the count-only threshold models, and
+threshold table (search/thresholds.count_thresholds) for the count-only threshold models, and
 with per-read thresholds computed on the host for the length-dependent
 fracminhash model (``_per_read``): the read's hash count comes to the
 host after the extraction, its exact float64 threshold
@@ -74,7 +77,7 @@ import torch
 from ..hash.device_syncmer import hash_cap, supports, supports_minimizer
 from ..hash.schemes import scaling_threshold_u64
 from ..hixf.container import HIXF
-from ..search.thresholds import device_thresholds
+from ..search.thresholds import count_thresholds, device_thresholds
 from . import sharding
 from .e2e import (ActivityStats, fused_e2e_step, make_hixf_e2e_grouped_fn,
                   run_sums, topk_desc)
@@ -227,16 +230,6 @@ class DeviceHIXF:
         for i in self.bfs_order[1:]:
             depths[i] = depths[self.parent[i][0]] + 1
         return depths
-
-    def _thr_table(self, thresholder, hcap: int) -> np.ndarray:
-        """Exact per-hash-count descent thresholds, computed on the host
-        with the reference's float64 semantics, clamped to int32."""
-        tbl = np.empty(hcap + 1, dtype=np.int64)
-        for c in range(hcap + 1):
-            # clamp before the int64 store: size_t-wrapped "impossible"
-            # thresholds are >= 2^63 and overflow np.int64
-            tbl[c] = min(thresholder.get(c, 0.0), 2**31 - 1)
-        return np.clip(tbl, 0, 2**31 - 1).astype(np.int32)
 
     def _build_probe_groups(self, max_group_b4: int | None = None):
         """Assemble the level-grouped probe structure on the host.
@@ -518,7 +511,7 @@ class DeviceHIXF:
             tbl = self._thr_tables.get(tkey)
             if tbl is None:
                 tbl = self._thr_tables[tkey] = torch.from_numpy(
-                    self._thr_table(thresholder, hcap)).to(self.device)
+                    count_thresholds(thresholder, hcap)).to(self.device)
         fn = self._hixf_e2e_fn(scheme, k, mode, thresholder)
         return (lambda reads, lens, host_lengths=None: fn(
             reads, lens, tbl, hcap, host_lengths)), hcap, mode

@@ -33,8 +33,12 @@ sorted slots, and never compares a hash with the sentinel.
 Both kernels sort a row of up to ``REG_SORT_MAX`` keys in registers, on
 the network of ``csrc/regsort.cuh`` (E keys a thread; warp shuffles; a
 shared-memory transpose there and back a merge for the strides across
-warps), and a wider row in a global scratch row the wrapper allocates,
-on the shared-memory network of ``csrc/bitonic.cuh``.
+warps).  A wider row: K4 sorts each chunk of ``REG_SORT_MAX`` keys on
+the same network into a scratch row, then merges the sorted runs in
+log2(Wp / REG_SORT_MAX) merge-path passes with many blocks a row,
+between two scratch rows the wrapper allocates; K3 (the split engine
+only) sorts in one global scratch row on the shared-memory network of
+``csrc/bitonic.cuh``.
 
 A CUDA tensor goes to the kernel, a CPU tensor to the twin; any other
 device raises.
@@ -50,8 +54,9 @@ from . import cuda_build
 
 # n_emit of a row with more emissions than the dedup buffer holds
 OVERFLOW = 2**30
-# the widest row K3 and K4 sort in registers (csrc/regsort.cuh); a wider
-# one sorts in a global scratch row the wrapper allocates
+# the widest row K3 and K4 sort in registers (csrc/regsort.cuh); K4 sorts
+# a wider one in chunks of this width and merges them (two scratch rows),
+# K3 in a global scratch row
 REG_SORT_MAX = 16384
 
 
@@ -142,8 +147,8 @@ def sort_pairs(hi: torch.Tensor, lo: torch.Tensor):
     out_hi = torch.empty_like(hi)
     out_lo = torch.empty_like(lo)
     scratch = None
-    if Wp > REG_SORT_MAX:
-        scratch = torch.empty((R, Wp), dtype=torch.int64, device=hi.device)
+    if Wp > REG_SORT_MAX:  # the merge passes' ping-pong
+        scratch = torch.empty((2, R, Wp), dtype=torch.int64, device=hi.device)
     err = cuda_build.lib().launch_sort_pairs(
         hi.data_ptr(), lo.data_ptr(), R, W, Wp,
         None if scratch is None else scratch.data_ptr(), out_hi.data_ptr(),

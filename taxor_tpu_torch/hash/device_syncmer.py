@@ -21,7 +21,11 @@ index's HashScheme.
 ``minimizer_kmers_plain`` is the plain twin of CUDA kernel K5
 (``device/extract.minimizer_kmers``): the minimiser and plain k-mer
 scheme, whose emission is a pure function of each position (see its
-docstring), so it needs no tracker.
+docstring), so it needs no tracker and takes a row of any length.  A
+minimiser or plain k-mer read past L_CAP is not cut: it runs whole in
+the bucket ``bucket_len`` gives it, the span of a power-of-two count of
+pieces (a multiple of 16 bases, as K5 needs), so that one length bucket
+serves every scheme.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ from .minimizer import adjust_seed
 # the longest row K1 stages whole in a block's shared memory (148 KB of
 # its 227 at k = 22, s = 12); a syncmer read longer than this is cut into
 # pieces of L_CAP bases, PIECE_STRIDE apart, each a row of K1
-# (device/extract.py), whose hashes device/sort.union_pieces joins
+# (device/extract.py), whose hashes device/sort.union_pieces joins.  It
+# bounds K1's rows only: K5 (minimisers, plain k-mers) takes the longer
+# buckets whole
 L_CAP = 32768
 # bases a piece shares with the next: at least k - 1, so that the piece
 # holds the k-mers of every window it owns; a multiple of 16 keeps the
@@ -101,7 +107,9 @@ def bucket_pieces(L: int) -> int:
 def bucket_len(n: int) -> int:
     """The length bucket of a read of n bases: a power of two (>= 256) up
     to L_CAP, past it the span of a power-of-two count of pieces, so that
-    shapes stay bounded."""
+    shapes stay bounded (a multiple of 16 bases: the rows of K1's pieces
+    for a syncmer read, K5's whole row for a minimiser or plain k-mer
+    read)."""
     if n <= L_CAP:
         return pad_len_bucket(n)
     return pieces_len(1 << (piece_count(n) - 1).bit_length())

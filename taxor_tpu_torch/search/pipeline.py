@@ -13,15 +13,15 @@ Engines:
     K1 for syncmers or K5 for minimisers and plain k-mers, the
     FracMinHash keep of a scaled scheme, then K2 or K2n, flat or in the
     level-grouped descent of a hierarchical index) in power-of-two length
-    buckets up to L_CAP; a syncmer read past L_CAP goes in pieces of
-    L_CAP bases (K1 on each piece, their union through K4 and K6) in
-    buckets of a power-of-two count of pieces (hash/device_syncmer
-    bucket_len).  Minimiser and plain k-mer reads past L_CAP are hashed on
-    the host and probed on the device: top-k on a flat index
-    (DeviceHIXF.topk_async_packed), the per-IXF traversal on a
-    hierarchical one (DeviceHIXF.counts_async).  Reads the device result
-    cannot decide exactly (hash capacity overflow, top-k truncation) take
-    the host oracle, as in the reference package.
+    buckets up to L_CAP; past L_CAP in buckets of a power-of-two count
+    of pieces (hash/device_syncmer bucket_len): a syncmer read in pieces
+    of L_CAP bases (K1 on each piece, their union through K4 and K6), a
+    minimiser or plain k-mer read whole (K5 takes a row of any length).
+    Reads of length 0 are hashed on the host and probed on the device:
+    top-k on a flat index (DeviceHIXF.topk_async_packed), the per-IXF
+    traversal on a hierarchical one (DeviceHIXF.counts_async).  Reads
+    the device result cannot decide exactly (hash capacity overflow,
+    top-k truncation) take the host oracle, as in the reference package.
   - 'sharded': the device engine over a reads x bins mesh of ranks
     (device/sharding.py): every rank holds its bins shard of the index,
     the fused steps and the host-hashed reads' traversal run
@@ -230,9 +230,10 @@ def _pairs_from_counts(counts, emitted, dfs_rank):
 class RouteCounts:
     """How many reads took each route of the device engine, summed over
     the searches of the process: 'fused' (the fused step), of them
-    'long_fused' (syncmer reads past L_CAP, in pieces), 'host_hashes'
-    (hashed on the host, probed on the device: minimiser and plain k-mer
-    reads past L_CAP) and
+    'long_fused' (reads past L_CAP: syncmer reads in pieces, minimiser
+    and plain k-mer reads whole through K5), 'host_hashes' (hashed on
+    the host, probed on the device: reads of length 0, and every read of
+    a scheme no device extractor covers) and
     'host_fallback' (of either, decided by the host oracle after the
     device pass), the sum of 'hcap_overflow' (more emissions than the
     step's hash capacity) and 'truncated' (the rest: every top-k slot
@@ -328,16 +329,12 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
                 topk_state["k"] = min(256, ran_at_k * 4)
                 ROUTES.add(topk_escalations=1)
 
-    # syncmer reads of any length take the fused step, those past L_CAP
-    # in pieces; minimiser and plain k-mer reads up to L_CAP
-    max_fused = (None if use_e2e and dsync.supports(scheme)
-                 else dsync.L_CAP)
-
     def process(chunk):
-        """One batch: reads go to the fused step in length buckets
-        (dsync.bucket_len; sub-batches of POS_BUDGET/L reads, at least
-        16); reads of length 0, and minimiser and plain k-mer reads past
-        L_CAP, take host extraction + device probe."""
+        """One batch: reads of any length go to the fused step in length
+        buckets (dsync.bucket_len; sub-batches of POS_BUDGET/L reads, at
+        least 16): syncmer reads past L_CAP in pieces, minimiser and plain
+        k-mer reads whole through K5; reads of length 0 take host
+        extraction + device probe."""
         seqs = [rec.seq for rec in chunk]
         n = len(seqs)
         all_pairs: list = [None] * n
@@ -347,8 +344,7 @@ def search_single(index: TaxorIndex, query_file: str, out_handle,
         if use_e2e:
             buckets: dict[int, list[int]] = {}
             for i, s in enumerate(seqs):
-                if 0 < len(s) and (max_fused is None
-                                   or len(s) <= max_fused):
+                if len(s):
                     buckets.setdefault(dsync.bucket_len(len(s)),
                                        []).append(i)
                 else:

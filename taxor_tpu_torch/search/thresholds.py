@@ -265,10 +265,62 @@ def e2e_thresholds(thresholder, counts, lens, kmer_size) -> np.ndarray:
 INT32_MAX = 2**31 - 1
 
 
+def count_thresholds(thresholder, hcap: int) -> np.ndarray:
+    """int32 [hcap + 1]: ``thresholder.get(c, 0.0)`` for every hash count
+    c = 0 .. hcap, clamped to [0, INT32_MAX] (the size_t-wrapped
+    "impossible" values become INT32_MAX): the count-indexed descent
+    table of the count-only models (percentage, syncmer model, k-mer
+    model).  Computed over all counts at once in float64, each operation
+    the scalar path's in the same order (numpy's +, -, *, / and sqrt are
+    IEEE-exact as Python's floats are), so the values are the scalar
+    loop's; a minimiser read of a 1 Mb bucket asks for ~10^6 of them."""
+    c = np.arange(hcap + 1, dtype=np.int64)
+    cf = c.astype(np.float64)
+    if thresholder.kind == "syncmer_model":
+        ratio = syncmer_match_ratio(thresholder.kmer_size,
+                                    thresholder.error_rate)
+        thr = np.trunc(cf * ratio).astype(np.int64)
+    elif thresholder.kind == "percentage":
+        thr = np.trunc(cf * thresholder.percentage).astype(np.int64)
+    elif thresholder.kind == "kmer_model":
+        thr = _kmer_model_thresholds(thresholder.error_rate,
+                                     thresholder.kmer_size, c)
+    else:
+        raise ValueError(f"count_thresholds: the {thresholder.kind} model "
+                         "depends on more than the hash count")
+    return np.clip(thr, 0, INT32_MAX).astype(np.int32)
+
+
+def _kmer_model_thresholds(r: float, k: int, c: np.ndarray) -> np.ndarray:
+    """int64: the k-mer model's threshold (Thresholder.get) of each count
+    c < 2^31, with the wrapped ones as INT32_MAX.  nmut_kmer_ci's high
+    bound and the size_t arithmetic of threshold.hpp:62-65, vectorised:
+    the count enters the variance only through its first product, the rest
+    are the scalar path's constants."""
+    cf = c.astype(np.float64)
+    q = 1.0 - (1.0 - r) ** k
+    slope = q * (2.0 * k + _ieee_div(2.0, r) - 1.0) - 2.0 * k
+    var = (cf * (1.0 - q) * slope + k * (k - 1.0) * (1.0 - q) ** 2
+           + _ieee_div(2.0 * (1.0 - q), r**2)
+           * ((1.0 + (k - 1.0) * (1.0 - q)) * r - q))
+    z = normal_cdf_inverse(1.0 - (1.0 - 0.95) / 2.0)
+    with np.errstate(invalid="ignore"):
+        # NaN where var < 0 (as _ieee_sqrt) or r = 0 (0 * inf)
+        high = np.ceil(cf * q + z * np.sqrt(var))
+    # _cast_size_t casts NaN to 2^63, above every count: a wrapped
+    # threshold.  Else high >= 0 and, the counts being < 2^31, far below
+    # 2^63, so its other casts (negative, 2^63 and more) cannot occur.
+    nan = np.isnan(high)
+    fp = np.trunc(cf * 0.0039).astype(np.int64)
+    d = c - np.where(nan, 0.0, high).astype(np.int64) - fp
+    # d <= c < 2^31; d < 0 is the size_t wrap of threshold.hpp:64-65
+    return np.where(nan | (d < 0), INT32_MAX, d)
+
+
 def device_thresholds(thresholder, counts, lens, kmer_size) -> np.ndarray:
     """int32 [R]: the per-read descent's thresholds, e2e_thresholds
     clamped to [0, INT32_MAX] as the count-indexed table is
-    (hixf_search.DeviceHIXF._thr_table): the size_t-wrapped and NaN
+    (count_thresholds): the size_t-wrapped and NaN
     "impossible" sentinels, and reads of length k - 1, become INT32_MAX,
     above every run sum.  A read of length 0 is batch padding: INT32_MAX,
     it descends nowhere."""

@@ -1,35 +1,41 @@
-"""What one syncmer read longer than L_CAP costs on each device route,
-stage by stage, on a flat and a hierarchical index.
+"""What one read longer than L_CAP costs on each device route, stage by
+stage, on a flat and a hierarchical index, for a syncmer, a minimiser and
+a plain k-mer scheme.
 
     python -m taxor_tpu_torch.tools.time_long_reads [--error-rate 0.04]
 
 The data is ``chip_smoke.py``'s main-path recipe: GENOMES random genomes
-of 30 kb (``synth.make_ref_set``), k=22/s=12/t=5, ``--layout flat``
-(phase 4) and ``--layout auto --tmax 64`` (phase 7), and READS reads of
-READ_LEN bases cut from a genome taken as circular, with ``--error-rate``
-substitutions (at 4% about half of such reads reach the syncmer model's
-threshold, so a hierarchy's traversal may stop at the root; at 1% they
-descend).
+of 30 kb (``synth.make_ref_set``), ``--layout flat`` (phase 4) and
+``--layout auto --tmax 64`` (phase 7), and READS reads of each length of
+READ_LENS (40 kb, and 750 kb for the reads of 0.5-1 Mb) cut from a genome
+taken as circular, with ``--error-rate`` substitutions (at 4% about half
+of such reads reach the syncmer model's threshold, so a hierarchy's
+traversal may stop at the root; at 1% they descend).  Each scheme of
+SCHEMES builds both indexes: k=22/s=12/t=5 syncmers (phases 4 and 7),
+k = 20 minimisers of window 26 with ``--scaling 3`` (phase 13a's) and
+k = 20 plain k-mers (phase 13b's).
 
 Two routes, each called directly, the batch of reads at once:
 
   - ``host``: the host-hash route, the one reads past L_CAP took before
-    the device cut them into pieces (and that minimiser and plain k-mer
-    reads past L_CAP still take): ``schemes.search_hashes`` on one thread
-    (``hash_s``), the thresholds, ``pack_hash_lists`` (``pack_s``), the
-    upload of hi/lo/valid (``upload_s``), then the probe through
-    ``pipeline._device_dispatch`` and its collector: top-k on a flat
-    index, the per-IXF ``counts`` traversal on a hierarchy (``probe_s``:
-    the dispatch less its pack and upload, with the traversal's probe
-    launches and host round trips, ``launches``);
-  - ``fused``: the packing of the reads into their piece bucket
-    (``pack_s``) and ``DeviceHIXF.e2e_async`` with its collector
-    (``step_s``).
+    the device took them whole (syncmers since the pieces came,
+    minimisers and plain k-mers since K5 took rows of any length), and
+    that reads of length 0 still take: ``schemes.search_hashes`` on one
+    thread (``hash_s``), the thresholds, ``pack_hash_lists``
+    (``pack_s``), the upload of hi/lo/valid (``upload_s``), then the probe
+    through ``pipeline._device_dispatch`` and its collector: top-k on a
+    flat index, the per-IXF ``counts`` traversal on a hierarchy
+    (``probe_s``: the dispatch less its pack and upload, with the
+    traversal's probe launches and host round trips, ``launches``);
+  - ``fused``: the packing of the reads into their bucket (``pack_s``)
+    and ``DeviceHIXF.e2e_async`` with its collector (``step_s``): K1 on
+    the pieces of a syncmer read, K5 on a minimiser or plain k-mer read's
+    whole bucket.
 
 Each stage is the best of REPS passes (``time.perf_counter``; the device
 is synchronised at each stage's end), in seconds for the batch and in
 milliseconds a read.  One JSON line goes to stdout with nvidia-smi's
-name and power limit.  ``chip_smoke.py`` phases 4b, 7c and 18b call
+name and power limit.  ``chip_smoke.py`` phases 4b, 7c, 18b and 19 call
 ``host_route`` and ``fused_route`` on their own indexes.
 """
 
@@ -44,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from taxor_tpu_torch.apps.build import BuildConfig, run_build
 from taxor_tpu_torch.device import launches as launch_counts
 from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 from taxor_tpu_torch.device.probe import pack_hash_lists
@@ -52,11 +59,15 @@ from taxor_tpu_torch.hash import schemes
 from taxor_tpu_torch.search import pipeline
 from taxor_tpu_torch.search.thresholds import Thresholder, _scaling_ratio
 from taxor_tpu_torch.tools import synth
-from taxor_tpu_torch.tools.bench import build_index, card_line, log
+from taxor_tpu_torch.tools.bench import card_line, log
 
 GENOMES, GENOME_LEN = 4096, 30000
-READS, READ_LEN = 16, 40000
+READS, READ_LENS = 16, (40000, 750000)
 LAYOUTS = ("flat", "auto")
+# scheme -> the build's scheme flags
+SCHEMES = {"syncmer": dict(kmer_size=22, syncmer_size=12, use_syncmer=True),
+           "minimizer": dict(kmer_size=20, window_size=26, scaling=3),
+           "kmer": dict(kmer_size=20, window_size=20)}
 REPS = 3
 SEED = 20261018
 
@@ -110,7 +121,7 @@ def host_route(dh, index, seqs, thresholder, dev) -> dict:
 
 
 def fused_route(dh, index, seqs, thresholder, dev) -> dict:
-    """One pass of the fused route on the reads' piece bucket."""
+    """One pass of the fused route on the reads' bucket."""
     t0 = time.perf_counter()
     L = dsync.bucket_len(max(len(s) for s in seqs))
     packed, lengths = dsync.pack_reads(seqs, L)
@@ -146,32 +157,40 @@ def main(argv: list[str] | None = None) -> int:
     rng = np.random.default_rng(SEED)
     schemes.NUM_THREADS = 1  # host hashing: one core's time
     out = {"card": card_line(), "genomes": GENOMES, "reads": READS,
-           "read_len": READ_LEN, "error_rate": args.error_rate,
-           "layouts": {}}
+           "read_lens": list(READ_LENS), "error_rate": args.error_rate,
+           "schemes": {}}
     with tempfile.TemporaryDirectory(prefix="time_long_reads_") as tmp:
         tsv, gdir, genomes = synth.make_ref_set(tmp, rng, GENOMES,
                                                 GENOME_LEN)
-        seqs = long_reads(rng, genomes, READS, READ_LEN, args.error_rate)
-        for layout in LAYOUTS:
-            t0 = time.perf_counter()
-            index = build_index(tsv, gdir, layout,
-                                tmax=64 if layout == "auto" else 0,
-                                threads=os.cpu_count() or 1)
-            build_s = time.perf_counter() - t0
-            sch = index.scheme
-            thresholder = Thresholder.make(
-                kmer_size=sch.kmer_size, window_size=sch.window_size,
-                error_rate=0.04, percentage=-1.0,
-                use_syncmer=sch.use_syncmer)
-            dh = DeviceHIXF.from_hixf(index.hixf, dev)
-            rec = {"ixfs": len(index.hixf.ixfs), "build_s": build_s}
-            for name, route in (("host", host_route),
-                                ("fused", fused_route)):
-                r = best([route(dh, index, seqs, thresholder, dev)
-                          for _ in range(REPS)])
-                rec[name] = {**r, **per_read_ms(r, READS)}
-            log(f"{layout}: {json.dumps(rec)}")
-            out["layouts"][layout] = rec
+        reads = {n: long_reads(rng, genomes, READS, n, args.error_rate)
+                 for n in READ_LENS}
+        for scheme, flags in SCHEMES.items():
+            out["schemes"][scheme] = {}
+            for layout in LAYOUTS:
+                t0 = time.perf_counter()
+                index = run_build(BuildConfig(
+                    input_file=tsv, input_sequence_dir=gdir,
+                    output_filename="", layout_mode=layout,
+                    tmax=64 if layout == "auto" else 0, layout_file="",
+                    threads=os.cpu_count() or 1, **flags))
+                build_s = time.perf_counter() - t0
+                sch = index.scheme
+                thresholder = Thresholder.make(
+                    kmer_size=sch.kmer_size, window_size=sch.window_size,
+                    error_rate=0.04, percentage=-1.0,
+                    use_syncmer=sch.use_syncmer)
+                dh = DeviceHIXF.from_hixf(index.hixf, dev)
+                rec = {"ixfs": len(index.hixf.ixfs), "build_s": build_s}
+                for n, seqs in reads.items():
+                    for name, route in (("host", host_route),
+                                        ("fused", fused_route)):
+                        r = best([route(dh, index, seqs, thresholder, dev)
+                                  for _ in range(REPS)])
+                        rec[f"{name}_{n}"] = {**r, **per_read_ms(r, READS)}
+                log(f"{scheme} {layout}: {json.dumps(rec)}")
+                out["schemes"][scheme][layout] = rec
+                del dh, index
+                torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 

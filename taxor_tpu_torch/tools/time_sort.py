@@ -54,16 +54,21 @@ SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
 # device_ms's sleep: ~20 ms at 1.98 GHz, far longer than the host takes
 # to enqueue the calls it times
 HEAD_START_CYCLES = 40_000_000
+# K4's merge route (rows past 16,384 keys): one merge pass, a width that
+# is no power of two, the union's widths of 32 pieces and past them
+MERGE_WIDTHS = (16385, 32768, 65536, 100000, 262144, 524288)
 # K4 widths the checks run: sizes below a warp, odd widths, the register
-# route at E = 16 and 32, and 32,768 (the global-scratch route)
-PAIR_WIDTHS = (1, 2, 31, 100, 128, 1024, 8192, 16384, 32768)
+# route at E = 16 and 32, and the merge route
+PAIR_WIDTHS = (1, 2, 31, 100, 128, 1024, 8192, 16384) + MERGE_WIDTHS
 
 
 def pair_rows(rng, R: int, W: int):
     """uint32 (hi, lo) [R, W] rows with every key twice, hi words of
     0-3 and 2^32-4 .. 2^32-1 (keys next to the sentinel), keys equal to
-    the all-ones sentinel, a row of all-equal keys and a row that is all
-    sentinel."""
+    the all-ones sentinel, a row of all-equal keys, a row that is all
+    sentinel, a row of three distinct keys and a row of long equal runs
+    in descending order (the merge route's cuts fall inside runs of equal
+    keys, and a tile takes all of its keys from one run)."""
     hi = rng.integers(-4, 4, (R, W), dtype=np.int32).view(np.uint32)
     lo = rng.integers(0, 1 << 32, (R, W), dtype=np.uint32)
     hi[:, 1::2] = hi[:, ::2][:, :W // 2]
@@ -73,6 +78,12 @@ def pair_rows(rng, R: int, W: int):
     hi[0], lo[0] = 3, 12345
     if R > 1:
         hi[1], lo[1] = 0xFFFFFFFF, 0xFFFFFFFF
+    if R > 2:
+        hi[2] = rng.integers(0, 3, W, dtype=np.uint32)
+        lo[2] = hi[2] * np.uint32(7)
+    if R > 3:
+        hi[3] = np.sort(rng.integers(0, 8, W, dtype=np.uint32))[::-1]
+        lo[3] = hi[3] * np.uint32(7)
     return hi, lo
 
 

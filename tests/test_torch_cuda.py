@@ -104,8 +104,11 @@ def test_dedup_reports_min_gap_overflow(cuda):
 @pytest.mark.parametrize("W", time_sort.PAIR_WIDTHS)
 def test_sort_pairs_matches_twin(cuda, W):
     """Duplicated keys, keys equal to the all-ones sentinel, a row of
-    equal keys and a row of sentinels; below a warp, odd widths, E = 16
-    and 32 of the register network, and W = 32768 in global scratch."""
+    equal keys, a row of sentinels, a row of three distinct keys and one
+    of long equal runs (merge cuts inside runs); below a warp, odd widths, E = 16
+    and 32 of the register network, and past 16,384 keys the merge route
+    (chunks sorted on the network, then merge-path passes: one at 16,385
+    and 32,768, five at 524,288; 100,000 is no power of two)."""
     hi, lo = time_sort.pair_rows(np.random.default_rng(W), 6, W)
     args = [torch.from_numpy(x.view(np.int32)).to(cuda) for x in (hi, lo)]
     before = sort.sort_pairs.LAUNCHES
@@ -250,11 +253,11 @@ def test_unique_pairs_matches_twin(cuda, W):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("P", [2, 32])
+@pytest.mark.parametrize("P", [2, 32, 64])
 def test_union_pieces_matches_twin(cuda, P):
-    """union_pieces at 2 and 32 pieces of 8,192 slots: K4 on its register
-    route (16,384 keys) and its global-scratch route (262,144), then K6,
-    bit-exact to the twins; hashes repeat across pieces."""
+    """union_pieces at 2, 32 and 64 pieces of 8,192 slots: K4 on its
+    register route (16,384 keys) and its merge route (262,144 and 524,288),
+    then K6, bit-exact to the twins; hashes repeat across pieces."""
     rng = np.random.default_rng(P)
     R, hp = 3, 8192
     keys = rng.integers(0, 2**40, (R * P, hp)).astype(np.int64)
@@ -301,6 +304,40 @@ def test_long_read_steps_match_cpu_twins(cuda, tmp_path):
         for a, b in zip(out[0][:5], out[1][:5]):
             np.testing.assert_array_equal(a, b)
         assert out[1][4] == dsync.hash_cap(L) and (out[1][0][:, 0] > 0).all()
+
+
+@pytest.mark.parametrize("name", ["plain_kmer", "scaled_minimizer"])
+def test_long_minimizer_steps_match_cpu_twins(cuda, tmp_path, name):
+    """Minimiser and plain k-mer reads past L_CAP on the card: K5 on the
+    whole bucket (H = L hash slots, past 32,768), then K2 on a flat index
+    and the grouped descent (K2n) on a hierarchy, equal the CPU twins."""
+    from taxor_tpu_torch.apps.build import BuildConfig, run_build
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.search.thresholds import Thresholder
+
+    from .util import make_ref_set
+
+    _, k, _, _, window, scaling = STEP_SCHEMES[name]
+    rng = np.random.default_rng(13)
+    tsv, gdir, genomes = make_ref_set(str(tmp_path), rng, n_species=80,
+                                      genome_len=36000)
+    seqs = [(g * 2)[o:o + n] for g, o, n in zip(
+        genomes.values(), range(0, 36000, 2000), (33000, 40000, 70000) * 6)]
+    L = dsync.bucket_len(max(len(q) for q in seqs))
+    packed, lengths = dsync.pack_reads(seqs, L)
+    th = Thresholder.make(k, window, 0.04, -1.0, False)
+    for layout in ("flat", "auto"):
+        index = run_build(BuildConfig(
+            input_file=tsv, input_sequence_dir=gdir, output_filename="",
+            kmer_size=k, window_size=window, scaling=scaling,
+            layout_mode=layout, tmax=64 if layout == "auto" else 0,
+            layout_file=str(tmp_path / f"{layout}.out")))
+        dhs = [DeviceHIXF.from_hixf(index.hixf, dev) for dev in ("cpu", cuda)]
+        out = [dh.e2e_async(packed, lengths, index.scheme, th)()
+               for dh in dhs]
+        for a, b in zip(out[0][:5], out[1][:5]):
+            np.testing.assert_array_equal(a, b)
+        assert out[1][4] == L and (out[1][0][:, 0] > 0).all()
 
 
 def test_split_step_equals_k1_step(cuda, monkeypatch):
@@ -826,12 +863,57 @@ def test_k5_checks_inputs(cuda):
         extract.minimizer_kmers(pk, ln.long(), 20, 26)
     with pytest.raises(ValueError, match="uint64"):
         extract.minimizer_kmers(pk, ln, 20, 26, 1 << 64)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        extract.minimizer_kmers(pk[:, :63].contiguous(), ln, 20, 26)
     long = torch.zeros((1, 65536 // 4), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="past K5's 32768"):
-        extract.minimizer_kmers(long, ln[:1], 20, 26)
+    got = extract.minimizer_kmers(long, ln[:1], 20, 26)  # past one span
+    assert got[0].shape == (1, 65536) and got[3].tolist() == [0]
     empty = extract.minimizer_kmers(pk[:0], ln[:0], 20, 26)
     assert empty[0].shape == (0, 256) and empty[3].shape == (0,)
     assert empty[4].shape == (0,)
+
+
+def long_minimizer_reads(rng, L: int) -> list[bytes]:
+    """Reads of a bucket past K5's span of 32,768 positions: random reads
+    of L/2 to L bases, and reads with N runs and homopolymers across every
+    32,768-position boundary and a tandem repeat (the windows tied there),
+    one that ends just past a boundary, one of k - 1 bases."""
+    seqs = [ACGT[rng.integers(0, 4, int(rng.integers(L // 2, L + 1)))]
+            .tobytes() for _ in range(3)]
+    for fill in (b"N", b"A", b"T"):
+        arr = ACGT[rng.integers(0, 4, L)].copy()
+        for b in range(32768, L, 32768):
+            arr[b - 40:b + 40] = ord(fill)
+            arr[b + 100:b + 103] = ord("N")
+        seqs.append(arr.tobytes())
+    seqs.append((b"ACGTTG" * L)[:L])
+    seqs.append(ACGT[rng.integers(0, 4, 32768 + 5)].tobytes())
+    return seqs + [b"ACG" * 6, b""]
+
+
+@pytest.mark.parametrize("k,window", [(20, 20), (20, 26), (32, 40)])
+@pytest.mark.parametrize("L", [65504, 1047584])
+def test_k5_long_rows_match_twin(cuda, L, k, window):
+    """K5 at rows past its span of 32,768 positions (the first bucket past
+    L_CAP, 65,504, and the 32-piece bucket of ~1 Mb): a cluster a span,
+    the counts summed over the spans, bit-exact to its twin with no keep
+    and with the keep of scaling 3; w' = 1, w' = 7 and k = 32."""
+    from taxor_tpu_torch.hash.schemes import scaling_threshold_u64
+
+    rng = np.random.default_rng(L + k + window)
+    packed, lengths = dsync.pack_reads(long_minimizer_reads(rng, L), L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    for thresh in (0, scaling_threshold_u64(3)):
+        before = extract.minimizer_kmers.LAUNCHES
+        got = extract.minimizer_kmers(pk, ln, k, window, thresh)
+        want = extract.minimizer_hashes_plain(pk, ln, k, window, thresh)
+        torch.cuda.synchronize()
+        assert extract.minimizer_kmers.LAUNCHES == before + 1
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b)
+        assert int(got[3].max()) > 32768 // (window - k + 2)
 
 
 STEP_SCHEMES = {  # name -> (scheme_kind, k, s, t, window, scaling)

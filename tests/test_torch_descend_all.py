@@ -148,10 +148,10 @@ def test_threshold_table_is_built_once(hier_sets, monkeypatch):
     batch; the per-read mode of fracminhash thresholds builds none."""
     index_of, _, seqs, _ = hier_sets
     built = []
-    real = DeviceHIXF._thr_table
-    monkeypatch.setattr(DeviceHIXF, "_thr_table",
-                        lambda self, th, hcap: built.append(hcap)
-                        or real(self, th, hcap))
+    real = hixf_search.count_thresholds
+    monkeypatch.setattr(hixf_search, "count_thresholds",
+                        lambda th, hcap: built.append(hcap)
+                        or real(th, hcap))
     _, packed, lengths = packed_reads(seqs, 16)
     for name in ("plain_kmer", "fmh_scaling1"):
         index = index_of(name)[0]
@@ -204,8 +204,9 @@ def test_descend_all_decode_matches_jax(topk):
 @pytest.mark.parametrize("name", ["fmh_scaling3", "plain_kmer"])
 def test_hier_search_device_equals_host(hier_sets, name):
     """The whole search on a hierarchy: the port's device engine writes
-    the JAX host engine's TSV byte for byte, every read up to L_CAP routed
-    fused and the two longer ones through the per-IXF traversal."""
+    the JAX host engine's TSV byte for byte, every read routed fused, the
+    two past L_CAP on their whole bucket (``long_fused``), none hashed on
+    the host."""
     index_of, reads, seqs, tmp = hier_sets
     idx = index_of(name)[1]
     paths = {e: os.path.join(tmp, f"{name}_{e}.tsv")
@@ -220,7 +221,8 @@ def test_hier_search_device_equals_host(hier_sets, name):
     routes = dict(pipeline.ROUTES.counts)
     with open(paths["jax"], "rb") as a, open(paths["device"], "rb") as b:
         assert a.read() == b.read()
-    assert routes["fused"] == len(seqs) - 2 and routes["host_hashes"] == 2
+    assert routes["fused"] == len(seqs) and routes["long_fused"] == 2
+    assert routes["host_hashes"] == 0
     assert hixf_search.ACTIVITY.share() > 0
 
 

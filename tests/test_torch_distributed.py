@@ -4,7 +4,7 @@ the CPU, a tcp rendezvous on a free local port) writes the JAX package's
 host-engine TSV byte for byte.  The twin of tests/test_distributed.py:
 its flat index searched by 4 ranks on a 2 x 2 mesh, and a hierarchical
 one by 2 ranks on the default mesh (every rank a bins shard); each with
-two reads over L_CAP, which take the sharded per-IXF traversal."""
+two reads over L_CAP, which take the sharded fused step in pieces."""
 
 import os
 import subprocess

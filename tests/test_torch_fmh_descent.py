@@ -38,6 +38,7 @@ from taxor_tpu_torch.io.fastx import read_all
 from taxor_tpu_torch.search import pipeline
 from taxor_tpu_torch.search.thresholds import (INT32_MAX, Thresholder,
                                                _read_threshold,
+                                               count_thresholds,
                                                device_thresholds)
 
 from .test_torch_minimizer import assert_decode_matches_host, final
@@ -57,7 +58,7 @@ def fmh(tmp_path_factory):
     and 25 of 800 b (2% substitutions), 4 whole genomes (counts past
     256), genome pieces of 150-250 b (thresholds of 0 and the sentinel),
     a read of k - 1 = 15 b (the NaN sentinel), a random one, and one past
-    L_CAP (the per-IXF traversal)."""
+    L_CAP (K5 on its whole bucket, then the fused step)."""
     tmp = str(tmp_path_factory.mktemp("torch_fmh_descent"))
     rng = np.random.default_rng(181)
     tsv, gdir, genomes = make_ref_set(tmp, rng, n_species=100,
@@ -169,7 +170,7 @@ def test_device_thresholds_clamp_as_the_count_table(kind):
         assert got[1] == INT32_MAX  # 0 / 0: NaN, the sentinel
         assert (got == INT32_MAX).sum() > 2 and (got < 1000).sum() > 100
     else:
-        table = DeviceHIXF._thr_table(None, th, 1200)
+        table = count_thresholds(th, 1200)
         np.testing.assert_array_equal(got[1:], table[counts[1:]])
 
 
@@ -319,8 +320,9 @@ def test_search_matches_host_descend_all_and_jax(fmh, name, topk,
     engine's and the descend-all route's byte for byte, and at top-k 16
     the JAX device engine's (its Pallas steps compile once per top-k and
     bucket, so the ladder's every rung is held to the port's own routes);
-    every read up to L_CAP fused, the long one through the per-IXF
-    traversal; from top-k 1 the ladder climbs; the per-read route sends
+    every read fused, the one past L_CAP on its whole bucket
+    (``long_fused``), none hashed on the host; from top-k 1 the ladder
+    climbs; the per-read route sends
     no more reads to the host oracle than descend-all."""
     index_of, reads, seqs, tmp = fmh
     built, _ = index_of(name)
@@ -336,7 +338,8 @@ def test_search_matches_host_descend_all_and_jax(fmh, name, topk,
             if not row.startswith(b"long\t"))
     assert texts["per_read"].count(b"\n") > len(seqs)
     per, alls = routes["per_read"], routes["descend_all"]
-    assert per["fused"] == len(seqs) - 1 and per["host_hashes"] == 1
+    assert per["fused"] == len(seqs) and per["long_fused"] == 1
+    assert per["host_hashes"] == 0
     assert per["hcap_overflow"] == 0
     assert per["host_fallback"] == per["truncated"] <= alls["truncated"]
     assert (per["topk_escalations"] > 0) == (topk == 1)

@@ -31,6 +31,7 @@ from taxor_tpu_torch.device.e2e import make_hixf_e2e_grouped_fn
 from taxor_tpu_torch.device.hixf_search import DeviceHIXF
 from taxor_tpu_torch.hash import device_syncmer as dsync
 from taxor_tpu_torch.search import pipeline
+from taxor_tpu_torch.search.thresholds import count_thresholds
 from taxor_tpu_torch.tools.synth import write_wide_root_layout
 from taxor_tpu_torch.utils.u64 import split32
 
@@ -153,11 +154,10 @@ def test_grouped_split_step_matches_jax(hier_setup, split_engine):
 
 def test_thr_table_matches_jax(hier_setup):
     index = hier_setup[0]
-    dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
     ref = JaxDeviceHIXF(index.hixf, engine="xla")
     for pct in (-1.0, 0.25, 1.0):
         th = thresholder_of(index, pct)
-        got = dh._thr_table(th, 512)
+        got = count_thresholds(th, 512)
         assert got.dtype == np.int32
         np.testing.assert_array_equal(got, ref._thr_table(th, 512))
 
@@ -181,7 +181,7 @@ def test_stacked_equals_unstacked(hier_setup):
     assert max(g["tables"].shape[0] for g in variants["stacked"]) >= 2
     assert len(variants["one per level"]) < len(variants["one per launch"])
     hcap = dsync.hash_cap(packed.shape[1] * 4)
-    tbl = torch.from_numpy(dh._thr_table(th, hcap))
+    tbl = torch.from_numpy(count_thresholds(th, hcap))
     sch = index.scheme
     outs = {}
     for name, groups in variants.items():
@@ -350,7 +350,7 @@ def descent_inputs(index, seqs):
     hi, lo, valid, n_unique, _ = e2e._syncmer_hashes(
         torch.from_numpy(packed), torch.from_numpy(lengths), sch.kmer_size,
         sch.syncmer_size, sch.t_syncmer, hcap)
-    thr = torch.from_numpy(dh._thr_table(thresholder_of(index), hcap))[
+    thr = torch.from_numpy(count_thresholds(thresholder_of(index), hcap))[
         n_unique.clamp(0, hcap).long()]
     return dh, hi, lo, valid, thr
 

@@ -187,7 +187,7 @@ def flat_sets(tmp_path_factory):
     arr = np.frombuffer(recs[0][1], np.uint8).copy()
     arr[200:260] = ord("A")  # every window tied
     recs.append(("homopolymer_read", arr.tobytes()))
-    whole = b"".join(genomes.values())  # over L_CAP: the host-hash route
+    whole = b"".join(genomes.values())  # over L_CAP: the long buckets
     recs += [("long0", whole[:33000]), ("long1", whole[4000:40000])]
     write_fasta(reads, recs)
     indexes = {}
@@ -324,9 +324,9 @@ def test_scaled_fused_matches_host(flat_sets, name):
                                   "scaled_syncmer"])
 def test_search_device_equals_host(flat_sets, name):
     """The whole search: the port's device engine (the fused step on the
-    CPU twins) writes the TSV of the JAX host engine byte for byte, its
-    reads routed fused but the two over L_CAP, which are hashed on the
-    host, or, for syncmers, fused in pieces."""
+    CPU twins) writes the TSV of the JAX host engine byte for byte, every
+    read routed fused, the two over L_CAP too (``long_fused``): syncmers
+    in pieces, minimisers and plain k-mers on their whole bucket."""
     index_of, reads, seqs, tmp = flat_sets
     idx = index_of(name)[1]
     out = {}
@@ -346,11 +346,8 @@ def test_search_device_equals_host(flat_sets, name):
             out[pkg, engine] = fh.read()
     assert out["torch", "device"] == out["torch", "host"] == out["jax", "host"]
     routes = pipeline.ROUTES.counts
-    if name == "scaled_syncmer":
-        assert routes["fused"] == len(seqs) and routes["long_fused"] == 2
-        assert routes["host_hashes"] == 0
-    else:
-        assert routes["fused"] == len(seqs) - 2 and routes["host_hashes"] == 2
+    assert routes["fused"] == len(seqs) and routes["long_fused"] == 2
+    assert routes["host_hashes"] == 0
 
 
 @pytest.mark.parametrize("scheme,fused", [

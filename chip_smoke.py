@@ -93,9 +93,10 @@ Phases (any failure exits non-zero):
      picks) on the root and the first stacked level;
   9. K4 (pair sort) against its twin, bit-exact, at W = 1, 2, 31, 100,
      128, 1024, 8192, 16384 (the register network at E = 16 and 32) and
-     16,385, 32,768, 65,536, 100,000, 262,144 and 524,288 (the merge
-     route: chunks of 16,384 sorted on the network, then merge-path
-     passes), with duplicated keys, keys with the top bit of hi set, keys
+     16,385, 32,768, 65,536, 100,000, 262,144, 524,288 and 1,048,576
+     (the merge route: chunks of 16,384 sorted on the network, then
+     merge-path passes; 2^20 keys the union of 32 pieces of a narrow
+     syncmer scheme), with duplicated keys, keys with the top bit of hi set, keys
      equal to the sentinel, a row of equal keys and a row of sentinels;
      the merge route timed on random keys at [8, 262,144] and [4,
      524,288], a call and on the device alone, beside its twin and
@@ -136,8 +137,8 @@ Phases (any failure exits non-zero):
      words, and on rows of L/16 - 3 words (no multiple of 4);
  12. the tooling path, with every launch count set to 0 just before it:
      ``tools.bench`` on its primary config (viral_flat_256) with its
-     parity gate (eleven scheme/layout families, device TSV == host TSV;
-     narrow_syncmer's reads must all overflow the hash capacity),
+     parity gate (twelve scheme/layout families, device TSV == host TSV;
+     narrow_syncmer's reads must all fit its hash capacity),
      ``tools.probe_bounds``, ``tools.probe_experiments`` (its three
      experiment lists) and ``tools.profile_phases`` at the JAX tools'
      sizes (R=8192, H=512, nvalid=173; build_problem's 8,192 reads), and
@@ -340,7 +341,34 @@ Phases (any failure exits non-zero):
      host-hash route (``search_hashes``, ``pipeline._device_dispatch``)
      against the fused step on the path's 16 reads of 40 kb and on two
      0.5-1 Mb reads.  Its launches join the kernels records' main-path
-     launches; K5's record holds its ``long_reads``.
+     launches; K5's record holds its ``long_reads``;
+ 20. syncmer schemes past the 32-bit s-mer: (a) K1 and syncmer_track
+     through the instance each s picks (64-bit s-mers for s >= 16)
+     against their twins, bit-exact, for (k, s) = (22, 16), (28, 18),
+     (18, 16), (30, 29) and (16, 14) at every length bucket 256..32768
+     on phase 2's reads, at the scheme's hash capacity (no random read
+     past it), and on piece rows of reads of 2 and 32 pieces; (b) ``cli
+     search --engine device`` with the launch counts set to 0 just
+     before, on a flat k = 28, s = 18 index of phase 4's genomes with its
+     reads (8,192 + 16 of 40 kb), a ``--tmax 64`` hierarchy of the same
+     scheme on the first 1,024 of them with their reads and the long ones
+     (then again with the split engine, whose TSV must be equal), and a
+     flat k = 16, s = 14 index of phase 13b's genomes with its reads
+     (4,096 + 16): every read fused (the long ones in pieces), none
+     hashed on the host, none past the hash capacity, K1's 64-bit
+     instance alone on the wide scheme, the TSV equal to ``--engine
+     host`` on every read; then the narrow index once more on its first
+     512 reads and the long ones with the hash capacity held at 128
+     slots a row (the floor of the JAX package's rule): every read
+     extracted on the card, past its capacity and decided again by the
+     host oracle (hcap_overflow == host_fallback == reads), the TSV
+     equal to ``--engine host`` on every read; (c) the 64-bit instances
+     timed against their twins at L=8192 with their bounds (the kernels
+     line's ``syncmer_extract_s64`` and ``syncmer_track_s64``), K1 on an
+     all-tied batch, and the 16 reads of 40 kb on the host-hash route
+     (the parent's rule for s >= 16) against the fused step.  The
+     indexes build in the background (``smer_wide`` from phase 4 on,
+     ``smer_narrow`` from phase 13b on).
 
 Every kernel's record holds its least time on the card (``bound_ms``):
 the larger of its bytes (each input read once, each output written
@@ -349,14 +377,14 @@ for their type (the H100's dense peak rates; 64-bit key compares and
 the tracker's integer operations, which have no entry, at the 67
 TFLOP/s scalar fp32 rate; ``tracker_ops`` counts them).
 
-The host builds that phases 13a, 13b/13e, 15b, 16c and 17 search (their
+The host builds that phases 13a, 13b/13e, 15b, 16c, 17 and 20 search (their
 data, the indexes, the at-scale demo's gen and build stages) run from the
 start in processes of this script of their own (``--prebuild``, PREBUILDS)
 at the lowest CPU priority, while the card runs the phases before them;
 phase 16's timed gates run after all of them have ended.  The order of
 the phases: 1-4, 5 and 10, 14a/d/e, 6, 7, 8, 13c, 13a, 13d, 14b, 14c,
-19a, 13b, 13e, 19b, 15, 18, 16 (16c on phase 7's data, then on its own),
-17, 11, 12.
+19a, 13b, 13e, 19b, 20, 15, 18, 16 (16c on phase 7's data, then on its
+own), 17, 11, 12.
 
 The second-to-last line of stdout is nvidia-smi's name and power limit;
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.  The
@@ -481,7 +509,7 @@ def check_k1(torch, dsync, extract, sort, rng) -> None:
         packed, lengths = dsync.pack_reads(seqs, L)
         pk = torch.from_numpy(packed).to(dev)
         ln = torch.from_numpy(lengths).to(dev)
-        hcap = dsync.hash_cap(L)
+        hcap = dsync.hash_cap(L, k, s, t)
         got = extract.syncmer_hashes(pk, ln, k, s, t, hcap)
         want = extract.syncmer_hashes_plain(pk, ln, k, s, t, hcap)
         assert_equal(torch, f"K1 L={L} k={k} s={s}", ("hi", "lo", "valid",
@@ -1404,7 +1432,12 @@ def tracker_ops(k: int, s: int) -> int:
     (csrc/tracker.cuh) takes: ~12 for the canonical s-mer (a funnel
     shift, a bit reversal and a pair swap, the complement, the min), 4 a
     window element for the scan (two compares, the minimum and an argmin
-    selected), ~6 to classify the window and ballot it: 62 at w = 11."""
+    selected), ~6 to classify the window and ballot it: 62 at w = 11.  A
+    64-bit s-mer (s >= 16) takes ~22 (two funnel shifts and reversals,
+    the 64-bit shift, complement and min) and 6 a window element (its
+    compares take two words)."""
+    if s >= 16:
+        return 22 + 6 * (k - s + 1) + 6
     return 12 + 4 * (k - s + 1) + 6
 
 
@@ -1441,9 +1474,9 @@ def time_kernels(torch, state) -> list[dict]:
     seqs = bucket_reads(state["recs"], L)
     packed, lengths = dsync.pack_reads(seqs, L)
     pk = torch.from_numpy(packed).to(dev)
-    ln = torch.from_numpy(lengths).to(dev)
-    hcap = dsync.hash_cap(L)
     t = (K - S + 1) // 2
+    ln = torch.from_numpy(lengths).to(dev)
+    hcap = dsync.hash_cap(L, K, S, t)
     dh = DeviceHIXF.from_hixf(state["index"].hixf, dev)
     k1 = lambda: extract.syncmer_hashes(pk, ln, K, S, t, hcap)  # noqa: E731
     k1p = lambda: extract.syncmer_hashes_plain(pk, ln, K, S, t,  # noqa: E731
@@ -1557,7 +1590,7 @@ def time_split(torch, state) -> list[dict]:
     packed, lengths = dsync.pack_reads(seqs, L)
     pk = torch.from_numpy(packed).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, K, S, t)
     R = len(seqs)
     kmer, emit = extract.syncmer_track(pk, ln, K, S, t)
     fused = sort.dedup_fused(kmer, emit, hcap, gap)
@@ -1687,7 +1720,7 @@ def time_hier(torch, state) -> list[dict]:
     for L in (8192, 4096):
         seqs = bucket_reads(state["recs"], L)
         packed, lengths = dsync.pack_reads(seqs, L)
-        hcap = dsync.hash_cap(L)
+        hcap = dsync.hash_cap(L, K, S, (K - S + 1) // 2)
         hi, lo, valid, n_unique, _ = extract.syncmer_hashes(
             torch.from_numpy(packed).to(dev),
             torch.from_numpy(lengths).to(dev), K, S, (K - S + 1) // 2, hcap)
@@ -3226,7 +3259,7 @@ def union_inputs(torch, seqs):
     P = dsync.bucket_pieces(L)
     pk, ln = (torch.from_numpy(x).to(dev) for x in dsync.pack_reads(seqs, L))
     t = (K - S + 1) // 2
-    hp = dsync.hash_cap(dsync.L_CAP)
+    hp = dsync.hash_cap(dsync.L_CAP, K, S, t)
     R = len(seqs)
     hi, lo, valid, _, n_emit = extract.syncmer_hashes(pk, ln, K, S, t, hp,
                                                       pieces=P)
@@ -3979,15 +4012,326 @@ def only_routes(torch, cuda_build, root: str, card: str) -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 20 --
+# syncmer schemes past the 32-bit s-mer: K1's and syncmer_track's 64-bit
+# instances (16 <= s <= 31; (30, 29) the widest the CLI builds) and a
+# narrow scheme (k - s + 1 = 3) at its own hash capacity
+WIDE_SCHEMES = ((22, 16), (28, 18), (18, 16), (30, 29), (16, 14))
+WIDE_K, WIDE_S = 28, 18
+NARROW_K, NARROW_S = 16, 14
+WIDE_FLAGS = ["--kmer-size", str(WIDE_K), "--syncmer-size", str(WIDE_S),
+              "--use-syncmer"]
+NARROW_FLAGS = ["--kmer-size", str(NARROW_K), "--syncmer-size",
+                str(NARROW_S), "--use-syncmer"]
+WIDE_HIER_GENOMES = 1024  # the hierarchy's: the first of phase 4's
+K1_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
+RANDOM_K1_READS = 11  # k1_reads' reads of random bases come first
+OVERFLOW_READS = 512  # the overflow search's: phase 13b's first reads
+
+
+def k1_and_twins(torch, dsync, extract, pk, ln, k: int, s: int, t: int,
+                 hcap: int, pieces: int = 1):
+    """(K1's outputs, syncmer_track's, K1's twin's, syncmer_track's
+    twin's) on the same rows; the twins from one tracker pass."""
+    got = extract.syncmer_hashes(pk, ln, k, s, t, hcap, pieces=pieces)
+    track = extract.syncmer_track(pk, ln, k, s, t, pieces=pieces)
+    kmer, emit = extract._kmers_plain(pk, ln, k, s, t, pieces)
+    srt, valid, n_unique, n_emit = dsync.dedup_kmers(kmer, emit, hcap)
+    want = (*extract.hashes_of_kmers(srt, valid), valid, n_unique, n_emit)
+    return got, track, want, (kmer, emit)
+
+
+def check_wide_k1(torch, dsync, extract, rng) -> dict:
+    """Phase 20a: K1 and syncmer_track through the instance each s picks
+    against their twins, bit-exact, for WIDE_SCHEMES at every length
+    bucket on phase 2's reads, at the scheme's hash capacity, with no
+    random read past it; then on piece rows of reads of 2 and 32 pieces
+    (tools/synth.reads_across_cuts: tied stretches and Ns across every
+    cut, tied stretches past a piece)."""
+    from taxor_tpu_torch.tools import synth
+
+    dev = torch.device("cuda")
+    names = ("hi", "lo", "valid", "n_unique", "n_emit", "kmer", "emit")
+    out = {}
+    for k, s in WIDE_SCHEMES:
+        t = (k - s + 1) // 2
+        rec = {"instance": extract.smer_bits(s), "buckets": {},
+               "pieces": {}}
+        for L in K1_BUCKETS:
+            seqs = k1_reads(rng, L)
+            pk, ln = (torch.from_numpy(x).to(dev)
+                      for x in dsync.pack_reads(seqs, L))
+            hcap = dsync.hash_cap(L, k, s, t)
+            got, track, want, twin = k1_and_twins(torch, dsync, extract, pk,
+                                                  ln, k, s, t, hcap)
+            assert_equal(torch, f"K1 and syncmer_track L={L} k={k} s={s}",
+                         names, (*got, *track), (*want, *twin))
+            worst = int(got[4][:RANDOM_K1_READS].max())
+            if worst > hcap:
+                raise AssertionError(f"K1 L={L} k={k} s={s}: a random read "
+                                     f"emits {worst} > hcap {hcap}")
+            rec["buckets"][L] = {"hcap": hcap, "random_n_emit_max": worst,
+                                 "n_emit_max": int(got[4].max())}
+        for P in (2, 32):
+            L = dsync.pieces_len(P)
+            seqs = [q[:L] for q in synth.reads_across_cuts(
+                rng, k, lengths=(L - 5,))]
+            pk, ln = (torch.from_numpy(x).to(dev)
+                      for x in dsync.pack_reads(seqs, L))
+            hp = dsync.hash_cap(dsync.L_CAP, k, s, t)
+            got, track, want, twin = k1_and_twins(torch, dsync, extract, pk,
+                                                  ln, k, s, t, hp, P)
+            assert_equal(torch, f"K1 and syncmer_track, {P} pieces, k={k} "
+                         f"s={s}", names, (*got, *track), (*want, *twin))
+            rec["pieces"][P] = {"reads": len(seqs), "rows": len(seqs) * P,
+                                "hcap": hp}
+        log(f"K1 and syncmer_track ({rec['instance']}-bit s-mers) k={k} s={s}"
+            f" t={t}: bit-exact vs twins at every bucket 256-32768 and on "
+            f"piece rows of 2 and 32 pieces; {json.dumps(rec)}")
+        out[f"{k}/{s}"] = rec
+    return out
+
+
+def build_wide(work: str, tsv: str, gdir: str) -> dict:
+    """Phase 20's k = WIDE_K, s = WIDE_S indexes of phase 4's genomes (a
+    background build): flat on all of them, --layout auto --tmax 64 on
+    the first WIDE_HIER_GENOMES."""
+    os.makedirs(work)
+    sub = os.path.join(work, "taxonomy.tsv")
+    with open(tsv) as fh, open(sub, "w") as out:
+        out.writelines(fh.readlines()[:WIDE_HIER_GENOMES])
+    return {"flat": cli_build(work, tsv, gdir, WIDE_FLAGS, "flat",
+                              "wide_flat")[0],
+            "hier": cli_build(work, sub, gdir, WIDE_FLAGS, "auto",
+                              "wide_hier")[0]}
+
+
+def build_narrow(work: str, tsv: str, gdir: str) -> dict:
+    """Phase 20's flat k = NARROW_K, s = NARROW_S index of phase 13b's
+    genomes (a background build)."""
+    os.makedirs(work)
+    return {"flat": cli_build(work, tsv, gdir, NARROW_FLAGS, "flat",
+                              "narrow_flat")[0]}
+
+
+def smer_search(torch, work: str, label: str, idx: str, recs,
+                n_long: int, wide: bool, split: bool = False) -> dict:
+    """Phase 20b: ``cli search --engine device`` of recs with every launch
+    count set to 0 just before: every read fused (the n_long past L_CAP
+    in pieces), none hashed on the host, none past the hash capacity, K1
+    (its 64-bit instance alone for a wide scheme), the probe, K4 and K6
+    launched; the TSV equal to ``--engine host`` on every read, and for
+    ``split`` the split engine's TSV equal on every read, with
+    syncmer_track (its 64-bit instance for a wide scheme) and K3."""
+    from taxor_tpu_torch import cli
+    from taxor_tpu_torch.device import e2e
+
+    reads = os.path.join(work, f"{label}.fasta")
+    write_fasta(reads, recs)
+    out_dev = os.path.join(work, f"{label}_device.tsv")
+    launches, routes, wall, peak = device_search(torch, idx, reads, out_dev,
+                                                 label)
+    n = len(recs)
+    if routes["fused"] != n or routes["long_fused"] != n_long \
+            or routes["host_hashes"] != 0 or routes["hcap_overflow"] != 0:
+        raise AssertionError(f"[{label}] routes {routes}: every read must "
+                             "take the fused step, none past its capacity")
+    if launches["K1"] <= 0 or launches["K2"] + launches["K2n"] <= 0 \
+            or launches["K4"] <= 0 or launches["K6"] <= 0 \
+            or launches["K1 s64"] != (launches["K1"] if wide else 0):
+        raise AssertionError(f"[{label}] main path skipped a kernel: "
+                             f"{launches}")
+    out_host = os.path.join(work, f"{label}_host.tsv")
+    t0 = time.perf_counter()
+    rc = cli.main(["search", "--index-file", idx, "--query-file", reads,
+                   "--output-file", out_host, "--engine", "host",
+                   "--device", "cuda", "--threads", str(os.cpu_count() or 1)])
+    host_s = time.perf_counter() - t0
+    if rc != 0 or tsv_rows(out_dev) != tsv_rows(out_host):
+        raise AssertionError(f"[{label}] device TSV differs from the host "
+                             f"TSV (host rc {rc})")
+    hits, right = accuracy(out_dev, recs)
+    if right < 0.99 * hits:
+        raise AssertionError(f"[{label}] only {right} of {hits} classified "
+                             "reads name their source genome")
+    rec = {"reads": n, "long_reads": n_long, "wall_s": wall,
+           "host_engine_s": host_s, "peak_mib": peak, "routes": routes,
+           "launches": launches, "classified": hits, "right": right}
+    if split:
+        out_split = os.path.join(work, f"{label}_split.tsv")
+        e2e.USE_FUSED_EXTRACT = False
+        try:
+            sl, sr, swall, _ = device_search(torch, idx, reads, out_split,
+                                             f"{label} split")
+        finally:
+            e2e.USE_FUSED_EXTRACT = True
+        if sl["K1"] != 0 or sl["track"] <= 0 or sl["K3"] <= 0 \
+                or sl["track s64"] != (sl["track"] if wide else 0) \
+                or sr["host_hashes"] != 0 or sr["hcap_overflow"] != 0:
+            raise AssertionError(f"[{label}] split engine: {sl} {sr}")
+        with open(out_dev, "rb") as fa, open(out_split, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"[{label}] split-engine TSV differs "
+                                     "from the K1 TSV")
+        rec["split"] = {"wall_s": swall, "launches": sl, "routes": sr}
+    log(f"[{label}] {n} reads ({n_long} past L_CAP) in {wall:.2f} s wall: "
+        f"TSV == --engine host on every read (host {host_s:.1f} s)"
+        f"{', == the split engine' if split else ''}; {hits} classified, "
+        f"{right} to their source genome; routes {routes}; launches "
+        f"{launches}; peak {peak:.1f} MiB")
+    return rec
+
+
+def overflow_search(torch, work: str, idx: str, recs, n_reads: int,
+                    host_tsv: str) -> dict:
+    """Phase 20b's fallback route: the narrow index searched once more,
+    on its first OVERFLOW_READS reads and the long ones, with
+    ``hixf_search.hash_cap`` held at 128 slots a row (a piece's row too),
+    the floor of the JAX package's rule and below the ~170 emissions of
+    the shortest read (500 bases) at this scheme's density of ~1/3.  So
+    every read is extracted and probed on the card (K1), overflows
+    (n_emit > hcap) and is decided again by the host oracle: every read
+    fused and counted in hcap_overflow and host_fallback, none hashed on
+    the host, and the TSV equal to ``--engine host`` on every read."""
+    from taxor_tpu_torch.device import hixf_search
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+
+    sub = recs[:min(OVERFLOW_READS, n_reads)] + recs[n_reads:]
+    n, n_long = len(sub), len(recs) - n_reads
+    reads = os.path.join(work, "narrow_overflow.fasta")
+    write_fasta(reads, sub)
+    out = os.path.join(work, "narrow_overflow_device.tsv")
+    rule = hixf_search.hash_cap
+    hixf_search.hash_cap = lambda L, k, s, t: 128 * dsync.bucket_pieces(L)
+    try:
+        launches, routes, wall, _ = device_search(torch, idx, reads, out,
+                                                  "narrow_overflow")
+    finally:
+        hixf_search.hash_cap = rule
+    if routes["fused"] != n or routes["long_fused"] != n_long \
+            or routes["host_hashes"] != 0 or routes["hcap_overflow"] != n \
+            or routes["host_fallback"] != n or launches["K1"] <= 0:
+        raise AssertionError(f"[narrow_overflow] routes {routes}, launches "
+                             f"{launches}: every read must be extracted on "
+                             "the card, overflow and fall back to the host")
+    if tsv_rows(out) != tsv_rows(host_tsv, {rid for rid, _ in sub}):
+        raise AssertionError("[narrow_overflow] device TSV differs from the "
+                             "host TSV")
+    log(f"[narrow_overflow] {n} reads ({n_long} past L_CAP) at 128 hash "
+        f"slots a row in {wall:.2f} s wall: every read overflowed on the "
+        f"card and fell back to the host oracle, TSV == --engine host on "
+        f"every read; routes {routes}; launches {launches}")
+    return {"reads": n, "long_reads": n_long, "wall_s": wall,
+            "routes": routes, "launches": launches}
+
+
+def time_wide(torch, recs) -> list[dict]:
+    """Phase 20c: the 64-bit instances of K1 and syncmer_track at the wide
+    flat path's L=8192 bucket against their twins, each with its bound,
+    and K1 on phase 5's all-tied kind of batch."""
+    from taxor_tpu_torch.device import extract
+    from taxor_tpu_torch.hash import device_syncmer as dsync
+    from taxor_tpu_torch.tools.time_extract import all_tied_reads
+
+    dev = torch.device("cuda")
+    L, k, s = 8192, WIDE_K, WIDE_S
+    t = (k - s + 1) // 2
+    seqs = bucket_reads(recs, L)
+    pk, ln = (torch.from_numpy(x).to(dev) for x in dsync.pack_reads(seqs, L))
+    hcap = dsync.hash_cap(L, k, s, t)
+    R = len(seqs)
+    W = dsync.sort_width(L, k, s, t)
+    n_emit = extract.syncmer_hashes(pk, ln, k, s, t, hcap)[4]
+    cases = (
+        ("syncmer_extract_s64", "taxor_tpu/device/pallas_extract.py:160",
+         lambda: extract.syncmer_hashes(pk, ln, k, s, t, hcap),
+         lambda: extract.syncmer_hashes_plain(pk, ln, k, s, t, hcap),
+         # as phase 5's K1 record, with the 64-bit tracker's operations
+         bound(pk.numel() + 4 * R + 9 * R * hcap + 8 * R,
+               float(ln.sum()) * tracker_ops(k, s)
+               + float(n_emit.sum()) * KMER_OPS
+               + sort_ops(n_emit.clamp(max=W).tolist()) + R * hcap,
+               PEAK_SCALAR)),
+        ("syncmer_track_s64",
+         "taxor_tpu/hash/device_syncmer.py:279 (XLA scan, no Pallas "
+         "kernel)", lambda: extract.syncmer_track(pk, ln, k, s, t),
+         lambda: dsync.syncmer_kmers(pk, ln, k, s, t),
+         bound(pk.numel() + 4 * R + 9 * R * L,
+               float(ln.sum()) * tracker_ops(k, s) + R * L * KMER_OPS,
+               PEAK_SCALAR)))
+    rows = []
+    for name, rep, fn, plain, bnd in cases:
+        ms, plain_ms, err, each = time_pair(torch, fn, plain, 5)
+        log(f"time {name} (k={k}, s={s}) at R={R}, L={L}, H={hcap}: kernel "
+            f"{each[0]:.4f}/{each[1]:.4f} ms, plain {each[2]:.3f}/"
+            f"{each[3]:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}); {card_line()}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "taxor_tpu_torch/csrc/extract.cu",
+                     "replaces": rep, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, **bnd, "library_ms": None,
+                     "scheme": [k, s, t], "shape": [R, L, hcap]})
+    tied = all_tied_reads(np.random.default_rng(SEED + 20), L, R)
+    tpk, tln = (torch.from_numpy(x).to(dev)
+                for x in dsync.pack_reads(tied, L))
+    worst, _, _, each = time_pair(
+        torch, lambda: extract.syncmer_hashes(tpk, tln, k, s, t, hcap),
+        lambda: extract.syncmer_hashes_plain(tpk, tln, k, s, t, hcap), 3)
+    rows[0]["all_tied_ms"] = worst
+    log(f"time syncmer_extract_s64 worst case, R={R} reads tied in every "
+        f"window at L={L}: kernel {each[0]:.4f}/{each[1]:.4f} ms, plain "
+        f"{each[2]:.3f}/{each[3]:.3f} ms; bit-exact vs twin")
+    return rows
+
+
+def wide_path(torch, work: str, flat: dict, kmer_in: dict, wide: dict,
+              narrow: dict, k1_checks: dict) -> tuple[dict, list[dict]]:
+    """Phase 20b-d on the background builds: the wide flat and
+    hierarchical searches on phase 4's data, the narrow flat search on
+    phase 13b's and its overflow route (``overflow_search``, whose
+    launches the main paths' counts leave out), the 64-bit instances
+    timed, and phase 4's reads of 40 kb
+    on both routes of the wide flat index (the host-hash route is the one
+    the parent's rule sent every read of this scheme down)."""
+    from taxor_tpu_torch.hixf.index import load_index
+
+    os.makedirs(work)
+    recs, n4 = flat["recs"], flat["n_reads"]
+    runs = {"wide_flat": smer_search(torch, work, "wide_flat", wide["flat"],
+                                     recs, len(recs) - n4, True)}
+    # phase 4's reads of the hierarchy's genomes and every long read
+    first = {f"GCF_{i:06d}.1" for i in range(WIDE_HIER_GENOMES)}
+    hier_recs = [r for r in recs[:n4] if r[0].split("_", 1)[1] in first]
+    runs["wide_hier"] = smer_search(
+        torch, work, "wide_hier", wide["hier"], hier_recs + recs[n4:],
+        len(recs) - n4, True, split=True)
+    nrecs = kmer_in["recs"]
+    runs["narrow_flat"] = smer_search(
+        torch, work, "narrow_flat", narrow["flat"], nrecs,
+        len(nrecs) - kmer_in["n_reads"], False)
+    runs["narrow_flat"]["overflow"] = overflow_search(
+        torch, work, narrow["flat"], nrecs, kmer_in["n_reads"],
+        os.path.join(work, "narrow_flat_host.tsv"))
+    rows = time_wide(torch, recs)
+    index = load_index(wide["flat"])
+    routes40 = long_routes(torch, index, [q for _, q in recs[n4:]],
+                           "wide flat")
+    for row in rows:
+        row["checks"] = k1_checks
+    rows[0]["long_reads_40kb"] = routes40
+    return runs, rows
+
+
 # ------------------------------------------------- background builds --
-# What phases 13a, 13b/13e, 15b, 16c and 17 search is built on the host
+# What phases 13a, 13b/13e, 15b, 16c, 17 and 20 search is built on the host
 # while the card runs the phases before them: each job is a process of
 # this script (``--prebuild JOB WORK PARAMS``) at the lowest CPU priority,
 # so the phases in front keep the cores they ask for, and writes its
 # records to WORK/JOB.pkl.
 PREBUILDS = {"minimizer": build_minimizer, "kmer": build_kmer,
              "atscale": build_atscale, "choice": build_choice,
-             "hier_layouts": build_hier_layouts, "routes": build_routes}
+             "hier_layouts": build_hier_layouts, "routes": build_routes,
+             "smer_wide": build_wide, "smer_narrow": build_narrow}
 
 
 def prebuild_main(job: str, work: str, params: str) -> int:
@@ -4109,6 +4453,7 @@ def main() -> int:
         with phase("phase 4"):
             flat = main_path(torch, os.path.join(work, "flat"), rng,
                              args.genomes, args.reads, "flat")
+            bg.start("smer_wide", tsv=flat["tsv"], gdir=flat["gdir"])
         with phase("phase 4b (the long reads' routes)"):
             flat["long_routes"] = long_routes(
                 torch, flat["index"],
@@ -4130,7 +4475,6 @@ def main() -> int:
         with phase("phase 14e"):
             dryrun_on_card(card)
         t14 = time.perf_counter() - t14
-        shutil.rmtree(os.path.join(work, "flat"), ignore_errors=True)
         with phase("phase 6"):
             k2_rows_checks += check_grouped(torch, probe, rng)
             check_run_sums(torch, probe, rng)
@@ -4188,6 +4532,8 @@ def main() -> int:
         shutil.rmtree(os.path.join(work, "minimizer"), ignore_errors=True)
         with phase("phase 13b"):
             kmer_in = bg.result("kmer")
+            bg.start("smer_narrow", tsv=kmer_in["tsv"],
+                     gdir=kmer_in["gdir"])
             kmer = nonsyncmer_path(torch, os.path.join(work, "kmer"), "kmer",
                                    kmer_in, ("K5", "K2"))
         with phase("phase 13d (K2 at 13b's shape)"):
@@ -4203,7 +4549,17 @@ def main() -> int:
             tail19["kmer"] = long_nonsyncmer(
                 torch, os.path.join(work, "kmer"), "kmer", kmer,
                 kmer_in["gdir"])
-        shutil.rmtree(os.path.join(work, "kmer"), ignore_errors=True)
+        # ---- phase 20: syncmer schemes past the 32-bit s-mer, on phase
+        # 4's and 13b's data
+        with phase("phase 20a (K1's and syncmer_track's instances)"):
+            k1_wide = check_wide_k1(torch, dsync, extract, rng)
+        with phase("phase 20 (wide and narrow syncmer schemes)"):
+            wide_runs, wide_rows = wide_path(
+                torch, os.path.join(work, "smer"), flat, kmer_in,
+                bg.result("smer_wide"), bg.result("smer_narrow"), k1_wide)
+            kernels += wide_rows
+        for d in ("flat", "kmer", "smer", "smer_wide", "smer_narrow"):
+            shutil.rmtree(os.path.join(work, d), ignore_errors=True)
         # ---- phase 15: tables past 2^31 bytes, the at-scale demo
         with phase("phase 15a (tables past 2^31 bytes)"):
             big = check_big_tables(torch, probe)
@@ -4259,12 +4615,15 @@ def main() -> int:
             atscale["launches"], tail["launches"]]
     runs += [r["launches"] for r in tail19.values()]  # phase 19
     runs += [r["launches"] for r in route_runs.values()]  # phase 17
+    runs += [r["launches"] for r in wide_runs.values()]  # phase 20
+    runs.append(wide_runs["wide_hier"]["split"]["launches"])
     for row in kernels:  # launches on the main paths, both engines
         key = {"syncmer_extract": "K1", "probe_count": "K2 slab",
                "probe_count_rows": "K2 rows", "probe_count_narrow": "K2n",
                "syncmer_track": "track", "dedup": "K3",
                "sort_pairs": "K4", "minimizer_kmers": "K5",
-               "unique_pairs": "K6"}[row["name"]]
+               "unique_pairs": "K6", "syncmer_extract_s64": "K1 s64",
+               "syncmer_track_s64": "track s64"}[row["name"]]
         row["launches"] = sum(run[key] for run in runs)
         row["launches_in"] = "main paths"
         # phase 14: summed over the ranks of its four sharded searches
@@ -4298,6 +4657,12 @@ def main() -> int:
                 for lab, r in tail19.items()}
         if key in ("K1", "track"):  # piece rows of reads past L_CAP (18a)
             row["piece_widths"] = union[key]
+        if key in ("K1 s64", "track s64"):  # phase 20's searches
+            row["searches"] = {
+                lab: {x: r[x] for x in ("reads", "long_reads", "wall_s",
+                                        "routes")}
+                     | {"launches": r["launches"][key]}
+                for lab, r in wide_runs.items()}
         if key == "K2 rows" and row["launches"] == 0:  # no table too tall
             row["launches_in"] = "not on a main path"
             row["check_launches"] = k2_rows_checks  # phases 3 and 6

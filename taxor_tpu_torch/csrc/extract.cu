@@ -62,17 +62,28 @@
 // thread, as the whole read was before.
 //
 // Shared memory: one layout for both kernels (smem_layout), the whole read
-// at once, no tiling: a 64-byte header, the staged words (L/4 + 16 bytes),
-// three bit masks (3 L/8 bytes) and ys (4 L bytes).  K1's sort buffer of
-// W = next power of two of the most emissions a read can have
-// (hash/device_syncmer.max_emissions) reuses the ys region once step 4 is
-// done, which grows it to 8 W bytes where that is larger (gap-1 schemes).
-// At L = 32768: 8,208 + 12,288 + 131,072 + 64 = 151,632 bytes (148 KB) for
-// both kernels at k=22/s=12 (W*8 = 64 KB fits the ys region), under the
-// 227 KB a block may use; at L = 8192, 37,968 bytes.  Where the sort
-// buffer would not fit (gap-1 schemes at L = 32768: 256 KB) the wrapper
-// passes a global scratch buffer; it asks the library
+// at once: a 64-byte header, the staged words (L/4 + 16 bytes), three bit
+// masks (3 L/8 bytes) and ys.  K1's sort buffer of W = next power of two
+// of the most emissions a read can have (hash/device_syncmer.max_emissions)
+// reuses the ys region once step 4 is done, which grows it to 8 W bytes
+// where that is larger (gap-1 schemes).  For s <= 15 (32-bit s-mers) ys
+// is 4 L bytes: at L = 32768, 8,208 + 12,288 + 131,072 + 64 = 151,632
+// bytes (148 KB) for both kernels at k=22/s=12 (W*8 = 64 KB fits the ys
+// region), under the 227 KB a block may use; at L = 8192, 37,968 bytes.
+// Where the sort buffer would not fit (gap-1 schemes at L = 32768: 256 KB)
+// the wrapper passes a global scratch buffer; it asks the library
 // (syncmer_extract_smem) which case holds.
+//
+// For 16 <= s <= 31 the canonical s-mer is a 64-bit word, and 8 L bytes
+// of ys would not fit at L = 32768 (256 KB).  Steps 2-3 run in tiles
+// (tile_len): ys holds the s-mers of one tile and the halo before it.  The
+// 32-bit instance's tile is the whole row, with no halo; the 64-bit one's
+// is kTile64 = 16,384 windows with a halo of 32 (a window reads w - 1 <=
+// 30 s-mers back), (16,384 + 32) x 8 = 131,328 bytes, so the layout stays
+// the 32-bit one's size at L = 32768 (151,888 bytes).  A row of one tile
+// replays its tied runs (step 4) from ys; a row of two recomputes the
+// s-mers it replays from the staged words, as holder_at does from global
+// memory.
 
 #include <cuda_runtime.h>
 
@@ -98,12 +109,35 @@ struct Layout {
   size_t words, bits, region, total;
 };
 
+// Steps 2-3 run a tile of windows at a time, with ys holding the tile's
+// s-mers and the halo before it that its first windows read (at least
+// w - 1).  32-bit s-mers take the whole row as one tile, with no halo;
+// 64-bit ones tiles of kTile64 windows.
+constexpr int kTile64 = 16384;
+
+template <class S>
+__host__ __device__ constexpr int tile_len(int L) {
+  return sizeof(S) == 4 || L < kTile64 ? L : kTile64;
+}
+
+template <class S>
+__host__ __device__ constexpr int halo() {
+  return sizeof(S) == 4 ? 0 : 32;
+}
+
+// Bytes of ys at row length L for s-mer word S.
+template <class S>
+__host__ __device__ inline size_t ys_bytes(int L) {
+  return (size_t)(tile_len<S>(L) + halo<S>()) * sizeof(S);
+}
+
+template <class S>
 __host__ __device__ inline Layout smem_layout(int L, size_t sort_bytes) {
   Layout o;
   o.words = kHeader;
   o.bits = o.words + align16((size_t)taxor::staged_words(L) * 4);
   o.region = o.bits + align16((size_t)3 * ((L + 31) / 32) * 4);
-  const size_t ys = (size_t)L * 4;
+  const size_t ys = ys_bytes<S>(L);
   o.total = o.region + (sort_bytes > ys ? sort_bytes : ys);
   return o;
 }
@@ -140,29 +174,16 @@ __device__ inline Row row_of(const uint8_t* packed, const int32_t* lengths,
   return o;
 }
 
-// Steps 1-4 for the row: stages the words into sw, computes ys and the
-// emission mask emit (ceil(Lp/32) words, exact, zero outside the owned
-// windows [k-1, own)), using tied and uncertain as scratch masks; found is
-// a shared int.  Ends with a barrier.
-__device__ void emission_mask(const Row& row, int Lp, int k, int s, int t,
-                              uint32_t* sw, uint32_t* ys, uint32_t* emit,
-                              uint32_t* tied, uint32_t* uncertain,
-                              int* found) {
-  // 1. stage the row: kBias/16 zero words, the Lp/16 words, two zero words
-  const int nsw = taxor::staged_words(Lp), head = taxor::kBias / 16;
-  for (int j = threadIdx.x; j < nsw; j += blockDim.x)
-    sw[j] = j >= head && j < head + Lp / 16 ? row.words[j - head] : 0u;
-  const int len = row.len;
-  __syncthreads();
-
-  // 2. canonical s-mers (those ending before s-1 are never read)
-  for (int i = threadIdx.x; i < len; i += blockDim.x)
-    ys[i] = taxor::canon_smer(sw, i, s);
-  __syncthreads();
-
-  // 3. window outcomes, one ballot word per 32 positions
+// Step 3 for the windows [i0, i1) (i1 - i0 a multiple of the block, so
+// that every lane of a warp ballots): one ballot word per 32 positions of
+// each outcome, from the canonical s-mers ys(e).
+template <class Ys>
+__device__ __forceinline__ void classify(Ys&& ys, int i0, int i1, int Lp,
+                                         int len, int k, int s, int t,
+                                         uint32_t* emit, uint32_t* tied,
+                                         uint32_t* uncertain) {
   const int lane = threadIdx.x & 31;
-  for (int i0 = 0; i0 < Lp; i0 += blockDim.x) {
+  for (; i0 < i1; i0 += blockDim.x) {
     const int i = i0 + threadIdx.x;
     taxor::Window o = {false, false, false};
     if (i >= k - 1 && i < len) o = taxor::window_outcome(ys, i, k, s, t);
@@ -175,7 +196,38 @@ __device__ void emission_mask(const Row& row, int Lp, int k, int s, int t,
       uncertain[i >> 5] = u;
     }
   }
+}
+
+// Steps 1-4 for the row: stages the words into sw, computes ys and the
+// emission mask emit (ceil(Lp/32) words, exact, zero outside the owned
+// windows [k-1, own)), using tied and uncertain as scratch masks; found is
+// a shared int.  S: the s-mer word.  Ends with a barrier.
+template <class S>
+__device__ void emission_mask(const Row& row, int Lp, int k, int s, int t,
+                              uint32_t* sw, S* ys, uint32_t* emit,
+                              uint32_t* tied, uint32_t* uncertain,
+                              int* found) {
+  // 1. stage the row: kBias/16 zero words, the Lp/16 words, two zero words
+  const int nsw = taxor::staged_words(Lp), head = taxor::kBias / 16;
+  for (int j = threadIdx.x; j < nsw; j += blockDim.x)
+    sw[j] = j >= head && j < head + Lp / 16 ? row.words[j - head] : 0u;
+  const int len = row.len;
   __syncthreads();
+
+  // 2-3 a tile at a time: ys[e - base + H] for e in [base - H, base +
+  // tile), the canonical s-mers (those ending before s-1 are never read),
+  // then the window outcomes, one ballot word per 32 positions
+  const int tile = tile_len<S>(Lp);
+  constexpr int H = halo<S>();
+  for (int base = 0; base < Lp; base += tile) {
+    const int end = min(base + tile, len);
+    for (int e = max(0, base - H) + threadIdx.x; e < end; e += blockDim.x)
+      ys[e - base + H] = taxor::canon_smer<S>(sw, e, s);
+    __syncthreads();
+    classify([&](int e) { return ys[e - base + H]; }, base,
+             min(base + tile, Lp), Lp, len, k, s, t, emit, tied, uncertain);
+    __syncthreads();
+  }
 
   // a piece whose first window is tied starts from the read's holder there
   int init = -1;
@@ -186,7 +238,7 @@ __device__ void emission_mask(const Row& row, int Lp, int k, int s, int t,
       return j >= head && j < head + nrw ? rd[j - head] : 0u;
     };
     const auto read_ys = [&](int e) {
-      return taxor::canon_smer_at(words, e, s);
+      return taxor::canon_smer_at<S>(words, e, s);
     };
     const int qp = taxor::holder_at(read_ys, row.base + k - 1, k, s, t,
                                     found);
@@ -196,7 +248,14 @@ __device__ void emission_mask(const Row& row, int Lp, int k, int s, int t,
   }
 
   // 4. the uncertain windows, exactly
-  taxor::resolve_tied_runs(ys, tied, uncertain, emit, len, k, s, t, init);
+  if (Lp <= tile) {
+    taxor::resolve_tied_runs([&](int e) { return ys[e + H]; }, tied,
+                             uncertain, emit, len, k, s, t, init);
+  } else {  // ys holds the last tile only: recompute
+    taxor::resolve_tied_runs(
+        [&](int e) { return taxor::canon_smer<S>(sw, e, s); }, tied,
+        uncertain, emit, len, k, s, t, init);
+  }
   __syncthreads();
   // the windows past the owned ones belong to the next piece
   if (row.own < len) {
@@ -209,6 +268,7 @@ __device__ void emission_mask(const Row& row, int Lp, int k, int s, int t,
   }
 }
 
+template <class S>
 __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
     const uint8_t* __restrict__ packed, const int32_t* __restrict__ lengths,
     int L, int P, int Lp, int stride, int k, int s, int t, int hcap, int W,
@@ -217,13 +277,13 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
     int32_t* __restrict__ n_unique_out, int32_t* __restrict__ n_emit_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = blockIdx.x;  // the output row: the block's piece
-  const Layout o = smem_layout(Lp, 0);
+  const Layout o = smem_layout<S>(Lp, 0);
   int* warp_tot = reinterpret_cast<int*>(smem);
   int* counters = warp_tot + kWarps;  // n_emit, n_unique, found
   uint32_t* sw = reinterpret_cast<uint32_t*>(smem + o.words);
   const int nw = (Lp + 31) / 32;
   uint32_t* emit = reinterpret_cast<uint32_t*>(smem + o.bits);
-  uint32_t* ys = reinterpret_cast<uint32_t*>(smem + o.region);
+  S* ys = reinterpret_cast<S*>(smem + o.region);
   unsigned long long* buf =
       scratch ? scratch + (size_t)r * W
               : reinterpret_cast<unsigned long long*>(smem + o.region);
@@ -289,18 +349,19 @@ __global__ void __launch_bounds__(kThreads) syncmer_extract_kernel(
   }
 }
 
+template <class S>
 __global__ void __launch_bounds__(kThreads) syncmer_track_kernel(
     const uint8_t* __restrict__ packed, const int32_t* __restrict__ lengths,
     int L, int P, int Lp, int stride, int k, int s, int t,
     int64_t* __restrict__ out_kmer, uint8_t* __restrict__ out_emit) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = blockIdx.x;
-  const Layout o = smem_layout(Lp, 0);
+  const Layout o = smem_layout<S>(Lp, 0);
   int* found = reinterpret_cast<int*>(smem);
   uint32_t* sw = reinterpret_cast<uint32_t*>(smem + o.words);
   const int nw = (Lp + 31) / 32;
   uint32_t* emit = reinterpret_cast<uint32_t*>(smem + o.bits);
-  uint32_t* ys = reinterpret_cast<uint32_t*>(smem + o.region);
+  S* ys = reinterpret_cast<S*>(smem + o.region);
   const Row row = row_of(packed, lengths, r, L, P, Lp, stride, k);
   emission_mask(row, Lp, k, s, t, sw, ys, emit, emit + nw, emit + 2 * nw,
                 found);
@@ -316,19 +377,58 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <class S>
+cudaError_t extract_launch(const void* packed, const void* lengths, int R,
+                           int L, int P, int Lp, int stride, int k, int s,
+                           int t, int hcap, int W, void* scratch,
+                           void* out_hi, void* out_lo, void* out_valid,
+                           void* n_unique, void* n_emit, void* stream) {
+  const size_t smem =
+      smem_layout<S>(Lp, scratch ? 0 : (size_t)W * 8).total;
+  cudaError_t e = set_smem((const void*)syncmer_extract_kernel<S>, smem);
+  if (e != cudaSuccess) return e;
+  syncmer_extract_kernel<S><<<R * P, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(packed),
+      static_cast<const int32_t*>(lengths), L, P, Lp, stride, k, s, t, hcap,
+      W, static_cast<unsigned long long*>(scratch),
+      static_cast<int32_t*>(out_hi), static_cast<int32_t*>(out_lo),
+      static_cast<uint8_t*>(out_valid), static_cast<int32_t*>(n_unique),
+      static_cast<int32_t*>(n_emit));
+  return cudaGetLastError();
+}
+
+template <class S>
+cudaError_t track_launch(const void* packed, const void* lengths, int R,
+                         int L, int P, int Lp, int stride, int k, int s,
+                         int t, void* out_kmer, void* out_emit,
+                         void* stream) {
+  const size_t smem = smem_layout<S>(Lp, 0).total;
+  cudaError_t e = set_smem((const void*)syncmer_track_kernel<S>, smem);
+  if (e != cudaSuccess) return e;
+  syncmer_track_kernel<S><<<R * P, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(packed),
+      static_cast<const int32_t*>(lengths), L, P, Lp, stride, k, s, t,
+      static_cast<int64_t*>(out_kmer), static_cast<uint8_t*>(out_emit));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory K1 takes at row length Lp with a W-key sort
-// buffer in shared memory (in_smem != 0) or in global scratch (in_smem ==
-// 0).  The wrapper passes scratch when the first exceeds what a block may
-// use.
-extern "C" int syncmer_extract_smem(int Lp, int W, int in_smem) {
-  return (int)smem_layout(Lp, in_smem ? (size_t)W * 8 : 0).total;
+// Dynamic shared memory K1 takes at row length Lp and s-mer length s
+// with a W-key sort buffer in shared memory (in_smem != 0) or in global
+// scratch (in_smem == 0).  The wrapper passes scratch when the first
+// exceeds what a block may use.
+extern "C" int syncmer_extract_smem(int Lp, int s, int W, int in_smem) {
+  const size_t sort = in_smem ? (size_t)W * 8 : 0;
+  return (int)(s <= 15 ? smem_layout<uint32_t>(Lp, sort)
+                       : smem_layout<uint64_t>(Lp, sort))
+      .total;
 }
 
 // Both launchers take R reads of L bases (packed [R, L/4]) as P pieces
 // each of Lp bases, stride apart (P = 1: whole rows, Lp = L), one block and
-// one output row a piece: R * P rows.
+// one output row a piece: R * P rows.  The instance follows s: 32-bit
+// s-mers for s <= 15, 64-bit ones for 16 <= s <= 31.
 extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
                                       int R, int L, int P, int Lp,
                                       int stride, int k, int s, int t,
@@ -337,18 +437,11 @@ extern "C" int launch_syncmer_extract(const void* packed, const void* lengths,
                                       void* out_valid, void* n_unique,
                                       void* n_emit, void* stream) {
   if (R == 0) return 0;
-  const size_t smem =
-      (size_t)syncmer_extract_smem(Lp, W, scratch == nullptr);
-  cudaError_t e = set_smem((const void*)syncmer_extract_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  syncmer_extract_kernel<<<R * P, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(packed),
-      static_cast<const int32_t*>(lengths), L, P, Lp, stride, k, s, t, hcap,
-      W, static_cast<unsigned long long*>(scratch),
-      static_cast<int32_t*>(out_hi), static_cast<int32_t*>(out_lo),
-      static_cast<uint8_t*>(out_valid), static_cast<int32_t*>(n_unique),
-      static_cast<int32_t*>(n_emit));
-  return (int)cudaGetLastError();
+  const auto launch = s <= 15 ? &extract_launch<uint32_t>
+                              : &extract_launch<uint64_t>;
+  return (int)launch(packed, lengths, R, L, P, Lp, stride, k, s, t, hcap, W,
+                     scratch, out_hi, out_lo, out_valid, n_unique, n_emit,
+                     stream);
 }
 
 extern "C" int launch_syncmer_track(const void* packed, const void* lengths,
@@ -356,12 +449,8 @@ extern "C" int launch_syncmer_track(const void* packed, const void* lengths,
                                     int k, int s, int t, void* out_kmer,
                                     void* out_emit, void* stream) {
   if (R == 0) return 0;
-  const size_t smem = smem_layout(Lp, 0).total;
-  cudaError_t e = set_smem((const void*)syncmer_track_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  syncmer_track_kernel<<<R * P, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(packed),
-      static_cast<const int32_t*>(lengths), L, P, Lp, stride, k, s, t,
-      static_cast<int64_t*>(out_kmer), static_cast<uint8_t*>(out_emit));
-  return (int)cudaGetLastError();
+  const auto launch = s <= 15 ? &track_launch<uint32_t>
+                              : &track_launch<uint64_t>;
+  return (int)launch(packed, lengths, R, L, P, Lp, stride, k, s, t, out_kmer,
+                     out_emit, stream);
 }

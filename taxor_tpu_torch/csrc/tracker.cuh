@@ -36,8 +36,13 @@
 // read's tracker from the last unique window before it (or from the
 // read's first window), however long the tied stretch, and the piece's
 // replay of its first tied run starts from that holder (``init``).
+//
+// The canonical s-mer is a 32-bit word for s <= 15 and a 64-bit one for
+// 16 <= s <= 31 (S below): every function here takes the word type of
+// the s-mers it is given, with the same tie rules for both.
 #pragma once
 #include <cstdint>
+#include <type_traits>
 
 namespace taxor {
 
@@ -47,34 +52,35 @@ namespace taxor {
 // s-mer ending at base e, read for e in [i-w+1, i], w = k-s+1.  init >= 0
 // gives the holder of the first full window (its s-mer start) in place of
 // the leftmost minimum: the holder a piece inherits from the whole read.
-template <class Ys>
+// S, the s-mer word, is what ys returns; no canonical s-mer is all ones.
+template <class Ys, class S>
 __device__ __forceinline__ bool tracker_step(int i, int k, int s, int t,
-                                             Ys&& ys, uint32_t& qv, int& qp,
+                                             Ys&& ys, S& qv, int& qp,
                                              int init = -1) {
   const int w = k - s + 1;
   if (i == k - 1 && init >= 0) {  // first full window, holder given
     qp = init;
     qv = ys(init + s - 1);
   } else if (i == k - 1) {  // first full window: leftmost minimum
-    qv = 0xFFFFFFFFu;
+    qv = ~S(0);
     for (int j = 0; j < w; ++j) {
-      const uint32_t v = ys(s - 1 + j);
+      const S v = ys(s - 1 + j);
       if (v < qv) {
         qv = v;
         qp = j;
       }
     }
   } else if (qp == i - k) {  // the minimum slid out: rightmost minimum
-    qv = 0xFFFFFFFFu;
+    qv = ~S(0);
     for (int j = w - 1; j >= 0; --j) {
-      const uint32_t v = ys(i - w + 1 + j);
+      const S v = ys(i - w + 1 + j);
       if (v < qv) {
         qv = v;
         qp = i - k + 1 + j;
       }
     }
   } else {  // only a strictly smaller newcomer takes over
-    const uint32_t y = ys(i);
+    const S y = ys(i);
     if (y < qv) {
       qv = y;
       qp = i - s + 1;
@@ -103,29 +109,35 @@ __device__ __forceinline__ uint32_t rev2_32(uint32_t x) {
 // raw = the staged bits: reverse complement = ~raw (masked), forward =
 // the 2-bit fields of raw reversed.
 
-// Canonical s-mer ending at base i (s <= 15) of staged words read as
-// sw(j) (a read in global memory; canon_smer below for an array).
-template <class Words>
-__device__ __forceinline__ uint32_t canon_smer_at(Words&& sw, int i, int s) {
+// Canonical s-mer ending at base i of staged words read as sw(j) (a read
+// in global memory; canon_smer below for an array): for S = uint32_t (s
+// <= 15) a funnel shift of two staged words and a 2-bit reversal, for S =
+// uint64_t (16 <= s <= 31) of three, as canon_kmer.
+template <class S, class Words>
+__device__ __forceinline__ S canon_smer_at(Words&& sw, int i, int s) {
   const int q = i - s + 1 + kBias;
-  const uint32_t raw =
+  const uint32_t lo =
       __funnelshift_r(sw(q >> 4), sw((q >> 4) + 1), 2 * (q & 15));
-  const uint32_t smask = (1u << (2 * s)) - 1;
-  const uint32_t fwd = rev2_32(raw) >> (32 - 2 * s);
-  const uint32_t rc = ~raw & smask;
-  return fwd < rc ? fwd : rc;
+  if constexpr (sizeof(S) == 4) {
+    const uint32_t smask = (1u << (2 * s)) - 1;
+    const uint32_t fwd = rev2_32(lo) >> (32 - 2 * s);
+    const uint32_t rc = ~lo & smask;
+    return fwd < rc ? fwd : rc;
+  } else {
+    const uint32_t hi =
+        __funnelshift_r(sw((q >> 4) + 1), sw((q >> 4) + 2), 2 * (q & 15));
+    const uint64_t smask = (1ull << (2 * s)) - 1;
+    const uint64_t rc = ~(((uint64_t)hi << 32) | lo) & smask;
+    const uint64_t fwd =
+        (((uint64_t)rev2_32(lo) << 32) | rev2_32(hi)) >> (64 - 2 * s);
+    return fwd < rc ? fwd : rc;
+  }
 }
 
-// Canonical s-mer ending at base i (s <= 15): two staged words.
-__device__ __forceinline__ uint32_t canon_smer(const uint32_t* sw, int i,
-                                               int s) {
-  const int q = i - s + 1 + kBias;
-  const uint32_t raw =
-      __funnelshift_r(sw[q >> 4], sw[(q >> 4) + 1], 2 * (q & 15));
-  const uint32_t smask = (1u << (2 * s)) - 1;
-  const uint32_t fwd = rev2_32(raw) >> (32 - 2 * s);
-  const uint32_t rc = ~raw & smask;
-  return fwd < rc ? fwd : rc;
+// Canonical s-mer ending at base i of the staged words sw.
+template <class S = uint32_t>
+__device__ __forceinline__ S canon_smer(const uint32_t* sw, int i, int s) {
+  return canon_smer_at<S>([&](int j) { return sw[j]; }, i, s);
 }
 
 // Canonical k-mer ending at base i (k <= 32): three staged words.
@@ -143,22 +155,28 @@ __device__ __forceinline__ uint64_t canon_kmer(const uint32_t* sw, int i,
   return fwd < rc ? fwd : rc;
 }
 
+// The s-mer word an accessor ys(e) returns.
+template <class Ys>
+using smer_of = std::decay_t<decltype(std::declval<Ys>()(0))>;
+
 // The outcome of the window of the k-mer ending at i (k-1 <= i < len),
-// from the canonical s-mers ys (indexed by end base): a direct scan for
-// the minimum and its leftmost and rightmost argmin.
+// from the canonical s-mers ys(e) (by end base): a direct scan for the
+// minimum and its leftmost and rightmost argmin.
 struct Window {
   bool emit;       // unique minimum at the emission offset
   bool tied;       // the minimum occurs more than once
   bool uncertain;  // tied, and one of the minima is at the offset
 };
 
-__device__ __forceinline__ Window window_outcome(const uint32_t* ys, int i,
-                                                 int k, int s, int t) {
+template <class Ys>
+__device__ __forceinline__ Window window_outcome(Ys&& ys, int i, int k, int s,
+                                                 int t) {
+  using S = smer_of<Ys>;
   const int w = k - s + 1;
-  uint32_t m = 0xFFFFFFFFu;
+  S m = ~S(0);
   int lm = 0, rm = 0;
   for (int e = i - w + 1; e <= i; ++e) {
-    const uint32_t y = ys[e];
+    const S y = ys(e);
     if (y < m) {
       m = y;
       lm = e;
@@ -169,7 +187,7 @@ __device__ __forceinline__ Window window_outcome(const uint32_t* ys, int i,
   }
   const int off = i - w + t;  // end of the s-mer starting at i-k+t
   const bool tied = lm != rm;
-  return {!tied && lm == off, tied, tied && ys[off] == m};
+  return {!tied && lm == off, tied, tied && ys(off) == m};
 }
 
 // Step 4: every maximal run of tied windows that holds an uncertain
@@ -183,10 +201,10 @@ __device__ __forceinline__ Window window_outcome(const uint32_t* ys, int i,
 // and marks the one window in between where the holder sits at the
 // offset.  tied, uncertain and emit are bit masks, bit i%32 of word i/32,
 // zero at every i outside [k-1, len).  init: the holder of the first
-// window (tracker_step), -1 for the leftmost minimum.  Every thread of the
-// block calls it.
-__device__ inline void resolve_tied_runs(const uint32_t* ys,
-                                         const uint32_t* tied,
+// window (tracker_step), -1 for the leftmost minimum.  ys(e): the
+// canonical s-mers.  Every thread of the block calls it.
+template <class Ys>
+__device__ inline void resolve_tied_runs(Ys&& ys, const uint32_t* tied,
                                          const uint32_t* uncertain,
                                          uint32_t* emit, int len, int k,
                                          int s, int t, int init = -1) {
@@ -209,14 +227,19 @@ __device__ inline void resolve_tied_runs(const uint32_t* ys,
         if (ends) break;
       }
       if (last < 0) continue;
-      uint32_t qv = 0;
+      smer_of<Ys> qv = 0;
       int qp = a - 1 - k;  // as if the held minimum had just slid out
-      const auto at = [&](int e) { return ys[e]; };
-      for (int i = a == k - 1 ? a : a - 1; i <= last; i = qp + k) {
-        if (tracker_step(i, k, s, t, at, qv, qp, init))
-          atomicOr(&emit[i >> 5], 1u << (i & 31));
+      // only the first step can be the first window, the one init
+      // concerns: the later steps leave it out of their serial chain
+      int i = a == k - 1 ? a : a - 1;
+      bool hit = tracker_step(i, k, s, t, ys, qv, qp, init);
+      for (;;) {
+        if (hit) atomicOr(&emit[i >> 5], 1u << (i & 31));
         const int e = qp + k - t;  // the window where the holder emits
         if (e > i && e <= last) atomicOr(&emit[e >> 5], 1u << (e & 31));
+        i = qp + k;
+        if (i > last) break;
+        hit = tracker_step(i, k, s, t, ys, qv, qp);
       }
     }
   }
@@ -226,11 +249,12 @@ __device__ inline void resolve_tied_runs(const uint32_t* ys,
 // from the canonical s-mers ys(e).
 template <class Ys>
 __device__ __forceinline__ bool window_unique(Ys&& ys, int i, int k, int s) {
+  using S = smer_of<Ys>;
   const int w = k - s + 1;
-  uint32_t m = 0xFFFFFFFFu;
+  S m = ~S(0);
   int lm = 0, rm = 0;
   for (int e = i - w + 1; e <= i; ++e) {
-    const uint32_t y = ys(e);
+    const S y = ys(e);
     if (y < m) {
       m = y;
       lm = e;
@@ -266,7 +290,7 @@ __device__ int holder_at(Ys&& ys, int c, int k, int s, int t, int* found) {
   int qp = 0;
   if (threadIdx.x == 0) {
     const int u = *found;
-    uint32_t qv = 0;
+    smer_of<Ys> qv = 0;
     qp = u - k;  // as if the held minimum had just slid out of window u
     for (int i = u >= 0 ? u : k - 1;;) {
       tracker_step(i, k, s, t, ys, qv, qp);

@@ -50,8 +50,8 @@ _SIGNATURES = {
     #  out_hi, out_lo, out_valid, n_unique, n_emit, stream)
     "launch_syncmer_extract": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P, _P, _P, _P, _P, _P, _P],
-    # (Lp, W, in_smem) -> K1's dynamic shared-memory bytes
-    "syncmer_extract_smem": [_I, _I, _I],
+    # (Lp, s, W, in_smem) -> K1's dynamic shared-memory bytes
+    "syncmer_extract_smem": [_I, _I, _I, _I],
     # (hi, lo, valid, R, H, tables, G, S, Bpad, active, seed,
     #  block_length, slab_bins, rec, nrec, out, stream)
     "launch_probe_count": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P,

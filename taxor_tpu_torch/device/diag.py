@@ -400,6 +400,9 @@ def extract_stage(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     if packed.device.type == "cpu":
         return extract_stage_plain(packed, lengths, k, s, t, stage)
     R, L = _check_reads("extract_stage", packed, lengths, k, s, t)
+    if s > 15:  # the stage dump reads 32-bit s-mers (K1's 32-bit instance)
+        raise ValueError(f"extract_stage: unsupported scheme k={k} s={s} "
+                         f"t={t}: s <= 15")
     dev = packed.device
     emit = stage == "emit"
     out = torch.empty((R, L), dtype=torch.bool if emit else torch.int64,

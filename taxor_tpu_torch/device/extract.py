@@ -6,7 +6,11 @@ The kernel (``csrc/extract.cu``) runs the reference's stateful tracker
 position-parallel and exact (windows classified in parallel, tied runs
 replayed in the kernel: ``csrc/tracker.cuh``), so it needs neither the
 TPU kernel's tie flag nor the tie-rescue sub-batch of ``device/e2e.py``:
-n_emit is always the true count.
+n_emit is always the true count.  Both kernels come in two instances,
+picked from s (``smer_bits``): 32-bit canonical s-mers for s <= 15, as
+the TPU kernel's int32 lanes had them, and 64-bit ones for 16 <= s <= 31,
+so that every syncmer scheme the CLI builds (k <= 30) runs on the card;
+each wrapper counts its launches by instance in ``SMER_BITS``.
 
 Contract of ``syncmer_hashes`` for packed reads uint8 [R, L/4]
 (``pack_reads`` layout) and lengths int32 [R]:
@@ -55,8 +59,8 @@ from __future__ import annotations
 import torch
 
 from ..hash.device_syncmer import (L_CAP, PIECE_STRIDE, dedup_kmers,
-                                   max_emissions, minimizer_kmers_plain,
-                                   pieces_len, syncmer_kmers,
+                                   minimizer_kmers_plain, pieces_len,
+                                   sort_width, syncmer_kmers,
                                    syncmer_kmers_pieces)
 from ..hash.minimizer import adjust_seed
 from ..utils.u64 import INT64_MIN, i64, join32, split32, wyhash64
@@ -66,9 +70,10 @@ from . import cuda_build
 SMEM_LIMIT = 227 * 1024
 
 
-def sort_width(L: int, k: int, s: int, t: int) -> int:
-    """Power-of-two sort-buffer width covering every possible emission."""
-    return 1 << max(0, max_emissions(L, k, s, t) - 1).bit_length()
+def smer_bits(s: int) -> int:
+    """The s-mer word of the K1 and syncmer_track instance that takes
+    s-mers of length s: 32 bits for s <= 15, 64 for 16 <= s <= 31."""
+    return 32 if s <= 15 else 64
 
 
 def hashes_of_kmers(srt: torch.Tensor, valid: torch.Tensor):
@@ -126,7 +131,7 @@ def _check_reads(name: str, packed: torch.Tensor, lengths: torch.Tensor,
                  k: int, s: int, t: int) -> tuple[int, int]:
     """Validates a syncmer kernel's packed reads and scheme; (R, L)."""
     R, L = _check_packed(name, packed, lengths)
-    if not (2 <= s <= 15 and s < k <= 32 and 1 <= t <= k - s + 1):
+    if not (2 <= s <= 31 and s < k <= 32 and 1 <= t <= k - s + 1):
         raise ValueError(f"{name}: unsupported scheme k={k} s={s} t={t}")
     return R, L
 
@@ -163,7 +168,7 @@ def syncmer_hashes(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     n_emit = torch.empty_like(n_unique)
     lib = cuda_build.lib()
     scratch = None
-    if lib.syncmer_extract_smem(Lp, W, 1) > SMEM_LIMIT:
+    if lib.syncmer_extract_smem(Lp, s, W, 1) > SMEM_LIMIT:
         scratch = torch.empty((rows, W), dtype=torch.int64, device=dev)
     err = lib.launch_syncmer_extract(
         packed.data_ptr(), lengths.data_ptr(), R, L, pieces, Lp, stride, k,
@@ -172,11 +177,13 @@ def syncmer_hashes(packed: torch.Tensor, lengths: torch.Tensor, k: int,
         n_emit.data_ptr(), cuda_build.stream_of(packed))
     cuda_build.check(err, "launch_syncmer_extract")
     if R:
-        cuda_build.count_launch(syncmer_hashes)
+        cuda_build.count_launch(syncmer_hashes, tally=syncmer_hashes.SMER_BITS,
+                                variant=smer_bits(s))
     return hi, lo, valid, n_unique, n_emit
 
 
 syncmer_hashes.LAUNCHES = 0
+syncmer_hashes.SMER_BITS = {}  # launches by instance: {32 | 64: n}
 
 
 def syncmer_track(packed: torch.Tensor, lengths: torch.Tensor, k: int,
@@ -198,11 +205,13 @@ def syncmer_track(packed: torch.Tensor, lengths: torch.Tensor, k: int,
         s, t, kmer.data_ptr(), emit.data_ptr(), cuda_build.stream_of(packed))
     cuda_build.check(err, "launch_syncmer_track")
     if R:
-        cuda_build.count_launch(syncmer_track)
+        cuda_build.count_launch(syncmer_track, tally=syncmer_track.SMER_BITS,
+                                variant=smer_bits(s))
     return kmer, emit
 
 
 syncmer_track.LAUNCHES = 0
+syncmer_track.SMER_BITS = {}
 
 
 def minimizer_hashes_plain(packed, lengths, k: int, window: int,

@@ -484,7 +484,8 @@ class DeviceHIXF:
         the JAX step's "descend_all" mode instead, whose result is
         [R, 3k + 2]; no search path asks for it."""
         # minimisers and plain k-mers: one value a position
-        hcap = hash_cap(L) if scheme.use_syncmer else L
+        hcap = (hash_cap(L, scheme.kmer_size, scheme.syncmer_size,
+                         scheme.t_syncmer) if scheme.use_syncmer else L)
         kind = "syncmer" if scheme.use_syncmer else "minimizer"
         if len(self.ixfs) == 1:
             kw = dict(k=scheme.kmer_size, s=scheme.syncmer_size,

@@ -2,16 +2,19 @@
 the plain PyTorch twin of the exact extraction.
 
 Counterpart of ``taxor_tpu/hash/device_syncmer.py``.  The length
-buckets, the hash capacity and the 2-bit packer are the JAX package's,
-in numpy (``pack_reads`` keeps the native ``pack_reads_2bit`` call).
-``syncmer_kmers`` -> ``dedup_kmers`` -> ``u64.wyhash64`` is the plain
-twin of CUDA kernel K1 (``device/extract.py``): the same stateful
-window-minimum tracker as the reference scanner (hash/syncmer.py,
-src/hashing/syncmer.cpp:109-146), vectorised over reads and positions
-as K1 computes it (``syncmer_emissions``), the tied runs replayed one
-step at a time.  A read longer than L_CAP runs in pieces (``piece_count``,
-``bucket_len``, ``piece_owned``; ``syncmer_kmers_pieces`` is the twin of
-K1's piece rows).
+buckets and the 2-bit packer are the JAX package's, in numpy
+(``pack_reads`` keeps the native ``pack_reads_2bit`` call); the hash
+capacity is the JAX package's at k - s + 1 >= 8 and wider below it
+(``hash_cap``).  ``syncmer_kmers`` -> ``dedup_kmers`` ->
+``u64.wyhash64`` is the plain twin of CUDA kernel K1
+(``device/extract.py``; of both its instances, 32-bit s-mers up to s =
+15 and 64-bit ones up to s = 31: the twin computes in int64 for every
+s): the same stateful window-minimum tracker as the reference scanner
+(hash/syncmer.py, src/hashing/syncmer.cpp:109-146), vectorised over
+reads and positions as K1 computes it (``syncmer_emissions``), the tied
+runs replayed one step at a time.  A read longer than L_CAP runs in
+pieces (``piece_count``, ``bucket_len``, ``piece_owned``;
+``syncmer_kmers_pieces`` is the twin of K1's piece rows).
 
 Search semantics are dna4: N and IUPAC codes pack as A and never reset
 the scanner.  t is the reference's integer division (k - s + 1) // 2, and
@@ -55,11 +58,14 @@ SENTINEL = -1
 
 
 def supports(scheme) -> bool:
-    """Whether the device extractor covers this hash scheme."""
+    """Whether the device extractor covers this hash scheme: K1 takes
+    2 <= s < k <= 32, 32-bit canonical s-mers for s <= 15 and 64-bit ones
+    up to s = 31 (device/extract.smer_bits), so every syncmer scheme the
+    CLI builds (k <= 30)."""
     return (
         scheme.use_syncmer
         and scheme.scaling >= 1
-        and 2 <= scheme.syncmer_size <= 15
+        and 2 <= scheme.syncmer_size <= 31
         and scheme.syncmer_size < scheme.kmer_size <= 32
     )
 
@@ -115,17 +121,28 @@ def bucket_len(n: int) -> int:
     return pieces_len(1 << (piece_count(n) - 1).bit_length())
 
 
-def hash_cap(L: int) -> int:
-    """Per-read hash capacity for length bucket L.  Open-syncmer density
-    is ~1/(k-s+1) (on random 4,000-base reads the plain twin emits ~350
-    a read at k = 22, s = 12 and ~1,390 at k = 16, s = 14), so a scheme
-    with k-s+1 <= 3 fills L/4 slots on every read of its bucket.  A
-    bucket of P pieces has P x L_CAP positions, P x hash_cap(L_CAP)
-    slots (the pieces' slots side by side).  Reads that emit more than
-    this fall back to the host oracle through the device-reported
-    emission count."""
+def hash_cap(L: int, k: int, s: int, t: int) -> int:
+    """Per-read hash capacity of scheme (k, s, t) for length bucket L: the
+    sorted hash slots K1 keeps of a read (or of a piece).  Open-syncmer
+    density is ~1/(k-s+1) (on random 4,000-base reads the plain twin
+    emits ~350 a read at k = 22, s = 12 and ~1,390 at k = 16, s = 14), so
+    a row of Lp = min(L, L_CAP) positions takes
+
+        max(128, Lp / 4, min(sort_width(Lp), 128 * ceil(2 Lp / (128 w))))
+
+    slots, w = k - s + 1: twice the density, the JAX package's margin for
+    errors and repeats, in whole 128-slot lanes, never past K1's sort
+    buffer; at w >= 8 that is the L/4 of the JAX package's static shape
+    (taxor_tpu/hash/device_syncmer.hash_cap), which every such scheme
+    keeps, and narrower schemes get more (k = 16, s = 14: 2,816 at L =
+    4,096 against 1,024).  A bucket of P pieces has P x L_CAP positions,
+    P x hash_cap(L_CAP) slots (the pieces' slots side by side).  Reads
+    that emit more than this fall back to the host oracle through the
+    device-reported emission count."""
     P = bucket_pieces(L)
-    return P * max(128, min(L, L_CAP) // 4)
+    Lp = min(L, L_CAP)
+    dense = 128 * -(-2 * Lp // (128 * (k - s + 1)))
+    return P * max(128, Lp // 4, min(sort_width(Lp, k, s, t), dense))
 
 
 def pack_reads(seqs: list[bytes], L: int):
@@ -186,6 +203,12 @@ def max_emissions(L: int, k: int, s: int, t: int) -> int:
     if L < k:
         return 0
     return (L - k) // emission_min_gap(k, s, t) + 1
+
+
+def sort_width(L: int, k: int, s: int, t: int) -> int:
+    """Power-of-two width of K1's sort buffer: covers every possible
+    emission of a row of L bases."""
+    return 1 << max(0, max_emissions(L, k, s, t) - 1).bit_length()
 
 
 def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
@@ -249,7 +272,7 @@ def syncmer_emissions(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     if L < k:
         return torch.zeros((R, L), dtype=torch.bool, device=dev)
     sf, sr = _rolling(codes, s)
-    ys = torch.minimum(sf, sr)  # s <= 15: no sign bit involved
+    ys = torch.minimum(sf, sr)  # s <= 31: below 2^62, no sign bit involved
     ends = torch.arange(L, device=dev).expand(R, L)
     # the minimum of ys[i-w+1 .. i] and its leftmost and rightmost argmin,
     # from the oldest s-mer to the newest

@@ -78,9 +78,10 @@ SMEM_PER_SM = 233_472
 # fewer than 4 bins, for reads of no fewer than 8,192 hash slots (the
 # card measured thin slabs slower than the rows route elsewhere).  The
 # model's batch, the L = 8,192 bucket of a syncmer scheme, has
-# hash_cap(8,192) = 2,048 slots a read, so it never takes a thin slab:
-# the model prices syncmer batches, and the plain k-mer and minimiser
-# schemes' batches of 8,192 slots only as syncmer batches (ROADMAP D.5).
+# hash_cap(8,192, 22, 12, 5) = 2,048 slots a read, so it never takes a
+# thin slab: the model prices syncmer batches of k - s + 1 >= 8, and the
+# plain k-mer and minimiser schemes' batches of 8,192 slots and narrow
+# syncmer schemes' wider ones only as such (ROADMAP D.5).
 SLAB_MAX_SLOTS = 196_608
 THIN_MIN_BINS = 4
 THIN_MIN_SLOTS = 8192

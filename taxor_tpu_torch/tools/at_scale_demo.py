@@ -402,9 +402,11 @@ def group_routes(dhixf) -> list[dict]:
         elif Bp <= probe.NARROW_MAX_BINS:
             route = "K2n " + probe.narrow_mode(S, Bp, g["tables"].device)
         else:
-            # as the L = 8,192 bucket's batch takes it
+            # as the L = 8,192 bucket's batch of the demo's k = 22,
+            # s = 12 scheme takes it
             route = "K2 " + ("slab" if probe.slab_bins(
-                S, Bp, dsync.hash_cap(8192), g["tables"].device) else "rows")
+                S, Bp, dsync.hash_cap(8192, 22, 12, 5), g["tables"].device)
+                else "rows")
         out.append(dict(shape=[G, S, Bp], ixfs=len(g["members"]),
                         route=route))
     return out

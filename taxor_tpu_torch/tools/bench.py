@@ -33,9 +33,10 @@ as the proxy of the reference's 32-core deployment, and a literal
 on device-resident reads (DeviceHIXF.e2e_step: device/e2e.fused_e2e_step
 flat, the grouped descent hierarchical; timed by tools/timing.rolled_ms),
 the host fallback and classified fractions of one real dispatch.  The
-parity gate searches eleven scheme/layout families (PARITY_FAMILIES: every
-scheme x layout pair of the device search and the hash-capacity overflow)
-with the device and the host engines and compares the TSVs byte for byte;
+parity gate searches twelve scheme/layout families (PARITY_FAMILIES: every
+scheme x layout pair of the device search, a narrow syncmer scheme at its
+own hash capacity and one of 64-bit s-mers) with the device and the host
+engines and compares the TSVs byte for byte;
 the result's ``parity_routes`` gives each family's device-engine route
 counts (search/pipeline.ROUTES: every family's reads take the fused
 step).
@@ -111,12 +112,18 @@ PARITY_FAMILIES = {
     # plain k-mers in the count-table descent on K5's values
     "hier_plain_kmer": ("auto", 1, dict(kmer_size=20, window_size=20,
                                         use_syncmer=False)),
-    # k - s + 1 = 3: ~1/3 of the positions emit, past the hash capacity
-    # of L/4, so the host oracle decides every read (hcap overflow)
+    # k - s + 1 = 3: ~1/3 of the positions emit, past the L/4 of the
+    # wider schemes; the scheme's own hash capacity holds every read
     "narrow_syncmer": ("flat", 0, dict(kmer_size=16, syncmer_size=14,
                                        use_syncmer=True)),
+    # s >= 16: K1's 64-bit s-mer instance
+    "wide_smer_syncmer": ("flat", 0, dict(kmer_size=28, syncmer_size=18,
+                                          use_syncmer=True)),
 }
 FAMILIES = tuple(PARITY_FAMILIES)
+# the families whose every read must take the fused step within its hash
+# capacity, as the parent's rules sent them to the host
+ROUTED_FAMILIES = ("narrow_syncmer", "wide_smer_syncmer")
 
 
 def log(msg: str) -> None:
@@ -290,10 +297,12 @@ def parity_gate(device="cuda", n_reads: int = 256, n_mixed: int = 192,
     budget skipped the family.  Covers flat and hierarchical layouts,
     syncmers, plain k-mers, FracMinHash scaling, minimizers and mixed
     500 b .. 4 kb read lengths (several length buckets), the
-    count-table and descend-all descents, and the hash-capacity overflow
-    (narrow_syncmer passes only if the host oracle decided every read for
-    that reason).  ``routes`` receives each family's route counts of its
-    device search (search/pipeline.ROUTES)."""
+    count-table and descend-all descents, a narrow syncmer scheme and
+    64-bit s-mers (each of ROUTED_FAMILIES passes only if every read
+    took the fused step, none was hashed on the host and none
+    overflowed its hash capacity).  ``routes``
+    receives each family's route counts of its device search
+    (search/pipeline.ROUTES)."""
     routes = {} if routes is None else routes
     with tempfile.TemporaryDirectory(prefix="taxor_parity_",
                                      dir=root) as tmp:
@@ -336,13 +345,15 @@ def parity_gate(device="cuda", n_reads: int = 256, n_mixed: int = 192,
                 texts[engine] = buf.getvalue()
             ok = texts["device"] == texts["host"]
             log(f"bench[parity]: {name} device==host byte parity: {ok}")
-            if ok and name == "narrow_syncmer":
+            if ok and name in ROUTED_FAMILIES:
                 r = routes[name]
-                ok = r["fused"] > 0 and (r["host_fallback"]
-                                         == r["hcap_overflow"] == r["fused"])
+                n = len(read_all(reads_file if src == 0 else mixed))
+                ok = (r["fused"] == n and r["host_hashes"] == 0
+                      and r["hcap_overflow"] == 0)
                 if not ok:
-                    log(f"bench[parity]: {name}: not every fused read "
-                        f"overflowed the hash capacity: {r}")
+                    log(f"bench[parity]: {name}: of {n} reads, not every "
+                        f"one took the fused step within its hash "
+                        f"capacity: {r}")
             results[name] = ok
             if not ok:
                 d, h = texts["device"].splitlines(), texts["host"].splitlines()

@@ -82,7 +82,8 @@ def diff_hashes(index, seqs: list[bytes], device: str = "cuda",
     seqs = seqs[:n_reads]
     L = dsync.pad_len_bucket(max(len(s) for s in seqs))
     packed, lengths = dsync.pack_reads(seqs, L)
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, scheme.kmer_size, scheme.syncmer_size,
+                          scheme.t_syncmer)
     dh = DeviceHIXF.from_hixf(index.hixf, dev)
     vals, _, counts, n_emit, _, _ = dh.e2e_async(packed, lengths, scheme,
                                                 th, k=16)()

@@ -100,7 +100,7 @@ def run_rank(mesh) -> dict:
                 and np.array_equal(emitted, want >= p["thresholds"][:, None]))
 
     k, s, t, topk = 16, 8, 4, 8
-    hcap = dsync.hash_cap(p["L"])
+    hcap = dsync.hash_cap(p["L"], k, s, t)
     n_runs = p["offsets"].shape[0] - 1
     users = torch.arange(n_runs, dtype=torch.int32, device=dev)
     packed = torch.from_numpy(p["packed"]).to(dev)

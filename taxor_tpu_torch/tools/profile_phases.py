@@ -73,7 +73,7 @@ def profile(device="cuda", problem: dict | None = None) -> dict:
     packed, lengths = dsync.pack_reads(seqs, L)
     pr = torch.from_numpy(packed).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, k, s, t)
     gap = dsync.emission_min_gap(k, s, t)
     R = packed.shape[0]
     dh = DeviceHIXF.from_hixf(index.hixf, dev)

@@ -5,27 +5,27 @@ branch of their register network.
     python -m taxor_tpu_torch.tools.time_sort [--L 8192] [--reads 512]
         [--device cuda]
 
-The batch is ``chip_smoke.py`` phase 10's shape: R reads of the L
-bucket (random reads over ACGT with lengths uniform over (L/2, L], as
+The batch is ``chip_smoke.py`` phase 10's shape: R reads of the L bucket
+(random reads over ACGT with lengths uniform over (L/2, L], as
 ``time_extract.random_reads`` makes them), their per-position k-mers and
-emissions from ``syncmer_track`` at k=22/s=12/t=5, hcap =
-``hash_cap(L)``.  K3 dedups them (``sort.dedup_fused``); K3 again on the
+emissions from ``syncmer_track`` at k=22/s=12/t=5, hcap = ``hash_cap(L,
+22, 12, 5)``.  K3 dedups them (``sort.dedup_fused``); K3 again on the
 same k-mers with ``emit`` all false times its gather and writes alone;
 K4 sorts the rows of (hi, lo) of the k-mers with every position that
 emits nothing set to the all-ones sentinel (``sort.sort_pairs``), and
-``torch.sort`` of the same keys as int64 is timed beside it (a yardstick,
-unused by the port).  Each gets two times, on the same inputs after a
-warm-up call: ``<name>_ms``, a call as a caller sees it
+``torch.sort`` of the same keys as int64 is timed beside it (a
+yardstick, unused by the port).  Each gets two times, on the same inputs
+after a warm-up call: ``<name>_ms``, a call as a caller sees it
 (``time_extract.best_ms``: the best of 3 means of 10 calls between CUDA
 events, the host's Python and launch gaps included), and
-``<name>_device_ms``, the kernel alone (``device_ms``: the same, with the
-10 launches queued behind a sleep kernel before the first starts).  A
-kernel faster than the host's ~0.025 ms a call shows only in the second.
-On the CPU both are ``time.perf_counter`` times.  One JSON line goes to
-stdout: nvidia-smi's name and power limit, the emissions a read (mean,
-min, max) and the times; exit code 1 when a kernel differs from its
-twin.  With ``--device cpu`` it runs the twins (a check of the tool, no
-device time).
+``<name>_device_ms``, the kernel alone (``device_ms``: the same, with
+the 10 launches queued behind a sleep kernel before the first starts).
+A kernel faster than the host's ~0.025 ms a call shows only in the
+second.  On the CPU both are ``time.perf_counter`` times.  One JSON line
+goes to stdout: nvidia-smi's name and power limit, the emissions a read
+(mean, min, max) and the times; exit code 1 when a kernel differs from
+its twin.  With ``--device cpu`` it runs the twins (a check of the tool,
+no device time).
 
 To compare two checkouts, run this file from each in turns (parent,
 change, change, parent) in one call to the card:
@@ -55,8 +55,9 @@ SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
 # to enqueue the calls it times
 HEAD_START_CYCLES = 40_000_000
 # K4's merge route (rows past 16,384 keys): one merge pass, a width that
-# is no power of two, the union's widths of 32 pieces and past them
-MERGE_WIDTHS = (16385, 32768, 65536, 100000, 262144, 524288)
+# is no power of two, the union's widths of 32 pieces and past them, up
+# to 2^20 (the union of 32 pieces of a narrow syncmer scheme)
+MERGE_WIDTHS = (16385, 32768, 65536, 100000, 262144, 524288, 1048576)
 # K4 widths the checks run: sizes below a warp, odd widths, the register
 # route at E = 16 and 32, and the merge route
 PAIR_WIDTHS = (1, 2, 31, 100, 128, 1024, 8192, 16384) + MERGE_WIDTHS
@@ -167,7 +168,7 @@ def main(argv: list[str] | None = None) -> int:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
     L = args.L
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, K, S, T)
     gap = dsync.emission_min_gap(K, S, T)
     kmer, emit = batch(L, args.reads, dev)
     none = torch.zeros_like(emit)

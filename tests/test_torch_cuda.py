@@ -1,7 +1,9 @@
-"""The CUDA kernels K1, K2, K2n, syncmer_track, K3, K4, K5 and K6, the
-steps on the card (syncmer, minimiser, plain k-mer and scaled schemes;
-syncmer reads past L_CAP in pieces) and the tools' four diagnostic
-kernels, held bit-exact to their plain twins.
+"""The CUDA kernels K1, K2, K2n, syncmer_track, K3, K4, K5 and K6 (K1 and
+syncmer_track in both s-mer instances), the steps on the card (syncmer,
+minimiser, plain k-mer and scaled schemes; syncmer reads past L_CAP in
+pieces; s >= 16 and narrow syncmer schemes at their own hash capacity)
+and the tools' four diagnostic kernels, held bit-exact to their plain
+twins.
 Needs a CUDA GPU and nvcc; skips elsewhere.  This file imports no JAX,
 so it also runs on a machine without it:
 
@@ -54,7 +56,7 @@ def test_k1_matches_twin(cuda, L, k, s, t):
     packed, lengths = dsync.pack_reads(reads(rng, L), L)
     pk = torch.from_numpy(packed).to(cuda)
     ln = torch.from_numpy(lengths).to(cuda)
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, k, s, t)
     before = extract.syncmer_hashes.LAUNCHES
     got = extract.syncmer_hashes(pk, ln, k, s, t, hcap)
     want = extract.syncmer_hashes_plain(pk, ln, k, s, t, hcap)
@@ -79,7 +81,7 @@ def test_track_and_dedup_match_twins(cuda, L, k, s, t):
     torch.cuda.synchronize()
     assert torch.equal(kmer, want[0]) and torch.equal(emit, want[1])
     gap = dsync.emission_min_gap(k, s, t)
-    for hcap in (dsync.hash_cap(L), 64):
+    for hcap in (dsync.hash_cap(L, k, s, t), 64):
         got = sort.dedup_fused(kmer, emit, hcap, gap)
         ref = sort.dedup_fused_plain(kmer, emit, hcap, gap)
         torch.cuda.synchronize()
@@ -87,6 +89,126 @@ def test_track_and_dedup_match_twins(cuda, L, k, s, t):
             assert a.device.type == "cuda" and torch.equal(a, b)
     assert (extract.syncmer_track.LAUNCHES, sort.dedup_fused.LAUNCHES) == (
         before[0] + 1, before[1] + 2)
+
+
+# the schemes of K1's and syncmer_track's 64-bit s-mer instances (16 <= s
+# <= 31) and a narrow one of the 32-bit instance (k - s + 1 = 3), each at
+# its own hash capacity
+WIDE_SCHEMES = [(22, 16), (28, 18), (18, 16), (30, 29), (16, 14)]
+
+
+def instance_launches(bits: int) -> tuple[int, int]:
+    return (extract.syncmer_hashes.SMER_BITS.get(bits, 0),
+            extract.syncmer_track.SMER_BITS.get(bits, 0))
+
+
+@pytest.mark.parametrize("L", [256, 4096, 16384, 32768])
+@pytest.mark.parametrize("k,s", WIDE_SCHEMES)
+def test_k1_and_track_wide_schemes_match_twins(cuda, k, s, L):
+    """K1 and syncmer_track through the instance s picks (at L = 32768
+    the 64-bit one takes two tiles and replays tied runs from the staged
+    words) at the scheme's hash capacity: bit-exact to their twins, and
+    no random read emits past the capacity."""
+    t = (k - s + 1) // 2
+    rng = np.random.default_rng(L + 100 * k + s)
+    packed, lengths = dsync.pack_reads(reads(rng, L), L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    hcap = dsync.hash_cap(L, k, s, t)
+    bits = extract.smer_bits(s)
+    before = instance_launches(bits)
+    got = extract.syncmer_hashes(pk, ln, k, s, t, hcap)
+    track = extract.syncmer_track(pk, ln, k, s, t)
+    want = extract.syncmer_hashes_plain(pk, ln, k, s, t, hcap)
+    twin = dsync.syncmer_kmers(pk, ln, k, s, t)
+    torch.cuda.synchronize()
+    for a, b in zip((*got, *track), (*want, *twin)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert instance_launches(bits) == (before[0] + 1, before[1] + 1)
+    assert int(got[4][:12].max()) <= hcap  # reads() starts with 12 random
+
+
+@pytest.mark.parametrize("P", [2, 32])
+@pytest.mark.parametrize("k,s", WIDE_SCHEMES)
+def test_k1_and_track_wide_scheme_pieces_match_twins(cuda, k, s, P):
+    """K1's and syncmer_track's piece rows of reads in the bucket of P
+    pieces (tied stretches and Ns across every cut, tied stretches past a
+    piece), then their union (K4, K6): bit-exact to the twins, and the
+    union equals the host scanner's set on every read that fits the
+    capacity, which every random one does."""
+    from taxor_tpu_torch.hash.schemes import HashScheme, search_hashes
+    from taxor_tpu_torch.utils.u64 import join32
+
+    t = (k - s + 1) // 2
+    rng = np.random.default_rng(P + 100 * k + s)
+    L = dsync.pieces_len(P)
+    seqs = [q[:L] for q in synth.reads_across_cuts(rng, k, lengths=(L - 5,))]
+    packed, lengths = dsync.pack_reads(seqs, L)
+    pk = torch.from_numpy(packed).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    hp = dsync.hash_cap(dsync.L_CAP, k, s, t)
+    bits = extract.smer_bits(s)
+    before = instance_launches(bits)
+    got = extract.syncmer_hashes(pk, ln, k, s, t, hp, pieces=P)
+    track = extract.syncmer_track(pk, ln, k, s, t, pieces=P)
+    want = extract.syncmer_hashes_plain(pk.cpu(), ln.cpu(), k, s, t, hp,
+                                        pieces=P)
+    twin = dsync.syncmer_kmers_pieces(pk.cpu(), ln.cpu(), k, s, t, P)
+    torch.cuda.synchronize()
+    for a, b in zip((*got, *track), (*want, *twin)):
+        assert a.shape[0] == len(seqs) * P and torch.equal(a.cpu(), b)
+    assert instance_launches(bits) == (before[0] + 1, before[1] + 1)
+    hcap = dsync.hash_cap(L, k, s, t)
+    assert hcap == P * hp
+    hi, lo, valid, n_unique, n_emit = (
+        x.cpu() for x in e2e._syncmer_hashes(pk, ln, k, s, t, hcap))
+    host = search_hashes(seqs, HashScheme(kmer_size=k, window_size=k,
+                                          syncmer_size=s, t_syncmer=t))
+    for r, h in enumerate(host):
+        if int(n_emit[r]) == sort.OVERFLOW:
+            continue
+        keys = join32(hi[r], lo[r])[valid[r]].numpy().astype(np.uint64)
+        assert np.array_equal(np.sort(keys), h) and n_unique[r] == len(h)
+    # the three reads of random bases (cut kinds) fit
+    assert (n_emit[:3] != sort.OVERFLOW).all()
+
+
+@pytest.mark.parametrize("k,s", [(28, 18), (16, 14)])
+def test_wide_and_narrow_scheme_steps_match_cpu_twins(cuda, tmp_path, k, s):
+    """The flat and the grouped step of a 64-bit s-mer scheme and of a
+    narrow one on the card equal the CPU twins, at the scheme's hash
+    capacity, with no read past it (reads of 1-3 kb and of 40 kb)."""
+    from taxor_tpu_torch.apps.build import BuildConfig, run_build
+    from taxor_tpu_torch.device.hixf_search import DeviceHIXF
+    from taxor_tpu_torch.search.thresholds import Thresholder
+
+    from .util import make_ref_set
+
+    rng = np.random.default_rng(k + s)
+    tsv, gdir, genomes = make_ref_set(str(tmp_path), rng, n_species=72,
+                                      genome_len=4000)
+    gs = list(genomes.values())
+    batches = [(4096, [g[o:o + n] for g, o, n in zip(
+        gs, range(0, 1000, 40), (1000, 2000, 3000) * 8)]),
+        (dsync.bucket_len(40000), [b"".join(gs[j:j + 10])[:40000]
+                                   for j in range(0, 40, 10)])]
+    th = Thresholder.make(k, k, 0.04, -1.0, True)
+    for layout in ("flat", "auto"):
+        index = run_build(BuildConfig(
+            input_file=tsv, input_sequence_dir=gdir, output_filename="",
+            kmer_size=k, syncmer_size=s, use_syncmer=True,
+            layout_mode=layout, tmax=64 if layout == "auto" else 0,
+            layout_file=str(tmp_path / f"{layout}.out")))
+        assert (len(index.hixf.ixfs) > 1) == (layout == "auto")
+        dhs = [DeviceHIXF.from_hixf(index.hixf, dev) for dev in ("cpu", cuda)]
+        for L, seqs in batches:
+            packed, lengths = dsync.pack_reads(seqs, L)
+            out = [dh.e2e_async(packed, lengths, index.scheme, th)()
+                   for dh in dhs]
+            for a, b in zip(out[0][:5], out[1][:5]):
+                np.testing.assert_array_equal(a, b)
+            hcap = dsync.hash_cap(L, k, s, index.scheme.t_syncmer)
+            assert out[1][4] == hcap and (out[1][3] <= hcap).all()
 
 
 def test_dedup_reports_min_gap_overflow(cuda):
@@ -108,7 +230,8 @@ def test_sort_pairs_matches_twin(cuda, W):
     of long equal runs (merge cuts inside runs); below a warp, odd widths, E = 16
     and 32 of the register network, and past 16,384 keys the merge route
     (chunks sorted on the network, then merge-path passes: one at 16,385
-    and 32,768, five at 524,288; 100,000 is no power of two)."""
+    and 32,768, five at 524,288, six at 1,048,576, the union of 32 pieces
+    of a narrow syncmer scheme; 100,000 is no power of two)."""
     hi, lo = time_sort.pair_rows(np.random.default_rng(W), 6, W)
     args = [torch.from_numpy(x.view(np.int32)).to(cuda) for x in (hi, lo)]
     before = sort.sort_pairs.LAUNCHES
@@ -173,9 +296,10 @@ def long_reads(rng, k: int) -> list[bytes]:
 @pytest.mark.parametrize("k,s,t", [(22, 12, 5), (16, 8, 4), (14, 12, 1)])
 def test_k1_pieces_match_twin(cuda, k, s, t):
     """K1 on the pieces of reads past L_CAP (4 pieces a read; the gap-1
-    scheme sorts in global scratch and overflows its pieces' hcap), then
-    their union (K4, K6): bit-exact to the twins, and the union equals
-    the host scanner's set where no piece overflows."""
+    scheme sorts in global scratch and overflows its pieces' hcap, here
+    the k = 22, s = 12 scheme's L/4 for every scheme), then their union
+    (K4, K6): bit-exact to the twins, and the union equals the host
+    scanner's set where no piece overflows."""
     from taxor_tpu_torch.hash.schemes import HashScheme, search_hashes
     from taxor_tpu_torch.utils.u64 import join32
 
@@ -185,7 +309,7 @@ def test_k1_pieces_match_twin(cuda, k, s, t):
     packed, lengths = dsync.pack_reads(seqs, L)
     pk = torch.from_numpy(packed).to(cuda)
     ln = torch.from_numpy(lengths).to(cuda)
-    hp = dsync.hash_cap(dsync.L_CAP)
+    hp = dsync.hash_cap(dsync.L_CAP, 22, 12, 5)
     before = extract.syncmer_hashes.LAUNCHES
     got = extract.syncmer_hashes(pk, ln, k, s, t, hp, pieces=P)
     want = extract.syncmer_hashes_plain(pk.cpu(), ln.cpu(), k, s, t, hp,
@@ -195,11 +319,10 @@ def test_k1_pieces_match_twin(cuda, k, s, t):
     for a, b in zip(got, want):
         assert a.shape[0] == len(seqs) * P and torch.equal(a.cpu(), b)
     before = sort.sort_pairs.LAUNCHES, sort.unique_pairs.LAUNCHES
-    hashes = e2e._syncmer_hashes(pk, ln, k, s, t, dsync.hash_cap(L))
+    hashes = e2e._syncmer_hashes(pk, ln, k, s, t, P * hp)
     assert (sort.sort_pairs.LAUNCHES, sort.unique_pairs.LAUNCHES) == (
         before[0] + 1, before[1] + 1)
-    plain = e2e._syncmer_hashes(pk.cpu(), ln.cpu(), k, s, t,
-                                dsync.hash_cap(L))
+    plain = e2e._syncmer_hashes(pk.cpu(), ln.cpu(), k, s, t, P * hp)
     for a, b in zip(hashes, plain):
         assert torch.equal(a.cpu(), b)
     hi, lo, valid, n_unique, n_emit = (x.cpu() for x in hashes)
@@ -228,9 +351,10 @@ def test_track_pieces_match_twin(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(kmer.cpu(), want[0]) and torch.equal(emit.cpu(),
                                                             want[1])
-    k1 = e2e._syncmer_hashes(pk, ln, k, s, t, dsync.hash_cap(L))
+    hcap = dsync.hash_cap(L, k, s, t)
+    k1 = e2e._syncmer_hashes(pk, ln, k, s, t, hcap)
     monkeypatch.setattr(e2e, "USE_FUSED_EXTRACT", False)
-    split = e2e._syncmer_hashes(pk, ln, k, s, t, dsync.hash_cap(L))
+    split = e2e._syncmer_hashes(pk, ln, k, s, t, hcap)
     for a, b in zip(k1, split):
         assert torch.equal(a, b)
 
@@ -303,7 +427,8 @@ def test_long_read_steps_match_cpu_twins(cuda, tmp_path):
                for dh in dhs]
         for a, b in zip(out[0][:5], out[1][:5]):
             np.testing.assert_array_equal(a, b)
-        assert out[1][4] == dsync.hash_cap(L) and (out[1][0][:, 0] > 0).all()
+        assert (out[1][4] == dsync.hash_cap(L, 22, 12, 5)
+                and (out[1][0][:, 0] > 0).all())
 
 
 @pytest.mark.parametrize("name", ["plain_kmer", "scaled_minimizer"])
@@ -351,7 +476,7 @@ def test_split_step_equals_k1_step(cuda, monkeypatch):
     args = [torch.from_numpy(x).to(cuda) for x in (
         table, packed, lengths, np.array([0, 3, 4, 10, 100, 250, 300]),
         np.array([0, -1, 1, 2, 3, 4], dtype=np.int32))]
-    kw = dict(k=22, s=12, t=5, hcap=dsync.hash_cap(L), topk=16)
+    kw = dict(k=22, s=12, t=5, hcap=dsync.hash_cap(L, 22, 12, 5), topk=16)
     want = fused_e2e_step(*args, 77, 1500, **kw)
     monkeypatch.setattr(e2e, "USE_FUSED_EXTRACT", False)
     before = extract.syncmer_hashes.LAUNCHES, sort.dedup_fused.LAUNCHES
@@ -631,7 +756,7 @@ def test_fused_step_matches_cpu_twins(cuda):
     users = np.array([0, -1, 1, 2, 3, 4], dtype=np.int32)
     args = [torch.from_numpy(x) for x in (table, packed, lengths, offsets,
                                           users)]
-    kw = dict(k=k, s=s, t=t, hcap=dsync.hash_cap(L), topk=topk)
+    kw = dict(k=k, s=s, t=t, hcap=dsync.hash_cap(L, k, s, t), topk=topk)
     want = fused_e2e_step(*args, 77, bl, **kw)
     got = fused_e2e_step(*[a.to(cuda) for a in args], 77, bl, **kw)
     assert torch.equal(got.cpu(), want)
@@ -944,7 +1069,7 @@ def test_nonsyncmer_fused_step_matches_cpu_twins(cuda, name):
     args = [torch.from_numpy(x) for x in (table, packed, lengths, offsets,
                                           users)]
     kw = dict(k=k, s=s, t=t, topk=topk, scheme_kind=kind, window=window,
-              hcap=dsync.hash_cap(L) if kind == "syncmer" else L,
+              hcap=dsync.hash_cap(L, k, s, t) if kind == "syncmer" else L,
               scale_thresh=scaling_threshold_u64(scaling) if scaling > 1
               else 0)
     before = extract.minimizer_kmers.LAUNCHES
@@ -1219,6 +1344,19 @@ def test_diag_stages_match_twins_every_scheme(cuda, L, k, s, t):
         assert torch.equal(got, want[stage]), stage
     assert diag.extract_stage.LAUNCHES == before + len(diag.STAGES)
     assert want["emit"].sum() > 0
+
+
+def test_diag_stages_refuse_64_bit_smers(cuda):
+    """The stage dump reads 32-bit s-mers: s >= 16, which K1 takes through
+    its 64-bit instance, raises instead of dumping wrong stages."""
+    from taxor_tpu_torch.device import diag
+
+    pk = torch.zeros((2, 64), dtype=torch.uint8, device=cuda)
+    ln = torch.full((2,), 256, dtype=torch.int32, device=cuda)
+    before = diag.extract_stage.LAUNCHES
+    with pytest.raises(ValueError, match="s <= 15"):
+        diag.extract_stage(pk, ln, 28, 18, 5, "emit")
+    assert diag.extract_stage.LAUNCHES == before
 
 
 def test_diag_stage_smem_equals_the_kernels(cuda):

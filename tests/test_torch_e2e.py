@@ -80,7 +80,8 @@ def flat_steps(split_setup, hcap, topk):
     scheme = index.scheme
     ixf = index.hixf.ixfs[0]
     L = dsync.pad_len_bucket(max(len(s) for s in seqs))
-    hcap = hcap or dsync.hash_cap(L)
+    hcap = hcap or dsync.hash_cap(L, scheme.kmer_size, scheme.syncmer_size,
+                                  scheme.t_syncmer)
     packed, lengths = dsync.pack_reads(seqs, L)
     rpad = (-len(seqs)) % 16  # the Pallas read tile
     packed = np.pad(packed, ((0, rpad), (0, 0)))
@@ -179,7 +180,7 @@ def test_search_split_engine_equals_host(split_setup, host_tsv,
 def test_search_hash_capacity_overflow_falls_back(split_setup, host_tsv,
                                                   monkeypatch):
     _, idx, reads, _, tmp = split_setup
-    monkeypatch.setattr(hixf_search, "hash_cap", lambda L: 8)
+    monkeypatch.setattr(hixf_search, "hash_cap", lambda L, k, s, t: 8)
     pipeline.ROUTES.reset()
     dev = search({"engine": "device"}, idx, reads,
                  os.path.join(tmp, "dev_hcap.tsv"))

@@ -56,7 +56,7 @@ def hash_set(hi, lo, valid):
                                    (32, 15, 256)])
 def test_twin_equals_exact_tracker(k, s, L):
     t = (k - s + 1) // 2
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, k, s, t)
     seqs = reads(k * 100 + s, L)
     packed, lengths, (hi, lo, valid, nu, ne) = twin(seqs, L, k, s, t, hcap)
     khi, klo, emit = jdsync.syncmer_kmers(jnp.asarray(packed),
@@ -100,7 +100,7 @@ def test_twin_hcap_overflow_keeps_smallest_kmers():
 
 def test_twin_equals_fused_pallas_on_unflagged_reads():
     k, s, t, L = 22, 12, 5, 512
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, k, s, t)
     seqs = reads(k + s, L, n=16)
     packed, lengths, (hi, lo, valid, nu, ne) = twin(seqs, L, k, s, t, hcap)
     fhi, flo, fv, fnu, fne = map(np.asarray, syncmer_hashes_fused(
@@ -127,7 +127,9 @@ def test_twin_matches_reference_scanner(case):
     seq = case["seq"].encode()
     L = dsync.pad_len_bucket(max(1, len(seq)))
     _, _, (hi, lo, valid, nu, _) = twin([seq], L, case["k"], case["s"],
-                                        case["t"], dsync.hash_cap(L))
+                                        case["t"], dsync.hash_cap(
+                                            L, case["k"], case["s"],
+                                            case["t"]))
     got = np.sort((hi[0][valid[0]].view(np.uint32).astype(np.uint64)
                    << np.uint64(32))
                   | lo[0][valid[0]].view(np.uint32).astype(np.uint64))

@@ -180,9 +180,10 @@ def test_stacked_equals_unstacked(hier_setup):
     }
     assert max(g["tables"].shape[0] for g in variants["stacked"]) >= 2
     assert len(variants["one per level"]) < len(variants["one per launch"])
-    hcap = dsync.hash_cap(packed.shape[1] * 4)
-    tbl = torch.from_numpy(count_thresholds(th, hcap))
     sch = index.scheme
+    hcap = dsync.hash_cap(packed.shape[1] * 4, sch.kmer_size,
+                          sch.syncmer_size, sch.t_syncmer)
+    tbl = torch.from_numpy(count_thresholds(th, hcap))
     outs = {}
     for name, groups in variants.items():
         fn = make_hixf_e2e_grouped_fn(
@@ -346,7 +347,8 @@ def descent_inputs(index, seqs):
     dh = DeviceHIXF.from_hixf(index.hixf, "cpu")
     packed, lengths = fused_reads(seqs)
     sch = index.scheme
-    hcap = dsync.hash_cap(packed.shape[1] * 4)
+    hcap = dsync.hash_cap(packed.shape[1] * 4, sch.kmer_size,
+                          sch.syncmer_size, sch.t_syncmer)
     hi, lo, valid, n_unique, _ = e2e._syncmer_hashes(
         torch.from_numpy(packed), torch.from_numpy(lengths), sch.kmer_size,
         sch.syncmer_size, sch.t_syncmer, hcap)

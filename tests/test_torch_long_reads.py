@@ -74,7 +74,8 @@ def test_piece_plan_owns_every_window_once(n):
     L = dsync.bucket_len(n)
     P = dsync.bucket_pieces(L)
     assert L >= n and P & (P - 1) == 0 and P >= dsync.piece_count(n)
-    assert dsync.hash_cap(L) == P * dsync.hash_cap(min(L, dsync.L_CAP))
+    assert dsync.hash_cap(L, k, 12, 5) == P * dsync.hash_cap(
+        min(L, dsync.L_CAP), k, 12, 5)
     if P == 1:
         assert L == dsync.pad_len_bucket(n)
         return
@@ -110,7 +111,7 @@ def test_union_equals_host_scanner(cut_reads, name, group):
     packed, lengths = dsync.pack_reads(seqs, L)
     hi, lo, valid, n_unique, n_emit = e2e._hashes(
         torch.from_numpy(packed), torch.from_numpy(lengths), "syncmer", k, s,
-        scheme.t_syncmer, 0, dsync.hash_cap(L),
+        scheme.t_syncmer, 0, dsync.hash_cap(L, k, s, scheme.t_syncmer),
         schemes.scaling_threshold_u64(scaling) if scaling > 1 else 0)
     want = jax_schemes.search_hashes(seqs, jax_schemes.HashScheme.make(
         k, s, None, True, scaling))
@@ -272,15 +273,17 @@ def test_union_twin_keeps_an_all_ones_hash(where):
 
 def test_piece_overflow_sends_the_read_to_the_host():
     """A gap-1 scheme (k = 14, s = 12, t = 1) emits more than a piece's
-    hash capacity: the read's n_emit is OVERFLOW, above its hcap, so the
+    hash capacity (here the k = 22, s = 12 scheme's L/4, below its ~1/3
+    density): the read's n_emit is OVERFLOW, above its hcap, so the
     pipeline's decode sends it to the host oracle."""
     rng = np.random.default_rng(3)
     seqs = [synth.random_genome(rng, 40000), synth.random_genome(rng, 300)]
     L = dsync.bucket_len(40000)
+    hcap = dsync.hash_cap(L, 22, 12, 5)
     packed, lengths = dsync.pack_reads(seqs, L)
     out = e2e._hashes(torch.from_numpy(packed), torch.from_numpy(lengths),
-                      "syncmer", 14, 12, 1, 0, dsync.hash_cap(L), 0)
-    assert int(out[4][0]) == sort.OVERFLOW > dsync.hash_cap(L)
+                      "syncmer", 14, 12, 1, 0, hcap, 0)
+    assert int(out[4][0]) == sort.OVERFLOW > hcap
     assert int(out[4][1]) == host_emissions(seqs[1], 14, 12, 1)
 
 

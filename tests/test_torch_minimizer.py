@@ -214,7 +214,8 @@ def test_flat_step_matches_jax(flat_sets, name):
     seqs = [s[:250] for s in seqs[:15]] + [b"A" * 240]
     L = 256
     packed, lengths = dsync.pack_reads(seqs, L)
-    hcap = dsync.hash_cap(L) if sch.use_syncmer else L
+    hcap = (dsync.hash_cap(L, sch.kmer_size, sch.syncmer_size, sch.t_syncmer)
+            if sch.use_syncmer else L)
     scale = scaling_threshold_u64(sch.scaling) if sch.scaling > 1 else 0
     kind = "syncmer" if sch.use_syncmer else "minimizer"
     kw = dict(k=sch.kmer_size, s=sch.syncmer_size, t=sch.t_syncmer,
@@ -352,16 +353,18 @@ def test_search_device_equals_host(flat_sets, name):
 
 @pytest.mark.parametrize("scheme,fused", [
     (dict(kmer_size=22, syncmer_size=12, use_syncmer=True), True),
-    (dict(kmer_size=22, syncmer_size=16, use_syncmer=True), False),
+    (dict(kmer_size=22, syncmer_size=16, use_syncmer=True), True),
     (dict(kmer_size=20, window_size=26, use_syncmer=False, scaling=3), True),
     (dict(kmer_size=20, window_size=20, use_syncmer=False), True),
     (dict(kmer_size=20, window_size=19, use_syncmer=False), False),
+    (dict(kmer_size=22, syncmer_size=22, use_syncmer=True), False),
 ])
 def test_e2e_capable_takes_the_device_schemes(flat_sets, scheme, fused):
     """DeviceHIXF.e2e_capable(thresholder, scheme), the one gate of the
     search, prewarm and the bench, admits exactly the schemes the device
-    extractors take (syncmers with s <= 15, minimisers and plain k-mers,
-    scaled or not), as the JAX package's use_e2e does."""
+    extractors take: syncmers with 2 <= s < k <= 32 (64-bit s-mers past s
+    = 15, where the JAX package's int32 lanes stop), minimisers and plain
+    k-mers, scaled or not; s = k has no syncmer and stays on the host."""
     from taxor_tpu_torch.hash.schemes import HashScheme
 
     sch = HashScheme(**scheme)

@@ -452,7 +452,7 @@ def test_k3_model_on_syncmer_reads():
                                      torch.from_numpy(lengths), k, s, t)
     gap = dsync.emission_min_gap(k, s, t)
     km, em = kmer.numpy().view(np.uint64), emit.numpy()
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, k, s, t)
     got = dedup_model(km, em, hcap, gap)
     assert_dedup_equal(got, twin_dedup(km, em, hcap, gap))
     assert_dedup_equal(got, jax_dedup(km, em, hcap, gap))

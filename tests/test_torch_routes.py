@@ -1,12 +1,14 @@
 """The routes of the device search that no main path takes, at a tiny
 size: scaled syncmers (flat and in the count-table descent), unscaled
 minimisers (flat and in the descend-all descent), plain k-mers in the
-count-table descent, the hash-capacity overflow of a narrow syncmer
-scheme, and the top-k escalation 16 -> 64 -> 256 on strains of one
-species.  Each search's TSV is held byte for byte to the JAX package's
-device engine (its fused Pallas steps in interpret mode, as its own tests
-run them on the CPU) and to the port's host engine; the route counts
-(search/pipeline.ROUTES) show which route each read took."""
+count-table descent, a narrow syncmer scheme at its own hash capacity,
+64-bit s-mers, the hash-capacity overflow, and the top-k escalation 16
+-> 64 -> 256 on strains of one species.  Each search's TSV is held byte
+for byte to the JAX package's device engine (its fused Pallas steps in
+interpret mode, as its own tests run them on the CPU; for s >= 16, which
+its int32 lanes do not take fused, its host engine) and to the port's
+host engine; the route counts (search/pipeline.ROUTES) show which route
+each read took."""
 
 import dataclasses
 import os
@@ -15,10 +17,12 @@ import numpy as np
 import pytest
 
 from taxor_tpu.device import hixf_search as jax_hixf_search
+from taxor_tpu.hash import device_syncmer as jax_dsync
 from taxor_tpu.hixf.index import load_index as jax_load_index
 from taxor_tpu.search import pipeline as jax_pipeline
 from taxor_tpu.search.thresholds import Thresholder as JaxThresholder
 from taxor_tpu_torch.apps.build import BuildConfig, run_build
+from taxor_tpu_torch.device import hixf_search
 from taxor_tpu_torch.hixf.index import save_index
 from taxor_tpu_torch.search import pipeline
 from taxor_tpu_torch.tools.bench import PARITY_FAMILIES
@@ -27,7 +31,8 @@ from .util import make_reads, make_ref_set, mutate
 
 # the bench gate's families of the routes no main path takes
 NEW_FAMILIES = ("scaled_syncmer", "hier_scaled_syncmer", "minimizer",
-                "hier_minimizer", "hier_plain_kmer", "narrow_syncmer")
+                "hier_minimizer", "hier_plain_kmer", "narrow_syncmer",
+                "wide_smer_syncmer")
 
 
 @pytest.fixture(scope="module")
@@ -54,8 +59,9 @@ def ref_sets(tmp_path_factory):
 
 def search_three_ways(tmp, idx, reads, label, monkeypatch, **cfg):
     """(the port's device TSV on its plain twins, its host TSV, the JAX
-    device engine's TSV), each search with the SearchConfig fields
-    ``cfg``; the port's route counts of its device search."""
+    device engine's TSV, or its host engine's where its device engine
+    does not take the scheme fused), each search with the SearchConfig
+    fields ``cfg``; the port's route counts of its device search."""
     out = {e: os.path.join(tmp, f"{label}_{e}.tsv")
            for e in ("device", "host", "jax")}
     pipeline.ROUTES.reset()
@@ -72,11 +78,12 @@ def search_three_ways(tmp, idx, reads, label, monkeypatch, **cfg):
     sch = index.scheme
     th = JaxThresholder.make(sch.kmer_size, sch.window_size, 0.04, -1.0,
                              sch.use_syncmer)
+    fused = jax_dsync.supports(sch) or not sch.use_syncmer
     # the JAX device engine takes its fused steps on this index
     assert jax_hixf_search.DeviceHIXF(index.hixf).e2e_capable(th)
     jax_pipeline.run_search(jax_pipeline.SearchConfig(
         index_file=idx, query_file=reads, report_file=out["jax"],
-        engine="device", **cfg))
+        engine="device" if fused else "host", **cfg))
     texts = []
     for engine in ("device", "host", "jax"):
         with open(out[engine], "rb") as fh:
@@ -104,10 +111,43 @@ def test_family_matches_jax_device_and_host(family, ref_sets, monkeypatch):
     assert routes["fused"] == n_reads and routes["host_hashes"] == 0
     assert routes["host_fallback"] == (routes["hcap_overflow"]
                                        + routes["truncated"])
-    if family == "narrow_syncmer":  # ~330 emissions a 1 kb read > L/4
-        assert routes["hcap_overflow"] == n_reads
-    else:
-        assert routes["hcap_overflow"] == 0
+    # narrow_syncmer: ~330 emissions a 1 kb read, past L/4 but within its
+    # own capacity
+    assert routes["hcap_overflow"] == 0
+
+
+def test_hcap_overflow_falls_back_to_the_host(ref_sets, monkeypatch):
+    """The hash-capacity overflow, end to end: the narrow scheme (k = 16,
+    s = 14, ~330 emissions a 1 kb read) searched with the capacity held
+    at the JAX package's rule, L/4 of the bucket, sends every read past
+    it to the host oracle, and the TSV is still the JAX package's
+    ``--engine host`` byte for byte."""
+    tmp, sets = ref_sets
+    layout, src, scheme = PARITY_FAMILIES["narrow_syncmer"]
+    tsv, gdir, reads, n_reads = sets[src]
+    idx = os.path.join(tmp, "narrow_overflow.taxor.npz")
+    run_build(BuildConfig(input_file=tsv, input_sequence_dir=gdir,
+                          output_filename=idx, layout_mode=layout,
+                          layout_file="", **scheme))
+    monkeypatch.setattr(hixf_search, "hash_cap",
+                        lambda L, k, s, t: jax_dsync.hash_cap(L))
+    out = {e: os.path.join(tmp, f"narrow_overflow_{e}.tsv")
+           for e in ("device", "jax")}
+    pipeline.ROUTES.reset()
+    pipeline.run_search(pipeline.SearchConfig(
+        index_file=idx, query_file=reads, report_file=out["device"],
+        engine="device"), device="cpu")
+    routes = dict(pipeline.ROUTES.counts)
+    jax_pipeline.run_search(jax_pipeline.SearchConfig(
+        index_file=idx, query_file=reads, report_file=out["jax"],
+        engine="host"))
+    texts = []
+    for engine in ("device", "jax"):
+        with open(out[engine], "rb") as fh:
+            texts.append(fh.read())
+    assert texts[0] == texts[1] and texts[0].count(b"\n") > n_reads
+    assert routes["fused"] == n_reads and routes["host_hashes"] == 0
+    assert routes["hcap_overflow"] == routes["host_fallback"] == n_reads
 
 
 def test_topk_escalates_on_strains(tmp_path, monkeypatch):

@@ -183,8 +183,9 @@ def jax_flat(f) -> np.ndarray:
     lengths = np.pad(lengths, (0, rpad)).astype(np.int32)
     step = jax_sharded_e2e_fn(
         jax_make_mesh(2, 2), k=scheme.kmer_size, s=scheme.syncmer_size,
-        t=scheme.t_syncmer, hcap=dsync.hash_cap(L) if scheme.use_syncmer
-        else L, topk=16, interpret=True,
+        t=scheme.t_syncmer, hcap=dsync.hash_cap(
+            L, scheme.kmer_size, scheme.syncmer_size, scheme.t_syncmer)
+        if scheme.use_syncmer else L, topk=16, interpret=True,
         scheme_kind="syncmer" if scheme.use_syncmer else "minimizer",
         window=scheme.window_size, scale_thresh=jax_scale_thresh(scheme))
     out = np.asarray(step(

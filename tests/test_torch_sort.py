@@ -152,7 +152,7 @@ def test_split_extraction_equals_k1(monkeypatch):
     k, s, t, L = 22, 12, 5, 512
     packed, lengths = dsync.pack_reads(reads(41, L), L)
     pk, ln = torch.from_numpy(packed), torch.from_numpy(lengths)
-    hcap = dsync.hash_cap(L)
+    hcap = dsync.hash_cap(L, k, s, t)
     want = extract.syncmer_hashes(pk, ln, k, s, t, hcap)
     monkeypatch.setattr(e2e, "USE_FUSED_EXTRACT", False)
     got = e2e._syncmer_hashes(pk, ln, k, s, t, hcap)

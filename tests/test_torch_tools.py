@@ -441,10 +441,13 @@ def test_time_extract_runs_on_the_twins(capsys):
                               "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["device"] == "cpu" and out["L"] == 256
-    for batch in ("random", "all_tied"):
-        assert out[batch]["equal"] and out[batch]["reads"] == 3
-        assert out[batch]["emissions"] > 0
-        assert out[batch]["syncmer_extract_ms"] > 0
+    for k, s in time_extract.SCHEMES:
+        for batch in ("random", "all_tied"):
+            rec = out[f"{k}/{s}"][batch]
+            assert rec["equal"] and rec["reads"] == 3
+            assert rec["emissions"] > 0
+            assert rec["syncmer_extract_ms"] > 0
+            assert rec["syncmer_track_device_ms"] > 0
 
 
 def test_time_sort_runs_on_the_twins(capsys):
@@ -529,6 +532,32 @@ def test_parity_gate_on_the_twins(tmp_path):
     assert bench.parity_gate("cpu", n_reads=64, n_mixed=48,
                              root=str(tmp_path)) == {
         f: True for f in bench.FAMILIES}
+
+
+@pytest.mark.parametrize("family", bench.ROUTED_FAMILIES)
+def test_parity_gate_fails_a_family_off_the_fused_step(family, tmp_path,
+                                                       monkeypatch):
+    """The gate's route check alone: each routed family under the rule
+    that kept it off the fused step (s <= 15 for the device extractor;
+    the JAX package's L/4 hash capacity) still gives the host's TSV, and
+    the gate fails it on its routes."""
+    from taxor_tpu_torch.device import hixf_search
+
+    if family == "wide_smer_syncmer":
+        monkeypatch.setattr(hixf_search, "supports", lambda sch: (
+            dsync.supports(sch) and sch.syncmer_size <= 15))
+    else:
+        monkeypatch.setattr(hixf_search, "hash_cap",
+                            lambda L, k, s, t: jdsync.hash_cap(L))
+    monkeypatch.setattr(bench, "PARITY_FAMILIES",
+                        {family: bench.PARITY_FAMILIES[family]})
+    routes = {}
+    assert bench.parity_gate("cpu", n_reads=64, n_mixed=48,
+                             root=str(tmp_path), routes=routes) == {
+        family: False}
+    r = routes[family]
+    assert (r["host_hashes"] if family == "wide_smer_syncmer"
+            else r["hcap_overflow"]) > 0
 
 
 def test_bench_refuses_a_missing_card():

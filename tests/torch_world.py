@@ -160,7 +160,9 @@ def kind_flat_step(mesh, case) -> dict:
     L = packed.shape[1] * 4
     step = sharding.sharded_e2e_fn(
         mesh, k=scheme.kmer_size, s=scheme.syncmer_size, t=scheme.t_syncmer,
-        hcap=dsync.hash_cap(L) if scheme.use_syncmer else L, topk=16,
+        hcap=dsync.hash_cap(L, scheme.kmer_size, scheme.syncmer_size,
+                            scheme.t_syncmer) if scheme.use_syncmer else L,
+        topk=16,
         scheme_kind="syncmer" if scheme.use_syncmer else "minimizer",
         window=scheme.window_size, scale_thresh=_scale_thresh(scheme))
     dev = mesh.device
